@@ -1,0 +1,131 @@
+"""SHA-256 in plain PyTorch, vectorised over lanes.
+
+Values are u32 carried in int64 (see ``utils.u32``). A rotation uses the
+doubled word ``x | x << 32``: its right shift by ``n`` holds ``rotr(x, n)``
+in the low 32 bits whatever happens above them, so each sum masks once at
+the end instead of after every rotation.
+
+Layouts shared with the kernels (S = lanes, bps = blocks per lane):
+  words_t  [bps*16, S] u32   block t's BE word w of lane s at [t*16+w, s]
+  cutflag  [bps, S]    i32   1 after the last block of a chunk
+  states   [bps*8, S]  u32   post-block state word i at [t*8+i, s]
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dfs_tpu_torch.utils import u32
+
+M = u32.M32
+
+_K = np.array([
+    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
+    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
+    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
+    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
+    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
+    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
+    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
+    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
+    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
+    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
+    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2,
+], dtype=np.uint32)
+
+_H0 = np.array([
+    0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
+    0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19,
+], dtype=np.uint32)
+
+_KI = [int(k) for k in _K]
+_HI = [int(h) for h in _H0]
+
+
+def h0_tensor(device) -> torch.Tensor:
+    """H0 as an int64 [8] tensor."""
+    return torch.tensor(_HI, dtype=torch.int64, device=device)
+
+
+def _dbl(x: torch.Tensor) -> torch.Tensor:
+    return x | (x << 32)
+
+
+def schedule(w16: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Message schedule: 16 words -> 64 words, each plus its round
+    constant K[t] (unmasked; < 2**33), ready for :func:`rounds`."""
+    w = list(w16)
+    for t in range(16, 64):
+        x, y = w[t - 15], w[t - 2]
+        xd, yd = _dbl(x), _dbl(y)
+        s0 = ((xd >> 7) ^ (xd >> 18) ^ (x >> 3)) & M
+        s1 = ((yd >> 17) ^ (yd >> 19) ^ (y >> 10)) & M
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & M)
+    return [wt + k for wt, k in zip(w, _KI)]
+
+
+def rounds(state8: list[torch.Tensor], wk: list[torch.Tensor]
+           ) -> list[torch.Tensor]:
+    """The 64 compression rounds plus the feed-forward. wk: 64 words from
+    :func:`schedule` (W[t] + K[t])."""
+    a, b, c, d, e, f, g, h = state8
+    for t in range(64):
+        ed = _dbl(e)
+        s1 = ((ed >> 6) ^ (ed >> 11) ^ (ed >> 25)) & M
+        ch = g ^ (e & (f ^ g))
+        t1 = h + s1 + ch + wk[t]
+        ad = _dbl(a)
+        s0 = ((ad >> 2) ^ (ad >> 13) ^ (ad >> 22)) & M
+        maj = (a & b) | (c & (a | b))
+        h, g, f, e, d, c, b, a = (g, f, e, (d + t1) & M, c, b, a,
+                                  (t1 + s0 + maj) & M)
+    return [(s + v) & M for s, v in zip(state8, [a, b, c, d, e, f, g, h])]
+
+
+def compress(state8: list[torch.Tensor], w16: list[torch.Tensor]
+             ) -> list[torch.Tensor]:
+    """One SHA-256 compression; state8/w16: lists of identically-shaped
+    int64 u32 tensors (elementwise over any shape)."""
+    return rounds(state8, schedule(w16))
+
+
+def strip_states(words_t: torch.Tensor, cutflag: torch.Tensor
+                 ) -> torch.Tensor:
+    """The strip scan: (words_t [bps*16, S] u32 BE, cutflag [bps, S]) ->
+    states [bps*8, S] u32 — each lane chains its blocks in order, emits the
+    post-block state, and resets to H0 after a flagged block."""
+    rows, s = words_t.shape
+    bps = rows // 16
+    dev = words_t.device
+    w = u32.widen(words_t).reshape(bps, 16, s)
+    # the schedule does not depend on the chain: all blocks at once
+    wk = torch.stack(schedule([w[:, i, :] for i in range(16)]), dim=1)
+    h0 = h0_tensor(dev)[:, None].expand(8, s)
+    cut = cutflag.reshape(bps, s) != 0
+    state = [h0[i] for i in range(8)]
+    out = torch.empty((bps, 8, s), dtype=torch.int64, device=dev)
+    for t in range(bps):
+        new = rounds(state, [wk[t, i] for i in range(64)])
+        out[t] = torch.stack(new)
+        state = [torch.where(cut[t], h0[i], new[i]) for i in range(8)]
+    return u32.narrow(out.reshape(bps * 8, s))
+
+
+def pad_block(lens: torch.Tensor) -> list[torch.Tensor]:
+    """The 16 words of the synthetic FIPS padding block that follows a
+    chunk of ``lens`` bytes (a multiple of 64): 0x80, zeros, bit length."""
+    ln = lens.to(torch.int64) & M
+    zero = torch.zeros_like(ln)
+    return ([torch.full_like(ln, 0x80000000)] + [zero] * 13
+            + [ln >> 29, (ln * 8) & M])
+
+
+def cut_state_rows(states: torch.Tensor, s: int) -> torch.Tensor:
+    """Relayout [bps*8, S] states to row-contiguous [bps*S, 8] so a chunk's
+    state is one 32-byte row."""
+    rows = states.shape[0]
+    bps = rows // 8
+    v = states.view(torch.int32) if states.dtype == torch.uint32 else states
+    out = v.reshape(bps, 8, s).transpose(1, 2).reshape(bps * s, 8)
+    return out.view(torch.uint32) if states.dtype == torch.uint32 else out

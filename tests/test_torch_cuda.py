@@ -1,0 +1,115 @@
+"""The CUDA kernels on the card: each against its plain version, and the
+chain, the walk and the node against the NumPy oracle. Marked ``cuda``;
+without a card every test skips. On a machine with one (``--noconftest``:
+the suite's conftest imports JAX, which the port needs nowhere):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q -p no:xdist
+"""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+from dfs_tpu_torch.ops import cdc_anchored as A
+from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
+from dfs_tpu_torch.utils import u32
+
+pytestmark = pytest.mark.cuda
+
+SMALL = A.AnchoredCdcParams(
+    chunk=AlignedCdcParams(min_blocks=2, avg_blocks=4, max_blocks=16,
+                           strip_blocks=64),
+    seg_min=2048, seg_max=4096, seg_mask=2047)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def corpus(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, size=n,
+                                                dtype=np.uint8)
+
+
+def _same(a, b):
+    if a.dtype == torch.uint32:
+        a, b = u32.widen(a), u32.widen(b)
+    assert torch.equal(a.cpu(), b.cpu())
+
+
+def _region(dev, n=300000, seed=1):
+    data = corpus(n, seed)
+    words = A.words_tensor(A.region_buffer(data, np.zeros(8, np.uint8),
+                                           SMALL)).to(dev)
+    shape = A.make_chain_fn(SMALL, words.shape[0], 8, "tight").shape
+    tiles = A.anchor_tiles(words, SMALL, shape["m_words"])
+    scal = torch.tensor([0, n, 1], dtype=torch.int32, device=dev)
+    return words, shape, tiles, scal
+
+
+def test_kernels_match_plain_versions(dev):
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops.layout import (bswap_transpose,
+                                          bswap_transpose_plain)
+    from dfs_tpu_torch.ops.repack import repack_lanes, repack_lanes_plain
+    from dfs_tpu_torch.ops.select import select_walk, select_walk_plain
+    from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
+                                                strip_chunk_states_plain)
+
+    words, shape, tiles, scal = _region(dev)
+    before = kernels.launch_counts()
+    cap, s_pad = shape["cap"], shape["s_pad"]
+    b = select_walk(tiles, scal, cap, SMALL.seg_min, SMALL.seg_max)
+    _same(b, select_walk_plain(tiles, scal, cap, SMALL.seg_min,
+                               SMALL.seg_max))
+    _, _, w_off, sh8, rb, _, _, _ = A.descriptors(b, scal[0], s_pad)
+    lw = SMALL.chunk.strip_blocks * 16
+    packed = repack_lanes(words, w_off, sh8, lw)
+    _same(packed, repack_lanes_plain(words, w_off, sh8, lw))
+    wt = bswap_transpose(packed)
+    _same(wt, bswap_transpose_plain(packed))
+    cp = SMALL.chunk
+    args = (wt, rb, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
+    for a, p in zip(strip_chunk_states(*args),
+                    strip_chunk_states_plain(*args)):
+        _same(a, p)
+    after = kernels.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+
+
+def test_chain_and_walk_match_oracle_on_card(dev):
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+
+    for n in (1, 5000, 300000):
+        data = corpus(n, seed=n)
+        assert A.batch_chunks_anchored(data, SMALL, lane_multiple=8,
+                                       device=dev) == \
+            A.chunk_file_anchored_np(data, SMALL)
+    data = corpus(200000, seed=7)
+    f = AnchoredCudaFragmenter(SMALL, region_bytes=16384, cpu_cutoff=0,
+                               lane_multiple=8, device=dev)
+    want = A.chunk_file_anchored_np(data, SMALL)
+    assert [(c.offset, c.length, c.digest) for c in f.chunk(data.tobytes())
+            ] == want
+    blocks = [data[i:i + 7333].tobytes() for i in range(0, len(data), 7333)]
+    got = [c for bt in f.chunks_stream(blocks) for c in bt]
+    assert [(c.offset, c.length, c.digest) for c in got] == want
+
+
+def test_node_roundtrip_on_card(dev, tmp_path):
+    from dfs_tpu_torch.node import LocalNode
+
+    node = LocalNode(tmp_path, device=dev, params=SMALL, region_bytes=16384,
+                     cpu_cutoff=0, lane_multiple=8)
+    body = corpus(100000, seed=9).tobytes()
+    m, st = node.upload_stream(iter([body[i:i + 4096]
+                                     for i in range(0, len(body), 4096)]))
+    assert m.file_id == hashlib.sha256(body).hexdigest()
+    assert node.download(m.file_id) == body
+    _, st2 = node.upload(body)
+    assert st2["transferredBytes"] == 0

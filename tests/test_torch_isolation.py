@@ -1,0 +1,99 @@
+"""The port stands alone: no file of dfs_tpu_torch imports JAX or anything
+of dfs_tpu, a process that uses the port never loads either, and without
+CUDA the entry points raise instead of running on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "dfs_tpu_torch"
+
+
+def _forbidden(module: str) -> bool:
+    # exact names or their submodules: dfs_tpu_torch itself also starts
+    # with "dfs_tpu"
+    return any(module == m or module.startswith(m + ".")
+               for m in ("jax", "jaxlib", "dfs_tpu"))
+
+
+def test_no_file_imports_jax_or_dfs_tpu():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 10
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{f.relative_to(ROOT)}: {n}" for n in names
+                    if _forbidden(n)]
+    assert not bad, bad
+
+
+_SCRIPT = r"""
+import sys, tempfile
+import numpy as np
+from dfs_tpu_torch.node import LocalNode
+from dfs_tpu_torch.ops.cdc_anchored import AnchoredCdcParams
+from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
+import dfs_tpu_torch.convert, dfs_tpu_torch.kernels  # noqa: F401
+p = AnchoredCdcParams(chunk=AlignedCdcParams(min_blocks=2, avg_blocks=4,
+                      max_blocks=16, strip_blocks=64),
+                      seg_min=2048, seg_max=4096, seg_mask=2047)
+body = np.random.default_rng(0).integers(0, 256, 20000, np.uint8).tobytes()
+with tempfile.TemporaryDirectory() as d:
+    n = LocalNode(d, device="cpu", params=p, region_bytes=16384,
+                  cpu_cutoff=0, lane_multiple=8)
+    m, _ = n.upload(body)
+    assert n.download(m.file_id) == body
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "jaxlib", "dfs_tpu")
+             or k.startswith(("jax.", "jaxlib.", "dfs_tpu.")))
+print("LOADED", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_process_never_loads_jax_or_dfs_tpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=tmp_path,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout
+
+
+def test_entry_points_raise_without_cuda(tmp_path):
+    from dfs_tpu_torch import resolve_device
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+    from dfs_tpu_torch.node import LocalNode
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalNode(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AnchoredCudaFragmenter()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A missing nvcc is an error, never a silent fallback."""
+    from dfs_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "_BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(kernels, "_libs", {})
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.build_all()
