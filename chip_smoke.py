@@ -1,18 +1,31 @@
 #!/usr/bin/env python3
-"""Smoke test of dfs_tpu_torch on one NVIDIA card: builds the CUDA
-kernels, holds each against its plain PyTorch version at the shapes the
-main path gives it, times it, then drives the main path end to end — a
-LocalNode streaming a 256 MiB upload through the anchored CDC + SHA-256
-chain at the default parameters (64 MiB windows, two in flight) — and
-checks the result against the NumPy oracle, hashlib and a download.
+"""Smoke test of dfs_tpu_torch on NVIDIA cards: builds the CUDA kernels,
+holds each against its plain PyTorch version at the shapes the main paths
+give it, times it, then drives the paths end to end and checks each
+against the NumPy oracle:
+
+- ``e2e``: a LocalNode streaming a 256 MiB upload through the anchored
+  CDC + SHA-256 chain at the default parameters (64 MiB windows, two in
+  flight), checked against the oracle, hashlib and a download (kernels
+  1-4);
+- ``sharded_parity``: both sharded anchored passes and the aligned step on
+  a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
+- ``sharded_production``: both sharded anchored passes on a 64 MiB region
+  at the default parameters over one slot per card (kernels 2, 3, 5);
+- ``sharded_walk``: the window-batched walk over the same 256 MiB body on
+  one slot per card and on 4 slots of the first card (kernels 1-4).
+
+Each path runs with the launch counters set to 0 just before it and read
+just after; a kernel of the path that never launched fails the run.
 
     python3 chip_smoke.py            # from the repository root; one card
 
 Each phase prints one JSON line. Before the last line come the card's
-``nvidia-smi`` name and power limit and the ``{"kernels": [...]}`` table;
-the last line is ``{"ok": true, "device": {...}}``. Any failed check
-exits non-zero. Without CUDA it exits 2 and prints no result. It imports
-nothing of JAX or of the dfs_tpu package.
+``nvidia-smi`` name and power limit and the ``{"kernels": [...]}`` table
+(``launches`` counted on the path named by ``launches_path``); the last
+line is ``{"ok": true, "device": {...}}``. Any failed check exits
+non-zero. Without CUDA it exits 2 and prints no result. It imports nothing
+of JAX or of the dfs_tpu package.
 """
 
 from __future__ import annotations
@@ -40,13 +53,20 @@ PEAK_OPS_S = 67e12
 # bytes x ~14), selection (~10), SHA-256 schedule (48 x 13) and rounds
 # (64 x 23) plus the feed-forward (8)
 K1_OPS_PER_BLOCK = 32 * 14 + 10 + 48 * 13 + 64 * 23 + 8
+# kernel 5: the SHA-256 part alone
+K5_OPS_PER_BLOCK = 48 * 13 + 64 * 23 + 8
 
 REPLACES = {
     "strip_chunk_states": "dfs_tpu/ops/sha256_strip.py:264",
     "repack_lanes": "dfs_tpu/ops/repack.py:144",
     "bswap_transpose": "dfs_tpu/ops/layout.py:39",
     "select_walk": "dfs_tpu/ops/select_pallas.py:62",
+    "strip_states": "dfs_tpu/ops/sha256_strip.py:140",
 }
+# the path whose run counts each kernel's launches in the kernels table
+LAUNCHES_PATH = {"strip_chunk_states": "e2e", "repack_lanes": "e2e",
+                 "bswap_transpose": "e2e", "select_walk": "e2e",
+                 "strip_states": "sharded_production"}
 
 
 def emit(obj) -> None:
@@ -94,6 +114,15 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def path_launches(kernels, path: str, needed) -> dict:
+    """The launch counts of the path just driven; fails if a kernel of the
+    path never launched."""
+    counts = kernels.launch_counts()
+    for name in needed:
+        check(counts[name] > 0, f"kernel {name} never launched on {path}")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -104,6 +133,9 @@ def main() -> int:
     import numpy as np
 
     from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.config import FragmenterConfig
+    from dfs_tpu_torch.fragmenter.cdc_anchored_sharded import \
+        ShardedAnchoredCudaFragmenter
     from dfs_tpu_torch.node import LocalNode
     from dfs_tpu_torch.ops import cdc_anchored as A
     from dfs_tpu_torch.ops.layout import (bswap_transpose,
@@ -111,7 +143,11 @@ def main() -> int:
     from dfs_tpu_torch.ops.repack import repack_lanes, repack_lanes_plain
     from dfs_tpu_torch.ops.select import select_walk, select_walk_plain
     from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
-                                                strip_chunk_states_plain)
+                                                strip_chunk_states_plain,
+                                                strip_states,
+                                                strip_states_plain)
+    from dfs_tpu_torch.parallel import sharded_cdc as S
+    from dfs_tpu_torch.parallel.mesh import make_mesh
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -223,6 +259,29 @@ def main() -> int:
                f"({live_blocks} live)")
     del out_p
 
+    # K5: the strip scan with K1's cuts at the same pass-B shape — against
+    # its plain version (one timed run: 2048 blocks in Python) and against
+    # K1's states, bit for bit
+    cf_k = out_k[0]
+    s_k = strip_states(t_k, cf_k)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    s_p = strip_states_plain(t_k, cf_k)
+    end.record()
+    end.synchronize()
+    k5_plain_ms = start.elapsed_time(end)
+    check(max_abs_err(s_k, out_k[2]) == 0,
+          "strip_states disagrees with strip_chunk_states' states")
+    kernel_row("strip_states", max_abs_err(s_k, s_p),
+               cuda_ms(lambda: strip_states(t_k, cf_k), reps=10),
+               k5_plain_ms, nbytes(t_k, cf_k, s_k),
+               live_blocks * K5_OPS_PER_BLOCK,
+               f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
+               f"({live_blocks} live), K1's cutflag; states == K1's")
+    del s_p, s_k
+
     # where one region's time goes, stage by stage (device time)
     chain = A.make_chain_fn(params, words.shape[0], 128, "tight")
     cf32, since, srows = A.scan_half(words, w_off, sh8, real_blocks, cp,
@@ -268,7 +327,9 @@ def main() -> int:
         t0 = time.perf_counter()
         m, st = node.upload_stream(iter(blocks), name="smoke.bin")
         upload_s = time.perf_counter() - t0
-        launches = kernels.launch_counts()
+        launches = {"e2e": path_launches(
+            kernels, "e2e", ("strip_chunk_states", "repack_lanes",
+                             "bswap_transpose", "select_walk"))}
 
         windows = -(-(BODY_BYTES - REGION_BYTES) // frag.stride) + 1
         got = [(c.offset, c.length, c.digest) for c in m.chunks]
@@ -290,8 +351,6 @@ def main() -> int:
         check(dedup > 0.9, f"edited copy deduped only {dedup:.3f}")
         check(node.download(m3.file_id) == bytes(edited),
               "edited download not identical")
-        for name, n in launches.items():
-            check(n > 0, f"kernel {name} never launched on the main path")
         emit({"phase": "e2e", "bytes": BODY_BYTES, "block_bytes": BLOCK_BYTES,
               "windows": windows, "chunks": len(m.chunks),
               "unique_chunks": st["uniqueChunks"],
@@ -299,15 +358,65 @@ def main() -> int:
               "fragment_gib_s": BODY_BYTES / frag_s / 2**30,
               "upload_s": upload_s,
               "upload_gib_s": BODY_BYTES / upload_s / 2**30,
-              "launches": launches, "oracle_equal": True,
+              "launches": launches["e2e"], "oracle_equal": True,
               "file_id_ok": True, "download_identical": True,
               "reupload_transferred": st2["transferredBytes"],
               "edit_dedup_fraction": dedup,
               "fsyncs": node.store.chunks.fsync_count()})
         node.close()
 
+    # ---- the multi-device anchored path ----
+    n_cards = torch.cuda.device_count()
+    slots4 = [dev] * 4                  # 4 slots, 4 streams, one card
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    parity = S.anchored_sharded_parity_check(make_mesh(4, device=slots4), 4)
+    S.aligned_sharded_parity_check(make_mesh(4, device=slots4), 4)
+    torch.cuda.synchronize()
+    launches["sharded_parity"] = path_launches(
+        kernels, "sharded_parity",
+        ("repack_lanes", "bswap_transpose", "strip_states"))
+    emit({"phase": "sharded_parity", "slots": 4, "mesh": "4 x cuda:0",
+          "seconds": time.perf_counter() - t0, "anchored": parity,
+          "aligned_ok": True, "oracle_equal": True,
+          "launches": launches["sharded_parity"]})
+
+    kernels.reset_launch_counts()
+    prod = S.anchored_sharded_production_check(make_mesh(n_cards), n_cards)
+    launches["sharded_production"] = path_launches(
+        kernels, "sharded_production",
+        ("repack_lanes", "bswap_transpose", "strip_states"))
+    emit({"phase": "sharded_production", "mesh": f"{n_cards} card(s)",
+          **prod, "oracle_equal": True,
+          "launches": launches["sharded_production"]})
+
+    for label, cfg, slots in (
+            ("all_cards", FragmenterConfig(devices=n_cards), None),
+            ("4_slots_one_card", FragmenterConfig(devices=4), slots4)):
+        walk = ShardedAnchoredCudaFragmenter(params, cfg, device=slots)
+        walk.chunk(body[:walk.region_bytes * 2])          # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = [(c.offset, c.length, c.digest)
+               for batch in walk.chunks_stream(iter(blocks)) for c in batch]
+        walk_s = time.perf_counter() - t0
+        path = f"sharded_walk:{label}"
+        launches[path] = path_launches(
+            kernels, path, ("strip_chunk_states", "repack_lanes",
+                            "bswap_transpose", "select_walk"))
+        check(got == oracle, f"{path} chunk table != numpy oracle")
+        emit({"phase": "sharded_walk", "mesh": label,
+              "slots": walk.mesh.size, "region_bytes": walk.region_bytes,
+              "windows": -(-(BODY_BYTES - walk.region_bytes)
+                           // walk.stride) + 1,
+              "chunks": len(got), "seconds": walk_s,
+              "gib_s": BODY_BYTES / walk_s / 2**30, "oracle_equal": True,
+              "launches": launches[path]})
+
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches_path"] = LAUNCHES_PATH[row["name"]]
+        row["launches"] = launches[row["launches_path"]][row["name"]]
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
 """dfs_tpu_torch — the PyTorch/CUDA port of dfs_tpu's chunk-and-hash path.
 
 The package mirrors ``dfs_tpu``'s layout (``ops/``, ``fragmenter/``,
-``store/``, ``meta/``, ``utils/``) and imports neither JAX nor anything of
+``parallel/``, ``store/``, ``meta/``, ``utils/``, ``config.py``) and
+imports neither JAX nor anything of
 ``dfs_tpu``: every piece it needs is a copy of its own. Device work runs
 on an NVIDIA card through hand-written CUDA kernels (``csrc/``, built and
 bound by :mod:`dfs_tpu_torch.kernels`); each kernel has a plain PyTorch

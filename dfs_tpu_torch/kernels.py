@@ -8,10 +8,12 @@ headers, so a build takes seconds. All sources build in parallel (one
 a later process finds the libraries there. A missing ``nvcc`` or a failed
 build raises.
 
-Every C entry point enqueues its kernel on the stream it is given (the
-caller passes PyTorch's current stream) and returns ``cudaGetLastError()``
-as an int; :func:`launch` raises on a non-zero code and counts the launch.
-The counters let a run prove that its main path went through the kernels.
+Every C entry point enqueues its kernel on the stream it is given and
+returns ``cudaGetLastError()`` as an int. :func:`launch` calls it with the
+tensors' card made the CUDA runtime's current device (the C code launches
+there) and PyTorch's current stream on that card, raises on a non-zero
+code and counts the launch. The counters let a run prove that its main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         # tiles, m_tiles, scal(start0, n, final), bounds, cap, win,
         # seg_min, seg_max, tile_bytes, stream
         [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "strip_states": (
+        "strip_states.cu", "dfs_strip_states",
+        # words_t, cutflag, states, bps, s, stream
+        [_P, _P, _P, _I, _I, _P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -120,11 +126,16 @@ def build_all() -> dict[str, ctypes.CDLL]:
         return dict(_libs)
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point (builds on first use), raise on
-    a CUDA error code, and count the launch."""
+def launch(name: str, device, *args) -> None:
+    """Call kernel ``name``'s C entry point (builds on first use) on
+    ``device``'s current stream, raise on a CUDA error code, and count the
+    launch. ``args`` are the entry point's arguments before the stream."""
+    import torch
+
     lib = _libs.get(name) or build_all()[name]
-    rc = getattr(lib, KERNELS[name][1])(*args)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, KERNELS[name][1])(*args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
@@ -138,13 +149,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
-
-
-def stream_handle(device) -> int:
-    """PyTorch's current CUDA stream on ``device`` as an int handle."""
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check_cuda(name: str, t, dtype=None, ndim: int | None = None) -> None:

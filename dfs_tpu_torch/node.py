@@ -26,7 +26,10 @@ from pathlib import Path
 import numpy as np
 
 from dfs_tpu_torch import resolve_device
+from dfs_tpu_torch.config import FragmenterConfig
 from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+from dfs_tpu_torch.fragmenter.cdc_anchored_sharded import \
+    ShardedAnchoredCudaFragmenter
 from dfs_tpu_torch.meta.manifest import Manifest
 from dfs_tpu_torch.ops.cdc_anchored import AnchoredCdcParams
 from dfs_tpu_torch.store.cas import NodeStore
@@ -80,19 +83,28 @@ class _Placement:
 class LocalNode:
     """One node over ``data_root`` (``<data_root>/node-<id>/``). ``device``
     defaults to the CUDA card and raises without one; ``device="cpu"`` runs
-    the chain through the plain versions. Fragmenter knobs (region_bytes,
-    cpu_cutoff, lane_multiple, max_inflight) pass through ``frag``."""
+    the chain through the plain versions. ``frag.devices > 1`` chunks with
+    the window-batched walk over that many slots, placed by ``device`` as
+    ``parallel.mesh.make_mesh`` places them (None: one per card, raising
+    when the cards are not there; "cpu": CPU slots); otherwise the
+    single-device walk's knobs (region_bytes, cpu_cutoff, lane_multiple,
+    max_inflight) pass through ``engine``."""
 
     CAS_IO_THREADS = 4                     # the reference's cas_io_threads
     PLACE_LIMIT_BYTES = 64 * 1024 * 1024   # payload bytes queued for puts
 
     def __init__(self, data_root, node_id: int = 1, device=None,
-                 params: AnchoredCdcParams | None = None, **frag) -> None:
+                 params: AnchoredCdcParams | None = None,
+                 frag: FragmenterConfig | None = None, **engine) -> None:
         self.device = resolve_device(device)
         self.node_id = int(node_id)
         self.store = NodeStore(Path(data_root), self.node_id, fsync=True)
-        self.fragmenter = AnchoredCudaFragmenter(params, device=self.device,
-                                                 **frag)
+        if frag is not None and frag.devices > 1:
+            self.fragmenter = ShardedAnchoredCudaFragmenter(
+                params, frag, device=device, **engine)
+        else:
+            self.fragmenter = AnchoredCudaFragmenter(
+                params, device=self.device, **engine)
         self._cas_pool = ThreadPoolExecutor(
             max_workers=self.CAS_IO_THREADS, thread_name_prefix="cas-w")
 

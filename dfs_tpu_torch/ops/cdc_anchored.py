@@ -31,6 +31,10 @@ The chain for one region (:func:`make_chain_fn`), in order:
 - ``compact_half``: cut compaction, FIPS finalize and lane-tail digests
   (plain torch).
 
+The last two are pass B (:func:`make_segment_fn`), which the sharded
+window walk also runs, on lane tables built host-side
+(:func:`lane_tables_np`).
+
 Everything runs on the device of the region buffer and enqueues without a
 host sync; :func:`region_collect` is the only sync point. The NumPy oracle
 (``anchor_hash_np`` ... ``chunk_file_anchored_np``) states the semantics
@@ -288,6 +292,35 @@ def descriptors(bounds: torch.Tensor, start0: torch.Tensor, s_pad: int):
             nseg.to(i32))
 
 
+def lane_tables_np(bounds, start0: int, s_pad: int):
+    """Host-side pass-B lane tables for ONE region from its segment bounds:
+    the NumPy mirror of :func:`descriptors`' encoding (word floor + 2
+    lookback words, ``8*(start%4)`` funnel shift, ceil-div block counts,
+    tail lengths), padded to ``s_pad`` lanes. Returns ``(starts, seg_lens,
+    w_off, sh8, real_blocks, tail_len)``, each ``[s_pad]`` (``sh8`` u32,
+    the rest i32)."""
+    bounds = np.asarray(bounds, dtype=np.int64)
+    nseg = int(bounds.shape[0])
+    if nseg > s_pad:
+        raise ValueError(f"{nseg} segments > lane table {s_pad}")
+    starts = np.zeros((s_pad,), np.int32)
+    seg_lens = np.zeros((s_pad,), np.int32)
+    w_off = np.zeros((s_pad,), np.int32)
+    sh8 = np.zeros((s_pad,), np.uint32)
+    real_blocks = np.zeros((s_pad,), np.int32)
+    tail_len = np.zeros((s_pad,), np.int32)
+    if nseg:
+        st = np.concatenate([[int(start0)], bounds[:-1]])
+        lens = bounds - st
+        starts[:nseg] = st
+        seg_lens[:nseg] = lens
+        w_off[:nseg] = st // 4 + 2       # +2: the 8 lookback bytes
+        sh8[:nseg] = (st % 4) * 8
+        real_blocks[:nseg] = -(-lens // BLOCK)
+        tail_len[:nseg] = lens % BLOCK
+    return starts, seg_lens, w_off, sh8, real_blocks, tail_len
+
+
 def _tight_segment_lanes(params: AnchoredCdcParams, m_words: int,
                          lane_multiple: int) -> int:
     """Lane count for cap_mode='tight': ~1.1x the EXPECTED segment count
@@ -418,6 +451,42 @@ def compact_half(cf32, since, state_rows, words, w_off, sh8, real_blocks,
 
 
 @functools.cache
+def make_segment_fn(params: AnchoredCdcParams, m_words: int, s_pad: int,
+                    cap_mode: str = "full"):
+    """Pass B of one region on ``s_pad`` segment lanes: ``run(words, w_off,
+    sh8, real_blocks, tail_len, starts, seg_lens) -> (count, q, offs,
+    lens, digests)`` — :func:`scan_half` then :func:`compact_half`, on the
+    buffer's device, nothing synced. ``m_words`` (region words) sizes the
+    cut capacity: the worst case at 'full', ~1.25x the expected cut count
+    at 'tight'. The counterpart of dfs_tpu's ``make_anchored_segment_fn``;
+    the sharded window step runs it at 'full' on host lane tables."""
+    cp = params.chunk
+    bps = cp.strip_blocks
+    # cuts <= blocks/min + one forced lane-final cut per lane, and the
+    # per-lane bound; tight: 1.25x the expected count
+    c_max = min(cut_capacity(s_pad, cp),
+                (m_words // 16 + s_pad) // cp.min_blocks + s_pad)
+    if cap_mode == "tight":
+        c_max = min(c_max, (m_words // 16 // cp.avg_blocks + s_pad) * 5 // 4)
+    # compaction tiles never span a lane, so in-lane cuts are >= min_blocks
+    # apart: a tile holds at most t_tile // min_blocks + 2 cuts (+1 partial
+    # leading gap, +1 forced lane-final)
+    t_tile = 128 if bps % 128 == 0 else bps
+    k_max = t_tile // cp.min_blocks + 2
+
+    def run(words, w_off, sh8, real_blocks, tail_len, starts, seg_lens):
+        cf32, since, rows = scan_half(words, w_off, sh8, real_blocks, cp,
+                                      s_pad)
+        return compact_half(cf32, since, rows, words, w_off, sh8,
+                            real_blocks, tail_len, starts, seg_lens,
+                            bps=bps, s_pad=s_pad, c_max=c_max,
+                            t_tile=t_tile, k_max=k_max)
+
+    run.shape = {"c_max": c_max, "t_tile": t_tile, "k_max": k_max}
+    return run
+
+
+@functools.cache
 def make_chain_fn(params: AnchoredCdcParams, total_words: int,
                   lane_multiple: int, cap_mode: str):
     """The whole region chain for region buffers of ``total_words`` words:
@@ -433,27 +502,14 @@ def make_chain_fn(params: AnchoredCdcParams, total_words: int,
     segments than lanes, and :func:`region_collect` then raises
     :class:`CutCapacityOverflow` so the caller redoes the window at
     'full'."""
-    cp = params.chunk
-    bps = cp.strip_blocks
     m_words = recover_m_words(total_words, params)
     cap = m_words * 4 // params.seg_min + 1
-    if cap_mode == "tight":
+    tight = cap_mode == "tight"
+    if tight:
         s_pad = _tight_segment_lanes(params, m_words, lane_multiple)
     else:
         s_pad = -(-cap // lane_multiple) * lane_multiple
-    tight = cap_mode == "tight"
-    # cuts <= blocks/min + one forced lane-final cut per lane, and the
-    # per-lane bound; tight: 1.25x the expected count
-    c_full = min(cut_capacity(s_pad, cp),
-                 (m_words // 16 + s_pad) // cp.min_blocks + s_pad)
-    c_max = c_full
-    if tight:
-        c_max = min(c_full, (m_words // 16 // cp.avg_blocks + s_pad) * 5 // 4)
-    # compaction tiles never span a lane, so in-lane cuts are >= min_blocks
-    # apart: a tile holds at most t_tile // min_blocks + 2 cuts (+1 partial
-    # leading gap, +1 forced lane-final)
-    t_tile = 128 if bps % 128 == 0 else bps
-    k_max = t_tile // cp.min_blocks + 2
+    segment = make_segment_fn(params, m_words, s_pad, cap_mode)
 
     def run(words, start0, n: int, final: bool):
         dev = words.device
@@ -467,17 +523,12 @@ def make_chain_fn(params: AnchoredCdcParams, total_words: int,
          nseg) = descriptors(bounds, scal[0], s_pad)
         seg_overflow = (nseg > s_pad).to(torch.int32) if tight \
             else torch.zeros((), dtype=torch.int32, device=dev)
-        cf32, since, rows = scan_half(words, w_off, sh8, real_blocks, cp,
-                                      s_pad)
-        count, q, offs, lens, dig = compact_half(
-            cf32, since, rows, words, w_off, sh8, real_blocks, tail_len,
-            starts, seg_lens, bps=bps, s_pad=s_pad, c_max=c_max,
-            t_tile=t_tile, k_max=k_max)
-        return consumed, seg_overflow, count, q, offs, lens, dig
+        return (consumed, seg_overflow,
+                *segment(words, w_off, sh8, real_blocks, tail_len, starts,
+                         seg_lens))
 
     run.shape = {"m_words": m_words, "cap": cap, "s_pad": s_pad,
-                 "c_max": c_max, "bps": bps, "t_tile": t_tile,
-                 "k_max": k_max}
+                 "bps": params.chunk.strip_blocks, **segment.shape}
     return run
 
 

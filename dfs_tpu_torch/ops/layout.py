@@ -44,6 +44,5 @@ def bswap_transpose(x: torch.Tensor) -> torch.Tensor:
     kernels.check_cuda(NAME, x, torch.uint32, 2)
     rows, cols = x.shape
     out = torch.empty((cols, rows), dtype=torch.uint32, device=x.device)
-    kernels.launch(NAME, x.data_ptr(), out.data_ptr(), rows, cols,
-                   kernels.stream_handle(x.device))
+    kernels.launch(NAME, x.device, x.data_ptr(), out.data_ptr(), rows, cols)
     return out

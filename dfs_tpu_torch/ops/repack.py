@@ -56,7 +56,7 @@ def repack_lanes(words: torch.Tensor, w_off: torch.Tensor, sh8: torch.Tensor,
         raise ValueError(f"{NAME}: bad shapes")
     out = torch.empty((s_pad, lane_words), dtype=torch.uint32,
                       device=words.device)
-    kernels.launch(NAME, words.data_ptr(), words.shape[0], w_off.data_ptr(),
-                   sh8.data_ptr(), out.data_ptr(), s_pad, lane_words,
-                   kernels.stream_handle(words.device))
+    kernels.launch(NAME, words.device, words.data_ptr(), words.shape[0],
+                   w_off.data_ptr(), sh8.data_ptr(), out.data_ptr(), s_pad,
+                   lane_words)
     return out

@@ -89,8 +89,8 @@ def select_walk(tiles: torch.Tensor, scal: torch.Tensor, cap: int,
     if tiles.shape[0] != 2 or scal.shape[0] != 3:
         raise ValueError(f"{NAME}: bad shapes")
     bounds = torch.empty((cap,), dtype=torch.int32, device=tiles.device)
-    kernels.launch(NAME, tiles.data_ptr(), tiles.shape[1], scal.data_ptr(),
-                   bounds.data_ptr(), cap,
+    kernels.launch(NAME, tiles.device, tiles.data_ptr(), tiles.shape[1],
+                   scal.data_ptr(), bounds.data_ptr(), cap,
                    select_window_tiles(seg_min, seg_max), seg_min, seg_max,
-                   TILE_BYTES, kernels.stream_handle(tiles.device))
+                   TILE_BYTES)
     return bounds

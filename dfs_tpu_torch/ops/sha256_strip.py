@@ -1,4 +1,6 @@
-"""Kernel 1: fused Gear candidates + greedy cut selection + strip SHA-256.
+"""Kernels 1 and 5: the strip SHA-256 scans.
+
+Kernel 1 — fused Gear candidates + greedy cut selection + strip SHA-256.
 
 Replaces ``dfs_tpu/ops/sha256_strip.py:strip_chunk_states`` (Pallas body
 ``_strip_fused_kernel``). One pass over the lane-minor words computes, per
@@ -16,8 +18,21 @@ byte and the operation bound — a later redesign (parallel candidates, then
 per-chunk SHA) is what would fill the card.
 
 Plain version: :func:`strip_chunk_states_plain` — ``ops.cdc_v2``'s
-``gear_candidates`` + ``select_cuts`` + ``ops.sha256.strip_states``, the
+``gear_candidates`` + ``select_cuts`` + :func:`strip_states_plain`, the
 same three-stage twin the JAX tests pin the Pallas kernel to.
+
+Kernel 5 — the strip SHA-256 scan with the cuts given. Replaces
+``dfs_tpu/ops/sha256_strip.py:strip_states`` (Pallas body
+``_strip_kernel``), which the multi-device steps run after their plain
+candidate and selection passes (``parallel.sharded_cdc``): every lane
+chains its blocks, emits the post-block state, and restarts from H0 after
+a flagged block. CUDA design (``csrc/strip_states.cu``): kernel 1 without
+the Gear and selection work, sharing its compression
+(``csrc/sha256_compress.cuh``); the same latency bound. It takes any lane
+count, and the card never takes the plain version for it.
+
+Plain version: :func:`strip_states_plain` (``ops.sha256.strip_states``,
+the ``strip_states_xla`` twin).
 """
 
 from __future__ import annotations
@@ -29,6 +44,9 @@ from dfs_tpu_torch.ops import cdc_v2
 from dfs_tpu_torch.ops import sha256
 
 NAME = "strip_chunk_states"
+NAME_K5 = "strip_states"
+
+strip_states_plain = sha256.strip_states
 
 
 def strip_chunk_states_plain(words_t: torch.Tensor, real_blocks: torch.Tensor,
@@ -40,7 +58,7 @@ def strip_chunk_states_plain(words_t: torch.Tensor, real_blocks: torch.Tensor,
     cand = cdc_v2.gear_candidates(words_t, seed, mask)
     cutflag, since = cdc_v2.select_cuts(cand, real_blocks, min_b, max_b)
     cf32 = cutflag.to(torch.int32)
-    return cf32, since, sha256.strip_states(words_t, cf32)
+    return cf32, since, strip_states_plain(words_t, cf32)
 
 
 def strip_chunk_states(words_t: torch.Tensor, real_blocks: torch.Tensor,
@@ -62,8 +80,29 @@ def strip_chunk_states(words_t: torch.Tensor, real_blocks: torch.Tensor,
     cutflag = torch.empty((bps, s), dtype=torch.int32, device=dev)
     since = torch.empty((bps, s), dtype=torch.int32, device=dev)
     states = torch.empty((bps * 8, s), dtype=torch.uint32, device=dev)
-    kernels.launch(NAME, words_t.data_ptr(), real_blocks.data_ptr(),
+    kernels.launch(NAME, dev, words_t.data_ptr(), real_blocks.data_ptr(),
                    cutflag.data_ptr(), since.data_ptr(), states.data_ptr(),
-                   bps, s, seed & 0xFFFFFFFF, mask & 0xFFFFFFFF, min_b, max_b,
-                   kernels.stream_handle(dev))
+                   bps, s, seed & 0xFFFFFFFF, mask & 0xFFFFFFFF, min_b, max_b)
     return cutflag, since, states
+
+
+def strip_states(words_t: torch.Tensor, cutflag: torch.Tensor
+                 ) -> torch.Tensor:
+    """(words_t [bps*16, S] u32 BE, cutflag [bps, S] i32) -> states
+    [bps*8, S] u32. CPU tensors take the plain version; CUDA tensors
+    launch kernel 5 (or raise)."""
+    if words_t.device.type == "cpu":
+        return strip_states_plain(words_t, cutflag)
+    kernels.check_cuda(NAME_K5, words_t, torch.uint32, 2)
+    kernels.check_cuda(NAME_K5, cutflag, torch.int32, 2)
+    rows, s = words_t.shape
+    if rows % 16 or tuple(cutflag.shape) != (rows // 16, s) \
+            or cutflag.device != words_t.device:
+        raise ValueError(f"{NAME_K5}: bad shapes {tuple(words_t.shape)}, "
+                         f"{tuple(cutflag.shape)}")
+    bps = rows // 16
+    dev = words_t.device
+    states = torch.empty((bps * 8, s), dtype=torch.uint32, device=dev)
+    kernels.launch(NAME_K5, dev, words_t.data_ptr(), cutflag.data_ptr(),
+                   states.data_ptr(), bps, s)
+    return states

@@ -1,0 +1,495 @@
+"""The multi-device steps of the anchored pipeline (and the aligned v2
+step) over a :class:`~dfs_tpu_torch.parallel.mesh.DeviceMesh` — the
+counterparts of dfs_tpu's ``parallel/sharded_cdc.py`` ``shard_map`` steps.
+
+Each step runs its per-slot ``local_step`` on the slot's device and, on a
+card, on the slot's own stream, then gathers the slot outputs onto the
+first slot's device in the layout dfs_tpu's ``out_specs`` give them. The
+``shard_*`` helpers cut host inputs the way dfs_tpu's ``in_specs`` shard
+them and put each piece on its slot. No step has a collective on the data
+path; the JAX steps' ``psum`` of the chunk count is a sum over the slots.
+
+- **Pass A** (:func:`make_anchored_anchor_step`): the byte-granular anchor
+  pass over overlapping word spans of one region, the 8-byte lookback
+  baked into each span host-side, tile positions rebased by the slot's
+  offset.
+- **Pass B** (:func:`make_anchored_step`): segment lanes sharded over the
+  slots, each repacking (kernel 2), transposing (kernel 3), running the
+  plain candidate and selection passes, then the strip SHA-256 scan
+  (kernel 5).
+- **The window-batched ingest steps**
+  (:func:`make_anchored_window_anchor_step`,
+  :func:`make_anchored_window_step`): one whole stream window per slot —
+  the anchor pass, then the single-device pass-B chain (``make_segment_fn``:
+  kernels 2, 3, 1 and the plain compaction) on host lane tables.
+- **The aligned v2 step** (:func:`make_aligned_step`): strips sharded over
+  the slots, kernel 3, plain candidates and selection, kernel 5.
+
+The parity checks hold the steps to the NumPy oracles on a toy geometry
+(:func:`anchored_sharded_parity_check`, :func:`aligned_sharded_parity_check`)
+and at production geometry (:func:`anchored_sharded_production_check`).
+The rolling (``make_sharded_step``, ``make_sharded_bitmap_step``), sketch
+and EC steps are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from dfs_tpu_torch.ops.cdc_anchored import (TILE_BYTES, AnchoredCdcParams,
+                                            anchor_tiles,
+                                            chunk_spans_anchored_np,
+                                            kept_anchors_np, lane_tables_np,
+                                            make_segment_fn, recover_m_words,
+                                            region_buffer, select_segments)
+from dfs_tpu_torch.ops.cdc_v2 import (BLOCK, AlignedCdcParams,
+                                      candidates_np, gear_candidates,
+                                      select_cuts, select_cuts_blocks)
+from dfs_tpu_torch.ops.layout import bswap_transpose
+from dfs_tpu_torch.ops.repack import repack_lanes
+from dfs_tpu_torch.ops.select import NO_ANCHOR
+from dfs_tpu_torch.ops.sha256_strip import strip_states
+from dfs_tpu_torch.parallel.mesh import DeviceMesh
+
+# ---------------------------------------------------------------------------
+# slots: placement, per-slot execution, gather
+# ---------------------------------------------------------------------------
+
+
+def _tensor(x) -> torch.Tensor:
+    """A host array (u32 stays u32, everything else int32) or a tensor."""
+    if isinstance(x, torch.Tensor):
+        return x
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).view(
+            torch.uint32)
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def _put(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A contiguous copy of ``t`` on ``device`` (uint32 moves as int32)."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).contiguous().to(device).view(torch.uint32)
+    return t.contiguous().to(device)
+
+
+def _split(mesh: DeviceMesh, x, axis: int = 0) -> list[torch.Tensor]:
+    """``x`` cut into ``mesh.size`` equal pieces along ``axis``, piece i on
+    slot i (dfs_tpu's ``P(("dp", "sp"))`` sharding)."""
+    t = _tensor(x)
+    if t.shape[axis] % mesh.size:
+        raise ValueError(f"axis {axis} of {tuple(t.shape)} does not split "
+                         f"over {mesh.size} slots")
+    return [_put(p, d) for p, d in zip(t.chunk(mesh.size, dim=axis),
+                                       mesh.flat)]
+
+
+def _replicate(mesh: DeviceMesh, x) -> list[torch.Tensor]:
+    """``x`` on every slot (dfs_tpu's ``P()``); slots sharing a device
+    share one copy."""
+    t = _tensor(x)
+    copies: dict[torch.device, torch.Tensor] = {}
+    for d in mesh.flat:
+        if d not in copies:
+            copies[d] = _put(t, d)
+    return [copies[d] for d in mesh.flat]
+
+
+def _run_slots(mesh: DeviceMesh, local_step, slot_args: list) -> list:
+    """``local_step(slot, *slot_args[slot])`` for the first
+    ``len(slot_args)`` slots. On a card each runs on its slot's stream,
+    after the work already queued on the card's current stream, and the
+    current stream waits for it before anything queued later — so inputs
+    made and outputs used on the current stream need no other guard."""
+    devs, streams = mesh.flat, mesh.streams
+    k = len(slot_args)
+    if k > mesh.size:
+        raise ValueError(f"{k} slot inputs for a mesh of {mesh.size}")
+    for i in range(k):
+        if streams[i] is not None:
+            streams[i].wait_stream(torch.cuda.current_stream(devs[i]))
+    outs = []
+    for i, args in enumerate(slot_args):
+        if streams[i] is None:
+            outs.append(local_step(i, *args))
+            continue
+        with torch.cuda.device(devs[i]), torch.cuda.stream(streams[i]):
+            outs.append(local_step(i, *args))
+    for i in range(k):
+        if streams[i] is not None:
+            torch.cuda.current_stream(devs[i]).wait_stream(streams[i])
+    return outs
+
+
+def _gather(mesh: DeviceMesh, ts: list[torch.Tensor], dim: int,
+            stack: bool = False) -> torch.Tensor:
+    """Concatenate (or stack) slot outputs on the first slot's device."""
+    dev = mesh.flat[0]
+    u = ts[0].dtype == torch.uint32
+    parts = [(t.view(torch.int32) if u else t).to(dev) for t in ts]
+    out = torch.stack(parts, dim) if stack else torch.cat(parts, dim)
+    return out.view(torch.uint32) if u else out
+
+
+def _count(mesh: DeviceMesh, flags: list[torch.Tensor]) -> torch.Tensor:
+    """The JAX steps' psum: the sum of every slot's local count."""
+    dev = mesh.flat[0]
+    return torch.stack([f.sum().to(dev) for f in flags]).sum()
+
+
+def synchronize(mesh: DeviceMesh) -> None:
+    """Wait for every card of the mesh (a no-op on a CPU mesh)."""
+    for d in dict.fromkeys(mesh.flat):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+# ---------------------------------------------------------------------------
+# the aligned v2 step
+# ---------------------------------------------------------------------------
+
+def _cuts_and_states(words_t, real_blocks, cp: AlignedCdcParams):
+    """Plain candidates + selection, then the strip scan (kernel 5)."""
+    cand = gear_candidates(words_t, cp.seed, cp.mask)
+    cutflag, since = select_cuts(cand, real_blocks, cp.min_blocks,
+                                 cp.max_blocks)
+    cf32 = cutflag.to(torch.int32)
+    return cf32, since, strip_states(words_t, cf32)
+
+
+def make_aligned_step(mesh: DeviceMesh, params: AlignedCdcParams):
+    """Sharded **aligned CDC v2** step: strips chunk independently, so the
+    strip axis shards over every slot with no halo.
+
+    step(words_le — per-slot [S/n, bps*16] u32, real_blocks — per-slot
+    [S/n] i32) -> (cutflag [bps, S] i32, states [bps*8, S] u32, n_chunks)
+    """
+    def local_step(slot, words_le, real_blocks):
+        cf32, _, states = _cuts_and_states(bswap_transpose(words_le),
+                                           real_blocks, params)
+        return cf32, states
+
+    def step(words_le, real_blocks):
+        outs = _run_slots(mesh, local_step, list(zip(words_le, real_blocks)))
+        cf = [o[0] for o in outs]
+        return (_gather(mesh, cf, 1), _gather(mesh, [o[1] for o in outs], 1),
+                _count(mesh, cf))
+
+    return step
+
+
+def shard_aligned_inputs(mesh: DeviceMesh, words_le, real_blocks):
+    """Aligned-step inputs with the strip axis split over the slots."""
+    return _split(mesh, words_le), _split(mesh, real_blocks)
+
+
+# ---------------------------------------------------------------------------
+# anchored, sharded: pass A over spans, pass B over segment lanes
+# ---------------------------------------------------------------------------
+
+def make_anchored_anchor_step(mesh: DeviceMesh, params: AnchoredCdcParams,
+                              m_local: int):
+    """Sharded **pass A**: the anchor hash is elementwise, so one region
+    shards over every slot as overlapping word spans with a 2-word
+    lookback (:func:`shard_anchor_inputs`); no exchange is needed.
+
+    step(spans — per-slot [2 + m_local] u32) -> tiles [2, n_slots *
+    tiles_local] i32: the first two anchor byte positions per tile,
+    region-local (slot offsets added; 2**30 = none)."""
+    def local_step(slot, span):
+        tiles = anchor_tiles(span, params, m_local)
+        return (tiles + torch.where(tiles < NO_ANCHOR, slot * m_local * 4,
+                                    0)).to(torch.int32)
+
+    def step(spans):
+        return _gather(mesh, _run_slots(mesh, local_step,
+                                        [(s,) for s in spans]), 1)
+
+    return step
+
+
+def shard_anchor_inputs(mesh: DeviceMesh, words, m_local: int):
+    """Per-slot spans for pass A from a region buffer (2 lookback words,
+    then the region): slot d gets words [d*m_local, (d+1)*m_local + 2) —
+    its span plus the 8 bytes before it."""
+    w = _tensor(words)
+    return [_put(w[d * m_local:d * m_local + 2 + m_local], dev)
+            for d, dev in enumerate(mesh.flat)]
+
+
+def make_anchored_step(mesh: DeviceMesh, params: AnchoredCdcParams):
+    """Sharded **pass B**: segments are independent lanes (the 64-byte grid
+    restarts at each segment start), so the segment axis shards over every
+    slot; the region words are replicated.
+
+    step(words — per-slot region buffer u32, w_off/sh8/real_blocks —
+    per-slot [s_pad/n]) -> (cutflag [bps, s_pad] i32, since [bps, s_pad]
+    i32, states [bps*8, s_pad] u32, n_chunks)"""
+    cp = params.chunk
+    lane_words = cp.strip_blocks * 16
+
+    def local_step(slot, words, w_off, sh8, real_blocks):
+        words_t = bswap_transpose(repack_lanes(words, w_off, sh8,
+                                               lane_words))
+        return _cuts_and_states(words_t, real_blocks, cp)
+
+    def step(words, w_off, sh8, real_blocks):
+        outs = _run_slots(mesh, local_step,
+                          list(zip(words, w_off, sh8, real_blocks)))
+        cf, since, states = ([o[i] for o in outs] for i in range(3))
+        return (_gather(mesh, cf, 1), _gather(mesh, since, 1),
+                _gather(mesh, states, 1), _count(mesh, cf))
+
+    return step
+
+
+def shard_anchored_lane_inputs(mesh: DeviceMesh, w_off, sh8, real_blocks):
+    """Only the pass-B lane tables, split over the slots."""
+    return (_split(mesh, w_off), _split(mesh, sh8), _split(mesh, real_blocks))
+
+
+def shard_anchored_inputs(mesh: DeviceMesh, words, w_off, sh8, real_blocks):
+    """Pass-B inputs: the region buffer replicated, the lane tables split."""
+    return (_replicate(mesh, words),
+            *shard_anchored_lane_inputs(mesh, w_off, sh8, real_blocks))
+
+
+# ---------------------------------------------------------------------------
+# anchored, window-batched: the ingest walk's steps, one window per slot
+# ---------------------------------------------------------------------------
+
+def make_anchored_window_anchor_step(mesh: DeviceMesh,
+                                     params: AnchoredCdcParams,
+                                     m_words: int):
+    """Window-batched **pass A**: each slot runs the whole anchor pass over
+    its own window's region buffer (lookback baked in host-side).
+
+    step(words — one region buffer per slot, up to ``mesh.size``) -> tiles
+    [B, 2, m_tiles] i32 (window-local positions)."""
+    def local_step(slot, words):
+        return anchor_tiles(words, params, m_words)
+
+    def step(words):
+        return _gather(mesh, _run_slots(mesh, local_step,
+                                        [(w,) for w in words]), 0,
+                       stack=True)
+
+    return step
+
+
+def make_anchored_window_step(mesh: DeviceMesh, params: AnchoredCdcParams,
+                              total_words: int, s_pad: int):
+    """Window-batched **pass B**: each slot runs the single-device segment
+    chain (``ops.cdc_anchored.make_segment_fn`` at cap_mode 'full' — a
+    streaming walk must never need an overflow redo) on its own window and
+    returns that window's finished chunk table.
+
+    step(words — one region buffer per slot, w_off/sh8/real_blocks/
+    tail_len/starts/seg_lens — per-slot [s_pad], see
+    :func:`shard_window_rows`) -> (count [B] i32, q [B, c_max] i32, offs
+    [B, c_max] i32, lens [B, c_max] i32, digests [B, c_max, 8] u32); row b
+    is window b's chunk table in stream order, rows past count garbage."""
+    segment = make_segment_fn(params, recover_m_words(total_words, params),
+                              s_pad, "full")
+
+    def local_step(slot, *args):
+        return segment(*args)
+
+    def step(words, *tables):
+        outs = _run_slots(mesh, local_step, list(zip(words, *tables)))
+        return tuple(_gather(mesh, [o[i] for o in outs], 0, stack=True)
+                     for i in range(5))
+
+    return step
+
+
+def shard_window_rows(mesh: DeviceMesh, *tables):
+    """[B, s_pad] host tables -> per-table lists, row b on slot b."""
+    out = []
+    for x in tables:
+        t = _tensor(x)
+        out.append([_put(t[b], mesh.flat[b]) for b in range(t.shape[0])])
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# oracles and parity checks
+# ---------------------------------------------------------------------------
+
+def host_lane_descriptors(data: np.ndarray, params: AnchoredCdcParams,
+                          pad_multiple: int):
+    """Whole-stream host segment selection and pass-B lane tables (the
+    layout from ``lane_tables_np``). Returns (starts, bounds, seg_lens,
+    w_off, sh8, real_blocks, s_real)."""
+    n = int(data.shape[0])
+    bounds = select_segments(kept_anchors_np(data, params), n, params)
+    starts = np.concatenate([[0], bounds[:-1]])
+    seg_lens = bounds - starts
+    s_real = starts.shape[0]
+    s_pad = -(-s_real // pad_multiple) * pad_multiple
+    _, _, w_off, sh8, real_blocks, _ = lane_tables_np(bounds, 0, s_pad)
+    return starts, bounds, seg_lens, w_off, sh8, real_blocks, s_real
+
+
+def expected_segment_cutflags(data: np.ndarray, starts, bounds,
+                              params: AnchoredCdcParams) -> np.ndarray:
+    """Per-segment oracle cutflags [bps, s_real] (NumPy candidates + greedy
+    selection per segment)."""
+    bps = params.chunk.strip_blocks
+    out = np.zeros((bps, len(starts)), np.int32)
+    for i in range(len(starts)):
+        seg = data[int(starts[i]):int(bounds[i])]
+        nb = -(-seg.shape[0] // BLOCK)
+        pos = np.flatnonzero(candidates_np(seg, params.chunk))
+        out[select_cuts_blocks(pos, nb, params.chunk) - 1, i] = 1
+    return out
+
+
+def _expected_tiles(kept: np.ndarray, m_words: int) -> np.ndarray:
+    """The pass-A tile table the oracle's kept anchors imply."""
+    tiles = np.full((2, m_words * 4 // TILE_BYTES), NO_ANCHOR, np.int32)
+    for p in kept:                  # first two per tile, sorted
+        t = int(p) // TILE_BYTES
+        tiles[0 if tiles[0, t] == NO_ANCHOR else 1, t] = int(p)
+    return tiles
+
+
+def _anchored_passes_check(mesh: DeviceMesh, params: AnchoredCdcParams,
+                           data: np.ndarray, lane_multiple: int,
+                           what: str) -> dict:
+    """Both sharded anchored passes over ``data`` (one region split evenly
+    over the slots), held to the NumPy oracles: pass-A tiles == the kept
+    anchors, pass-B cutflags == per-segment selection, the count == the
+    cutflag population, and the spans rebuilt from the cutflags == the
+    whole-stream oracle. Returns shapes and the passes' wall times."""
+    n_dev = mesh.size
+    m_words = data.shape[0] // 4
+    if m_words % n_dev or (m_words // n_dev * 4) % TILE_BYTES:
+        raise ValueError("the region must split into tile-aligned spans")
+    m_local = m_words // n_dev
+    words = region_buffer(data, np.zeros((8,), np.uint8), params,
+                          m_words=m_words)
+    rec: dict = {"region_bytes": int(data.shape[0]), "n_devices": n_dev,
+                 "m_local_words": m_local,
+                 "tiles_per_device": m_local * 4 // TILE_BYTES}
+
+    astep = make_anchored_anchor_step(mesh, params, m_local)
+    spans = shard_anchor_inputs(mesh, words, m_local)
+    synchronize(mesh)
+    t0 = time.perf_counter()
+    tiles = astep(spans)
+    synchronize(mesh)
+    rec["pass_a_s"] = time.perf_counter() - t0
+    kept = kept_anchors_np(data, params)
+    if not np.array_equal(tiles.cpu().numpy(), _expected_tiles(kept,
+                                                               m_words)):
+        raise AssertionError(f"{what} sharded pass A tile mismatch")
+    rec["kept_anchors"] = int(kept.shape[0])
+
+    (starts, bounds, seg_lens, w_off, sh8, real_blocks,
+     s_real) = host_lane_descriptors(data, params, lane_multiple)
+    if w_off.shape[0] % n_dev:
+        raise AssertionError(
+            f"lane table {w_off.shape[0]} not divisible by {n_dev}")
+    rec["segments"] = int(s_real)
+    rec["lane_table"] = int(w_off.shape[0])
+
+    bstep = make_anchored_step(mesh, params)
+    binp = shard_anchored_inputs(mesh, words, w_off, sh8, real_blocks)
+    synchronize(mesh)
+    t0 = time.perf_counter()
+    cf, _since, _states, n_chunks = bstep(*binp)
+    synchronize(mesh)
+    rec["pass_b_s"] = time.perf_counter() - t0
+    cf = cf.cpu().numpy()
+    if not np.array_equal(cf[:, :s_real], expected_segment_cutflags(
+            data, starts, bounds, params)):
+        raise AssertionError(f"{what} sharded cutflag mismatch")
+    if int(n_chunks) != int(cf.sum()):
+        raise AssertionError(f"{what} sharded chunk count mismatch")
+    rec["chunks"] = int(n_chunks)
+
+    spans_got = []
+    for i in range(s_real):
+        ln = int(seg_lens[i])
+        prev = 0
+        for c in (np.flatnonzero(cf[:, i]) + 1).tolist():
+            end = min(c * BLOCK, ln)
+            spans_got.append((int(starts[i]) + prev * BLOCK,
+                              end - prev * BLOCK))
+            prev = c
+    if spans_got != chunk_spans_anchored_np(data, params):
+        raise AssertionError(f"{what} sharded spans != oracle spans")
+    return rec
+
+
+def anchored_sharded_parity_check(mesh: DeviceMesh, n_devices: int) -> dict:
+    """Both sharded anchored passes on a toy stream (4 KiB lanes, 2-4 KiB
+    segments, 4 tiles per slot) against the NumPy oracles — the geometry
+    of dfs_tpu's check of the same name."""
+    if mesh.size != n_devices:
+        raise ValueError(f"mesh has {mesh.size} slots, not {n_devices}")
+    params = AnchoredCdcParams(
+        chunk=AlignedCdcParams(min_blocks=2, avg_blocks=4, max_blocks=16,
+                               strip_blocks=64),        # 4 KiB lanes
+        seg_min=2048, seg_max=4096, seg_mask=2047)
+    n = 4 * TILE_BYTES * n_devices                      # 4 tiles per slot
+    data = np.random.default_rng(11).integers(0, 256, size=n,
+                                              dtype=np.uint8)
+    return _anchored_passes_check(mesh, params, data, n_devices, "anchored")
+
+
+def anchored_sharded_production_check(mesh: DeviceMesh, n_devices: int,
+                                      region_bytes: int = 64 * 2**20
+                                      ) -> dict:
+    """The same check at production geometry: a full 64 MiB region,
+    default AnchoredCdcParams (96-128 KiB segments, 128 KiB lanes), lane
+    tables padded to 128 — the shapes the single-device chain runs.
+    Returns a record with the passes' wall times (host clock around work
+    that ends in a synchronize)."""
+    if mesh.size != n_devices:
+        raise ValueError(f"mesh has {mesh.size} slots, not {n_devices}")
+    params = AnchoredCdcParams()
+    n = (region_bytes // TILE_BYTES) * TILE_BYTES
+    data = np.random.default_rng(23).integers(0, 256, size=n,
+                                              dtype=np.uint8)
+    rec = _anchored_passes_check(mesh, params, data, 128, "production")
+    rec["params"] = {"seg_min": params.seg_min, "seg_max": params.seg_max,
+                     "strip_blocks": params.chunk.strip_blocks,
+                     "lane_multiple": 128}
+    return rec
+
+
+def aligned_sharded_parity_check(mesh: DeviceMesh, n_devices: int) -> None:
+    """One sharded aligned step (2 strips of 2 KiB per slot): cutflags must
+    match the NumPy oracle and the count their population — the check
+    dfs_tpu's multichip dryrun runs on its aligned step."""
+    if mesh.size != n_devices:
+        raise ValueError(f"mesh has {mesh.size} slots, not {n_devices}")
+    params = AlignedCdcParams(min_blocks=2, avg_blocks=4, max_blocks=16,
+                              strip_blocks=32)        # 2 KiB strips
+    s = 2 * n_devices
+    strip_len = params.strip_blocks * BLOCK
+    raw = np.random.default_rng(7).integers(0, 256, size=s * strip_len,
+                                            dtype=np.uint8)
+    words_le = raw.view("<u4").reshape(s, params.strip_blocks * 16)
+    real_blocks = np.full((s,), params.strip_blocks, np.int32)
+
+    step = make_aligned_step(mesh, params)
+    cf, _states, n = step(*shard_aligned_inputs(mesh, words_le, real_blocks))
+    cf = cf.cpu().numpy()
+    cand = candidates_np(raw, params)
+    for i in range(s):
+        pos = np.flatnonzero(
+            cand[i * params.strip_blocks:(i + 1) * params.strip_blocks])
+        expect = np.zeros((params.strip_blocks,), np.int32)
+        expect[select_cuts_blocks(pos, params.strip_blocks, params) - 1] = 1
+        if not np.array_equal(cf[:, i], expect):
+            raise AssertionError(f"aligned sharded cutflag mismatch, "
+                                 f"strip {i}")
+    if int(n) != int(cf.sum()):
+        raise AssertionError("aligned chunk count mismatch")

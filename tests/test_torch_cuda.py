@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: each against its plain version, and the
-chain, the walk and the node against the NumPy oracle. Marked ``cuda``;
+chain, the walks (single-device and sharded) and the node against the
+NumPy oracle. Marked ``cuda``;
 without a card every test skips. On a machine with one (``--noconftest``:
 the suite's conftest imports JAX, which the port needs nowhere):
 
@@ -59,7 +60,9 @@ def test_kernels_match_plain_versions(dev):
     from dfs_tpu_torch.ops.repack import repack_lanes, repack_lanes_plain
     from dfs_tpu_torch.ops.select import select_walk, select_walk_plain
     from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
-                                                strip_chunk_states_plain)
+                                                strip_chunk_states_plain,
+                                                strip_states,
+                                                strip_states_plain)
 
     words, shape, tiles, scal = _region(dev)
     before = kernels.launch_counts()
@@ -75,9 +78,14 @@ def test_kernels_match_plain_versions(dev):
     _same(wt, bswap_transpose_plain(packed))
     cp = SMALL.chunk
     args = (wt, rb, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
-    for a, p in zip(strip_chunk_states(*args),
-                    strip_chunk_states_plain(*args)):
+    k1 = strip_chunk_states(*args)
+    for a, p in zip(k1, strip_chunk_states_plain(*args)):
         _same(a, p)
+    # kernel 5 with kernel 1's cuts: its plain version, and K1's states
+    # bit for bit (the shared compression header)
+    k5 = strip_states(wt, k1[0])
+    _same(k5, strip_states_plain(wt, k1[0]))
+    _same(k5, k1[2])
     after = kernels.launch_counts()
     assert all(after[k] == before[k] + 1 for k in after)
 
@@ -113,3 +121,30 @@ def test_node_roundtrip_on_card(dev, tmp_path):
     assert node.download(m.file_id) == body
     _, st2 = node.upload(body)
     assert st2["transferredBytes"] == 0
+
+
+def test_sharded_path_on_two_slots_of_one_card(dev):
+    """The multi-device anchored path on a 2-slot mesh of one card (each
+    slot its own stream): both parity checks, and the window-batched walk
+    streamed against the oracle."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.config import FragmenterConfig
+    from dfs_tpu_torch.fragmenter.cdc_anchored_sharded import \
+        ShardedAnchoredCudaFragmenter
+    from dfs_tpu_torch.parallel import sharded_cdc as S
+    from dfs_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, device=[dev, dev])
+    assert all(st is not None for st in mesh.streams)
+    before = kernels.launch_counts()["strip_states"]
+    S.anchored_sharded_parity_check(mesh, 2)
+    S.aligned_sharded_parity_check(mesh, 2)
+    assert kernels.launch_counts()["strip_states"] == before + 4
+    walk = ShardedAnchoredCudaFragmenter(
+        SMALL, FragmenterConfig(devices=2, region_bytes=16384),
+        device=[dev, dev])
+    data = corpus(150000, seed=11)
+    blocks = [data[i:i + 7333].tobytes() for i in range(0, len(data), 7333)]
+    got = [c for bt in walk.chunks_stream(blocks) for c in bt]
+    assert [(c.offset, c.length, c.digest) for c in got] == \
+        A.chunk_file_anchored_np(data, SMALL)

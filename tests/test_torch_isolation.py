@@ -1,6 +1,7 @@
-"""The port stands alone: no file of dfs_tpu_torch imports JAX or anything
-of dfs_tpu, a process that uses the port never loads either, and without
-CUDA the entry points raise instead of running on the CPU."""
+"""The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
+imports JAX or anything of dfs_tpu, a process that uses the port — the
+single-device and the sharded walk — never loads either, and without CUDA
+the entry points raise instead of running on the CPU."""
 
 import ast
 import os
@@ -23,7 +24,7 @@ def _forbidden(module: str) -> bool:
 
 
 def test_no_file_imports_jax_or_dfs_tpu():
-    files = sorted(PKG.rglob("*.py"))
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     bad = []
     for f in files:
@@ -45,7 +46,9 @@ import numpy as np
 from dfs_tpu_torch.node import LocalNode
 from dfs_tpu_torch.ops.cdc_anchored import AnchoredCdcParams
 from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
+from dfs_tpu_torch.config import FragmenterConfig
 import dfs_tpu_torch.convert, dfs_tpu_torch.kernels  # noqa: F401
+import dfs_tpu_torch.parallel.sharded_cdc  # noqa: F401
 p = AnchoredCdcParams(chunk=AlignedCdcParams(min_blocks=2, avg_blocks=4,
                       max_blocks=16, strip_blocks=64),
                       seg_min=2048, seg_max=4096, seg_mask=2047)
@@ -55,6 +58,11 @@ with tempfile.TemporaryDirectory() as d:
                   cpu_cutoff=0, lane_multiple=8)
     m, _ = n.upload(body)
     assert n.download(m.file_id) == body
+    # the window-batched walk on two CPU slots
+    n2 = LocalNode(d, node_id=2, device="cpu", params=p,
+                   frag=FragmenterConfig(devices=2, region_bytes=16384))
+    m2, _ = n2.upload_stream(iter([body[:7000], body[7000:]]))
+    assert m2.chunks == m.chunks and n2.download(m2.file_id) == body
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "dfs_tpu")
              or k.startswith(("jax.", "jaxlib.", "dfs_tpu.")))
