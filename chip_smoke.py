@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of dfs_tpu_torch on NVIDIA cards: builds the CUDA kernels,
 holds each against its plain PyTorch version at the shapes the main paths
-give it, times it, then drives the paths end to end and checks each
+give it (kernels 1 and 5: states on live rows, dead rows 0, K5's states
+equal to K1's; with the longest chunk, the chain floor and the time per
+compression), times it, then drives the paths end to end and checks each
 against the NumPy oracle:
 
 - ``e2e``: a LocalNode streaming a 256 MiB upload through the anchored
@@ -44,17 +46,32 @@ BODY_BYTES = 256 * 1024 * 1024
 BLOCK_BYTES = 1024 * 1024
 REGION_BYTES = 64 * 1024 * 1024
 
-# H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit): HBM
-# bandwidth, and the 32-bit non-tensor rate used for integer ALU work (a
-# lower bound on time: the card's INT32 throughput is not higher)
+# H100 SXM peaks at the full 700 W power limit: HBM bandwidth (NVIDIA data
+# sheet), and the INT32 rate every kernel here is held to — 132 SMs x 64
+# INT32 lanes per SM (the CUDA C++ Programming Guide's throughput table for
+# compute capability 9.0: 32-bit add, logic and shift) x the 1.98 GHz boost
+# clock (NVIDIA H100 Tensor Core GPU Architecture white paper)
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = 67e12
-# 32-bit integer operations per block-lane in kernel 1: Gear window (32
-# bytes x ~14), selection (~10), SHA-256 schedule (48 x 13) and rounds
-# (64 x 23) plus the feed-forward (8)
-K1_OPS_PER_BLOCK = 32 * 14 + 10 + 48 * 13 + 64 * 23 + 8
-# kernel 5: the SHA-256 part alone
-K5_OPS_PER_BLOCK = 48 * 13 + 64 * 23 + 8
+BOOST_HZ = 1.98e9
+PEAK_INT_OPS_S = 132 * 64 * BOOST_HZ
+# 32-bit integer instructions per live block-lane as compiled (LOP3 takes
+# any 3-input logic, IADD3 a 3-input add, SHF a rotate). Kernel 5: the
+# producer warp's schedule (48 words x: two sigmas of SHF, SHF, SHR, LOP3,
+# then 2 IADD3 = 10) and its adding of K (64), the consumer warp's rounds
+# (64 x: two Sigmas of 3 SHF + LOP3, Ch and Maj one LOP3 each, 4 adds =
+# 14) and feed-forward (8). Kernel 1 adds the Gear window (32 bytes x
+# extract, table load, shift, add) and the candidate test (2)
+K5_OPS_PER_BLOCK = 48 * 10 + 64 + 64 * 14 + 8
+K1_OPS_PER_BLOCK = 32 * 4 + 2 + K5_OPS_PER_BLOCK
+# The chain floor: SHA-256 is sequential within a chunk, so a launch takes
+# at least its longest chunk's compressions one after another. Two limits
+# per compression of one chain (one thread; its warp alone on its
+# scheduler): the dependency path, 64 rounds of at least 4 dependent
+# instructions (SHF, LOP3, IADD3, IADD3) of about 4 cycles; and the issue
+# rate, 64 rounds of 12 INT32 instructions as compiled (6 SHF, 4 LOP3,
+# 2 IADD3; the other adds go to the FMA pipe) on a scheduler's 16 INT32
+# lanes, 2 cycles per warp instruction. The larger, 1536 cycles, is used.
+CHAIN_CYCLES_PER_COMPRESSION = max(64 * 4 * 4, 64 * 12 * 2)
 
 REPLACES = {
     "strip_chunk_states": "dfs_tpu/ops/sha256_strip.py:264",
@@ -142,10 +159,12 @@ def main() -> int:
                                           bswap_transpose_plain)
     from dfs_tpu_torch.ops.repack import repack_lanes, repack_lanes_plain
     from dfs_tpu_torch.ops.select import select_walk, select_walk_plain
-    from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
+    from dfs_tpu_torch.ops.sha256_strip import (live_state_rows,
+                                                strip_chunk_states,
                                                 strip_chunk_states_plain,
                                                 strip_states,
-                                                strip_states_plain)
+                                                strip_states_plain,
+                                                zero_dead_states)
     from dfs_tpu_torch.parallel import sharded_cdc as S
     from dfs_tpu_torch.parallel.mesh import make_mesh
 
@@ -183,9 +202,9 @@ def main() -> int:
     torch.cuda.synchronize()
     rows = []
 
-    def kernel_row(name, err, ms, plain_ms, in_bytes, ops, note):
+    def kernel_row(name, err, ms, plain_ms, in_bytes, ops, note, **extra):
         bound_bytes_ms = in_bytes / PEAK_BYTES_S * 1e3
-        bound_ops_ms = ops / PEAK_OPS_S * 1e3
+        bound_ops_ms = ops / PEAK_INT_OPS_S * 1e3
         row = {"name": name, "route": "cuda",
                "source": f"dfs_tpu_torch/csrc/{kernels.KERNELS[name][0]}",
                "replaces": REPLACES[name], "launches": None,
@@ -194,7 +213,7 @@ def main() -> int:
                "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
                else "operations", "library_ms": None}
         emit({"phase": f"kernel:{name}", **row, "bytes": in_bytes,
-              "ops": ops, "parity": note, "exact": err == 0})
+              "ops": ops, **extra, "parity": note, "exact": err == 0})
         check(err == 0, f"{name} disagrees with its plain version "
               f"(max abs err {err})")
         rows.append(row)
@@ -237,8 +256,10 @@ def main() -> int:
                f"full shape: [{s_pad}, {lane_words}] -> transposed")
     del t_p
 
-    # K1: fused Gear + selection + SHA-256, full shape both ways (the
-    # plain version walks the 2048 blocks in Python: one timed run)
+    # K1: Gear candidates + selection + SHA-256, full shape both ways (the
+    # plain version walks the 2048 blocks in Python: one timed run).
+    # cutflag and since exact on every row; states exact on the live rows
+    # and 0 on the dead ones (the plain states with their dead rows zeroed)
     args = (t_k, real_blocks, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
     out_k = strip_chunk_states(*args)
     torch.cuda.synchronize()
@@ -249,20 +270,33 @@ def main() -> int:
     end.record()
     end.synchronize()
     k1_plain_ms = start.elapsed_time(end)
-    err = max(max_abs_err(a, b) for a, b in zip(out_k, out_p))
+    cf_k = out_k[0]
+    live = live_state_rows(cf_k)
+    dead_rows = int((~live).sum())
+    err = max(max_abs_err(out_k[0], out_p[0]), max_abs_err(out_k[1], out_p[1]),
+              max_abs_err(out_k[2], zero_dead_states(out_p[2], out_p[0])))
     live_blocks = int(real_blocks.sum())
-    kernel_row("strip_chunk_states", err,
-               cuda_ms(lambda: strip_chunk_states(*args), reps=10),
-               k1_plain_ms, nbytes(t_k, real_blocks, *out_k),
+    longest = int(out_k[1].max())
+
+    def chain_info(ms):
+        floor_ms = longest * CHAIN_CYCLES_PER_COMPRESSION / BOOST_HZ * 1e3
+        return {"longest_chunk_blocks": longest,
+                "chain_floor_ms": floor_ms,
+                "us_per_compression": ms * 1e3 / longest,
+                "live_rows": int(live.sum()), "dead_rows": dead_rows}
+
+    k1_ms = cuda_ms(lambda: strip_chunk_states(*args), reps=10)
+    kernel_row("strip_chunk_states", err, k1_ms, k1_plain_ms,
+               nbytes(t_k, real_blocks, *out_k),
                live_blocks * K1_OPS_PER_BLOCK,
                f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
-               f"({live_blocks} live)")
+               f"({live_blocks} live); states on live rows, dead rows 0",
+               **chain_info(k1_ms))
     del out_p
 
     # K5: the strip scan with K1's cuts at the same pass-B shape — against
-    # its plain version (one timed run: 2048 blocks in Python) and against
-    # K1's states, bit for bit
-    cf_k = out_k[0]
+    # its plain version on the live rows (one timed run: 2048 blocks in
+    # Python) and against K1's states, bit for bit, dead rows included
     s_k = strip_states(t_k, cf_k)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -274,12 +308,13 @@ def main() -> int:
     k5_plain_ms = start.elapsed_time(end)
     check(max_abs_err(s_k, out_k[2]) == 0,
           "strip_states disagrees with strip_chunk_states' states")
-    kernel_row("strip_states", max_abs_err(s_k, s_p),
-               cuda_ms(lambda: strip_states(t_k, cf_k), reps=10),
-               k5_plain_ms, nbytes(t_k, cf_k, s_k),
+    k5_ms = cuda_ms(lambda: strip_states(t_k, cf_k), reps=10)
+    kernel_row("strip_states", max_abs_err(s_k, zero_dead_states(s_p, cf_k)),
+               k5_ms, k5_plain_ms, nbytes(t_k, cf_k, s_k),
                live_blocks * K5_OPS_PER_BLOCK,
                f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
-               f"({live_blocks} live), K1's cutflag; states == K1's")
+               f"({live_blocks} live), K1's cutflag; states on live rows, "
+               "dead rows 0; states == K1's", **chain_info(k5_ms))
     del s_p, s_k
 
     # where one region's time goes, stage by stage (device time)

@@ -1,12 +1,15 @@
 // SHA-256 compression for the strip-scan kernels (strip_chunk_states.cu,
-// strip_states.cu): one thread compresses one 64-byte block of its lane
-// with the 8-word chain state and the 16 message words in registers.
-// Each kernel source is its own translation unit and library, so the
-// constants below are per library.
+// strip_states.cu, through strip_chunks.cuh), in two halves that two warps
+// run: sha256_schedule_wk expands a block's 16 message words into the 64
+// words W+K in shared memory, and sha256_rounds_wk runs the 64 rounds and
+// the feed-forward on an 8-word chain state in registers. Each kernel
+// source is its own translation unit and library, so the constants below
+// are per library.
 
 #pragma once
 
 #include <cstdint>
+#include <cuda_runtime.h>
 
 namespace {
 
@@ -36,38 +39,61 @@ __device__ __forceinline__ void sha256_init(uint32_t st[8]) {
   st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
 }
 
-// One compression: st += rounds(st, w) (the feed-forward included). w holds
-// the block's 16 big-endian words and is overwritten by the message
+// The message schedule of one block plus the round constants: W[r] + K[r]
+// for r = 4q .. 4q+3 written to wk[q * 32] (the layout sha256_rounds_wk
+// reads). w holds the block's 16 big-endian words and is overwritten by the
 // schedule, kept as a 16-word ring.
-__device__ __forceinline__ void sha256_compress(uint32_t st[8],
-                                                uint32_t w[16]) {
+__device__ __forceinline__ void sha256_schedule_wk(uint32_t w[16],
+                                                   uint4* wk) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    uint32_t v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = 4 * q + u;
+      uint32_t wr;
+      if (r < 16) {
+        wr = w[r];
+      } else {
+        const uint32_t w15 = w[(r - 15) & 15], w2 = w[(r - 2) & 15];
+        const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
+        const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
+        wr = w[r & 15] + s0 + w[(r - 7) & 15] + s1;
+        w[r & 15] = wr;
+      }
+      v[u] = wr + kK[r];
+    }
+    wk[q * 32] = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// The 64 rounds plus the feed-forward with the schedule given: W[r] + K[r]
+// for r = 4q .. 4q+3 at wk[q * 32] (the 32 lanes of a warp interleaved, so
+// a warp's 16-byte loads hit distinct banks).
+__device__ __forceinline__ void sha256_rounds_wk(uint32_t st[8],
+                                                 const uint4* wk) {
   uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
   uint32_t e = st[4], f = st[5], g = st[6], hh = st[7];
 #pragma unroll
-  for (int r = 0; r < 64; ++r) {
-    uint32_t wr;
-    if (r < 16) {
-      wr = w[r];
-    } else {
-      const uint32_t w15 = w[(r - 15) & 15], w2 = w[(r - 2) & 15];
-      const uint32_t s0 = rotr(w15, 7) ^ rotr(w15, 18) ^ (w15 >> 3);
-      const uint32_t s1 = rotr(w2, 17) ^ rotr(w2, 19) ^ (w2 >> 10);
-      wr = w[r & 15] + s0 + w[(r - 7) & 15] + s1;
-      w[r & 15] = wr;
+  for (int q = 0; q < 16; ++q) {
+    const uint4 v = wk[q * 32];
+    const uint32_t vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
+      const uint32_t ch = (e & f) ^ (~e & g);
+      const uint32_t t1 = hh + S1 + ch + vv[u];
+      const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
+      const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
+      hh = g;
+      g = f;
+      f = e;
+      e = d + t1;
+      d = c;
+      c = b;
+      b = a;
+      a = t1 + S0 + maj;
     }
-    const uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
-    const uint32_t ch = (e & f) ^ (~e & g);
-    const uint32_t t1 = hh + S1 + ch + kK[r] + wr;
-    const uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
-    const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    hh = g;
-    g = f;
-    f = e;
-    e = d + t1;
-    d = c;
-    c = b;
-    b = a;
-    a = t1 + S0 + maj;
   }
   st[0] += a; st[1] += b; st[2] += c; st[3] += d;
   st[4] += e; st[5] += f; st[6] += g; st[7] += hh;

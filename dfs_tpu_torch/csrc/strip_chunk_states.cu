@@ -1,4 +1,4 @@
-// Kernel 1: fused Gear candidates + greedy cut selection + strip SHA-256.
+// Kernel 1: Gear candidates + greedy cut selection + strip SHA-256.
 //
 // Replaces dfs_tpu/ops/sha256_strip.py:strip_chunk_states (Pallas body
 // _strip_fused_kernel). Layouts (S lanes, bps blocks per lane):
@@ -7,19 +7,34 @@
 //   cutflag  [bps, S]    i32  1 after the last block of a chunk
 //   since    [bps, S]    i32  chunk length in blocks at a cut, else 0
 //   states   [bps*8, S]  u32  post-block chain state word i at [t*8+i, s]
+// cutflag and since are exact on every row. states are exact on a lane's
+// live rows (t <= its last cut, which is real_blocks - 1) and 0 on the
+// rest, which no consumer reads.
 //
-// One thread per lane: the Gear hash, the selection carry and the SHA-256
-// state live in registers while the thread walks its lane's blocks in
-// order. Threads of a warp hold neighbouring lanes, so every load of a
-// block word and every store of a state word is coalesced. The walk is
-// sequential per lane and only S threads exist, so the kernel is bound by
-// the latency of its dependent integer chain, not by bytes or throughput.
-// The compression is shared with kernel 5 (sha256_compress.cuh).
+// Two kernels, one launch of the wrapper:
+//  1. selection, one CTA of 256 threads per group of 8 neighbouring lanes
+//     (one 32-byte sector of every word row), in two phases through shared
+//     memory:
+//     a. candidates, in parallel: the threads hash the Gear windows (words
+//        8..15) of the group's blocks, 8 neighbouring threads on one block
+//        of the 8 lanes so every load is one sector, looking the 32 bytes
+//        up in a 256-entry table built from `seed`; a candidate sets its
+//        bit in the lane's bitmap;
+//     b. cut to cut: warp j jumps, for lane j, from each chunk start p to
+//        min(first candidate >= p + min_b - 1, p + max_b - 1, rb - 1), 32
+//        bitmap words per step (ballot + __ffs); then the CTA writes every
+//        row of cutflag and since;
+//  2. SHA-256, one chain per chunk of those cuts (strip_chunks.cuh, shared
+//     with kernel 5), which also writes the dead rows' zeros.
+// What bounds it: the longest chunk's chain of dependent compressions (at
+// most max_b blocks; ~1000 at the default parameters on a 64 MiB region)
+// at the ALU issue rate of one SM scheduler, not bytes or throughput.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "sha256_compress.cuh"
+#include "strip_chunks.cuh"
 
 namespace {
 
@@ -33,51 +48,115 @@ __device__ __forceinline__ uint32_t fmix(uint32_t x) {
   return x;
 }
 
-__global__ void strip_chunk_states_kernel(
+constexpr int kLanes = 8;               // lanes per selection CTA
+constexpr int kThreads = 32 * kLanes;   // one warp per lane
+
+// Chunks a lane can have: every chunk but the lane's last is at least
+// min(min_b, max_b) blocks long.
+inline int list_capacity(int bps, int min_b, int max_b) {
+  int m = min_b < max_b ? min_b : max_b;
+  if (m < 1) m = 1;
+  return (bps + m - 1) / m + 1;
+}
+
+// The first set bit of `bits` in [lo, lim] (INT_MAX if none), found by a
+// whole warp 32 words at a time. Every lane of the warp must call it.
+__device__ int first_set(const uint32_t* bits, int lo, int lim) {
+  const int lane = threadIdx.x & 31;
+  const int w_lo = lo >> 5, w_hi = lim >> 5;
+  for (int w0 = w_lo; lo <= lim && w0 <= w_hi; w0 += 32) {
+    const int wi = w0 + lane;
+    uint32_t b = 0;
+    if (wi <= w_hi) {
+      b = bits[wi];
+      if (wi == w_lo) b &= ~0u << (lo & 31);
+      if (wi == w_hi) b &= 0xFFFFFFFFu >> (31 - (lim & 31));
+    }
+    const uint32_t any = __ballot_sync(0xFFFFFFFFu, b != 0);
+    if (any) {
+      const int src = __ffs(any) - 1;
+      const uint32_t hit = __shfl_sync(0xFFFFFFFFu, b, src);
+      return ((w0 + src) << 5) + __ffs(hit) - 1;
+    }
+  }
+  return INT_MAX;
+}
+
+__global__ void __launch_bounds__(kThreads) select_cuts_kernel(
     const uint32_t* __restrict__ words_t, const int32_t* __restrict__ rbs,
-    int32_t* __restrict__ cutflag, int32_t* __restrict__ since_out,
-    uint32_t* __restrict__ states, int bps, int S, uint32_t seed,
-    uint32_t mask, int min_b, int max_b) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
-  const int rb = rbs[s];
+    int32_t* __restrict__ cutflag, int32_t* __restrict__ since_out, int bps,
+    int S, uint32_t seed, uint32_t mask, int min_b, int max_b) {
+  extern __shared__ uint32_t smem[];
+  __shared__ uint32_t gear[256];
+  __shared__ int rb_of[kLanes], scan_end[kLanes];
+  const int n_words = (bps + 31) / 32;
+  uint32_t* cand = smem;                       // [kLanes][n_words]
+  uint32_t* cuts = smem + kLanes * n_words;    // [kLanes][n_words]
+  const int s0 = blockIdx.x * kLanes;
   const size_t S64 = static_cast<size_t>(S);
-  uint32_t st[8];
-  sha256_init(st);
-  int since = 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  for (int t = 0; t < bps; ++t) {
-    uint32_t w[16];
-    const uint32_t* src = words_t + static_cast<size_t>(t) * 16 * S64 + s;
-#pragma unroll
-    for (int i = 0; i < 16; ++i) w[i] = src[i * S64];
+  for (int b = threadIdx.x; b < 256; b += blockDim.x)
+    gear[b] = fmix(seed ^ (static_cast<uint32_t>(b) * 0x9E3779B1u));
+  for (int i = threadIdx.x; i < 2 * kLanes * n_words; i += blockDim.x)
+    smem[i] = 0;
+  if (threadIdx.x < kLanes) {
+    const int s = s0 + threadIdx.x;
+    const int rb = s < S ? rbs[s] : 0;
+    rb_of[threadIdx.x] = rb;
+    scan_end[threadIdx.x] = max(0, min(rb, bps));   // blocks that can cut
+  }
+  __syncthreads();
 
-    // Gear window hash over the block's last 32 bytes (words 8..15, BE):
-    // byte j (stream order) weighs 2^(31-j)
+  // a. candidates: byte j of the window (stream order) weighs 2^(31-j)
+  for (int idx = threadIdx.x; idx < kLanes * bps; idx += blockDim.x) {
+    const int j = idx % kLanes, t = idx / kLanes;
+    if (t >= scan_end[j]) continue;
+    const uint32_t* src = words_t + (static_cast<size_t>(t) * 16 + 8) * S64
+                          + s0 + j;
     uint32_t h = 0;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const uint32_t byte = (w[8 + j / 4] >> (8 * (3 - j % 4))) & 0xFFu;
-      h += fmix(seed ^ (byte * 0x9E3779B1u)) << (31 - j);
-    }
-    const bool cand = (h & mask) == 0;
-
-    // greedy selection step
-    const int since1 = since + 1;
-    const bool in_range = t < rb;
-    const bool is_last = t == rb - 1;
-    const bool cut =
-        ((cand && since1 >= min_b) || since1 >= max_b || is_last) && in_range;
-    cutflag[static_cast<size_t>(t) * S64 + s] = cut ? 1 : 0;
-    since_out[static_cast<size_t>(t) * S64 + s] = cut ? since1 : 0;
-    since = cut ? 0 : (in_range ? since1 : since);
-
-    sha256_compress(st, w);
-
-    uint32_t* dst = states + static_cast<size_t>(t) * 8 * S64 + s;
+    for (int k = 0; k < 8; ++k) {
+      const uint32_t x = __ldg(src + k * S64);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst[i * S64] = st[i];
-    if (cut) sha256_init(st);
+      for (int b = 0; b < 4; ++b)
+        h += gear[(x >> (24 - 8 * b)) & 0xFFu] << (31 - (4 * k + b));
+    }
+    if ((h & mask) == 0)
+      atomicOr(&cand[j * n_words + (t >> 5)], 1u << (t & 31));
+  }
+  __syncthreads();
+
+  // b. cut to cut (warp j, lane j of the group): the greedy rule cuts at
+  // the first t >= p with (cand && t-p+1 >= min_b) || t-p+1 >= max_b ||
+  // t == rb-1
+  {
+    const int j = warp;
+    const int rb = rb_of[j], end = scan_end[j];
+    int p = 0;
+    while (p < end) {
+      const int forced = min(p + max(max_b, 1) - 1, rb - 1);
+      const int lim = min(forced, bps - 1);
+      const int cut = min(first_set(cand + j * n_words,
+                                    p + max(min_b, 1) - 1, lim), forced);
+      if (cut > bps - 1) break;     // rb > bps: the lane runs on uncut
+      if (lane == 0) {
+        cuts[j * n_words + (cut >> 5)] |= 1u << (cut & 31);
+        const size_t o = static_cast<size_t>(cut) * S64 + s0 + j;
+        cutflag[o] = 1;
+        since_out[o] = cut - p + 1;
+      }
+      p = cut + 1;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kLanes * bps; idx += blockDim.x) {
+    const int j = idx % kLanes, t = idx / kLanes;
+    if (s0 + j < S && !((cuts[j * n_words + (t >> 5)] >> (t & 31)) & 1u)) {
+      const size_t o = static_cast<size_t>(t) * S64 + s0 + j;
+      cutflag[o] = 0;
+      since_out[o] = 0;
+    }
   }
 }
 
@@ -90,13 +169,28 @@ extern "C" int dfs_strip_chunk_states(const void* words_t,
                                       unsigned int mask, int min_b, int max_b,
                                       void* stream) {
   if (bps > 0 && s > 0) {
-    const int threads = 32;   // one warp per block: spread lanes over SMs
-    strip_chunk_states_kernel<<<(s + threads - 1) / threads, threads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+    const size_t shared =
+        2 * kLanes * static_cast<size_t>((bps + 31) / 32) * 4;
+    if (shared > static_cast<size_t>(kMaxShared))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSuccess;
+    if (shared > static_cast<size_t>(kDefaultShared))
+      err = cudaFuncSetAttribute(select_cuts_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(shared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    select_cuts_kernel<<<(s + kLanes - 1) / kLanes, kThreads, shared, st>>>(
         static_cast<const uint32_t*>(words_t),
         static_cast<const int32_t*>(real_blocks),
-        static_cast<int32_t*>(cutflag), static_cast<int32_t*>(since),
-        static_cast<uint32_t*>(states), bps, s, seed, mask, min_b, max_b);
+        static_cast<int32_t*>(cutflag), static_cast<int32_t*>(since), bps, s,
+        seed, mask, min_b, max_b);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(launch_chunk_chains(
+        static_cast<const uint32_t*>(words_t),
+        static_cast<const int32_t*>(cutflag), static_cast<uint32_t*>(states),
+        bps, s, list_capacity(bps, min_b, max_b), st));
   }
   return static_cast<int>(cudaGetLastError());
 }

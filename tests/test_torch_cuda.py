@@ -59,10 +59,12 @@ def test_kernels_match_plain_versions(dev):
                                           bswap_transpose_plain)
     from dfs_tpu_torch.ops.repack import repack_lanes, repack_lanes_plain
     from dfs_tpu_torch.ops.select import select_walk, select_walk_plain
-    from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
+    from dfs_tpu_torch.ops.sha256_strip import (live_state_rows,
+                                                strip_chunk_states,
                                                 strip_chunk_states_plain,
                                                 strip_states,
-                                                strip_states_plain)
+                                                strip_states_plain,
+                                                zero_dead_states)
 
     words, shape, tiles, scal = _region(dev)
     before = kernels.launch_counts()
@@ -79,15 +81,94 @@ def test_kernels_match_plain_versions(dev):
     cp = SMALL.chunk
     args = (wt, rb, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
     k1 = strip_chunk_states(*args)
-    for a, p in zip(k1, strip_chunk_states_plain(*args)):
-        _same(a, p)
-    # kernel 5 with kernel 1's cuts: its plain version, and K1's states
-    # bit for bit (the shared compression header)
+    p1 = strip_chunk_states_plain(*args)
+    # cutflag and since exact everywhere; states on live rows, 0 elsewhere
+    _same(k1[0], p1[0])
+    _same(k1[1], p1[1])
+    _same(k1[2], zero_dead_states(p1[2], p1[0]))
+    assert not live_state_rows(k1[0]).all()       # padding lanes exist
+    # kernel 5 with kernel 1's cuts: its plain version on live rows, and
+    # K1's states bit for bit (the shared chain code)
     k5 = strip_states(wt, k1[0])
-    _same(k5, strip_states_plain(wt, k1[0]))
+    _same(k5, zero_dead_states(strip_states_plain(wt, k1[0]), k1[0]))
     _same(k5, k1[2])
     after = kernels.launch_counts()
     assert all(after[k] == before[k] + 1 for k in after)
+
+
+def _u32(x: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x, np.uint32)
+                            .view(np.int32)).view(torch.uint32).to(dev)
+
+
+@pytest.mark.parametrize("geom", [(2, 4, 16, 256, True),
+                                  (1, 2, 8, 128, True),
+                                  (2, 4096, 4096, 4096, False)])
+def test_strip_kernels_on_adversarial_lanes(dev, geom):
+    """K1 and K5 against their plain versions (live rows exact, dead rows
+    0) on lanes that reach every edge of the selection: a lane with no
+    candidate (chunks of max_blocks), rb = bps, bps - 1, 1 and 0, and
+    min_blocks = 1 (the longest chunk list); K5 also on hand-made flags
+    over an odd lane count. The 4096-block geometry searches more than
+    1024 blocks for a candidate (several warp steps); its plain states
+    would walk 4096 blocks in Python, so there K1's states are held to
+    K5's and cutflag and since to the plain selection."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops.cdc_v2 import (gear_candidates, gear_table,
+                                          select_cuts)
+    from dfs_tpu_torch.ops.sha256_strip import (live_state_rows,
+                                                strip_chunk_states,
+                                                strip_chunk_states_plain,
+                                                strip_states,
+                                                strip_states_plain,
+                                                zero_dead_states)
+
+    min_b, avg_b, max_b, bps, plain_states = geom
+    cp = AlignedCdcParams(min_blocks=min_b, avg_blocks=avg_b,
+                          max_blocks=max_b, strip_blocks=bps)
+    s = 40
+    rng = np.random.default_rng(bps + min_b)
+    words = rng.integers(0, 2**32, size=(bps * 16, s), dtype=np.uint32)
+    # lane 3: every byte v with G[v] & mask != 0, so no block is a
+    # candidate and every chunk but the last is max_blocks long
+    g = gear_table(cp.seed).numpy()
+    v = int(np.flatnonzero(g & cp.mask)[0])
+    words[:, 3] = v * 0x01010101
+    rb = rng.integers(1, bps + 1, size=s).astype(np.int32)
+    rb[:6] = [bps, bps - 1, 1, bps, 0, 0]
+    rb_t = torch.from_numpy(rb).to(dev)
+    wt = _u32(words, dev)
+    args = (wt, rb_t, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
+    before = kernels.launch_counts()
+    k1 = strip_chunk_states(*args)
+    if plain_states:
+        p1 = strip_chunk_states_plain(*args)
+        _same(k1[2], zero_dead_states(p1[2], p1[0]))
+    else:
+        cf, since = select_cuts(gear_candidates(wt, cp.seed, cp.mask), rb_t,
+                                cp.min_blocks, cp.max_blocks)
+        p1 = (cf.to(torch.int32), since)
+    _same(k1[0], p1[0])
+    _same(k1[1], p1[1])
+    assert int(k1[1][:, 3].max()) == max_b
+    live = live_state_rows(k1[0])
+    assert not live[:, 4:6].any() and live[:, 0].all()
+    _same(strip_states(wt, k1[0]), k1[2])
+    if plain_states:
+        # K5 on given flags, odd lane count: sparse flags, some lanes none
+        s5 = 37
+        cf = (rng.random((bps, s5)) < 0.05).astype(np.int32)
+        cf[:, 7] = 0
+        cf[:, 8] = 1
+        cf[bps // 2:, 9] = 0
+        cf_t = torch.from_numpy(cf).to(dev)
+        wt5 = _u32(words[:, :s5], dev)
+        _same(strip_states(wt5, cf_t),
+              zero_dead_states(strip_states_plain(wt5, cf_t), cf_t))
+    after = kernels.launch_counts()
+    assert after["strip_chunk_states"] == before["strip_chunk_states"] + 1
+    assert after["strip_states"] == \
+        before["strip_states"] + (2 if plain_states else 1)
 
 
 def test_chain_and_walk_match_oracle_on_card(dev):
