@@ -3,8 +3,10 @@
 holds each against its plain PyTorch version at the shapes the main paths
 give it (kernels 1 and 5: states on live rows, dead rows 0, K5's states
 equal to K1's; with the longest chunk, the chain floor and the time per
-compression), times it, then drives the paths end to end and checks each
-against the NumPy oracle:
+compression), times it (``ms``: 100 launches back to back behind a device
+spin that covers their enqueue, per launch; ``ms_n20`` the same at 20;
+``ms_single``: one event pair around one call, host gap included), then
+drives the paths end to end and checks each against the NumPy oracle:
 
 - ``e2e``: a LocalNode streaming a 256 MiB upload through the anchored
   CDC + SHA-256 chain at the default parameters (64 MiB windows, two in
@@ -72,6 +74,16 @@ K1_OPS_PER_BLOCK = 32 * 4 + 2 + K5_OPS_PER_BLOCK
 # 2 IADD3; the other adds go to the FMA pipe) on a scheduler's 16 INT32
 # lanes, 2 cycles per warp instruction. The larger, 1536 cycles, is used.
 CHAIN_CYCLES_PER_COMPRESSION = max(64 * 4 * 4, 64 * 12 * 2)
+# Kernel 4's chain floor: its steps one after another, each one
+# shared-memory load (about 30 cycles on Hopper, as microbenchmarks of the
+# architecture read it) and the 9 dependent integer instructions of a step
+# of the walk in csrc/select_walk.cu as compiled (two compare-selects and a
+# max for pred; the range test, a select and an add for the next x, its
+# clamp; shift and mask for the ring offset) at about 4 cycles each. Its
+# operations: per tile, in the records kernel, two tests and selects, a
+# max and the running max (5); per step about 12
+SELECT_CYCLES_PER_STEP = 30 + 9 * 4
+K4_OPS_PER_TILE, K4_OPS_PER_STEP = 5, 12
 
 REPLACES = {
     "strip_chunk_states": "dfs_tpu/ops/sha256_strip.py:264",
@@ -95,8 +107,11 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events)."""
+def single_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median over ``reps`` runs of one event pair around one call of
+    ``fn``: the call's host work (checks, allocation, the ctypes call) lies
+    between the events, so for a short kernel this reads the host gap too.
+    Kept for the plain versions, the chain stages and ``ms_single``."""
     import torch
 
     for _ in range(warmup):
@@ -112,6 +127,58 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms(fn, n: int, reps: int = 3) -> float:
+    """Device time per launch of ``fn``: ``n`` calls back to back between
+    one event pair, divided by ``n`` (median of ``reps``). A device spin
+    enqueued first covers the host's enqueue of all ``n`` calls, so the
+    queue already holds them when the start event runs and the host's
+    per-call work never idles the card; a run in which the spin ended
+    before the host had enqueued the last call is repeated with a spin
+    twice as long."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps + 8):
+        if len(times) == reps:
+            break
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        # cycles at 2 GHz: no H100 clock is higher, so the spin lasts at
+        # least spin_ms
+        torch.cuda._sleep(int(spin_ms * 2e6))
+        start.record()
+        for _ in range(n):
+            fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            times.append(start.elapsed_time(end) / n)
+        else:
+            spin_ms *= 2
+    check(len(times) == reps, "cuda_ms: the device spin never covered the "
+          f"host's enqueue of {n} calls")
+    return statistics.median(times)
+
+
+def kernel_times(fn, single_reps: int = 20) -> dict:
+    """``ms`` per launch back to back at N = 100, the same at N = 20, and
+    the single-launch reading ``ms_single``."""
+    t = {"ms_n20": cuda_ms(fn, 20), "ms_n100": cuda_ms(fn, 100),
+         "ms_single": single_ms(fn, reps=single_reps)}
+    t["ms"] = t["ms_n100"]
+    t["n20_n100_within_5pct"] = abs(t["ms_n20"] - t["ms_n100"]) \
+        <= 0.05 * t["ms_n100"]
+    return t
 
 
 def max_abs_err(a, b) -> int:
@@ -202,35 +269,59 @@ def main() -> int:
     torch.cuda.synchronize()
     rows = []
 
-    def kernel_row(name, err, ms, plain_ms, in_bytes, ops, note, **extra):
+    def kernel_row(name, err, t, plain_ms, in_bytes, ops, note, **extra):
         bound_bytes_ms = in_bytes / PEAK_BYTES_S * 1e3
         bound_ops_ms = ops / PEAK_INT_OPS_S * 1e3
         row = {"name": name, "route": "cuda",
                "source": f"dfs_tpu_torch/csrc/{kernels.KERNELS[name][0]}",
                "replaces": REPLACES[name], "launches": None,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, "ms": t["ms"],
+               "ms_single": t["ms_single"], "plain_ms": plain_ms,
                "bound_ms": max(bound_bytes_ms, bound_ops_ms),
                "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
                else "operations", "library_ms": None}
-        emit({"phase": f"kernel:{name}", **row, "bytes": in_bytes,
+        emit({"phase": f"kernel:{name}", **row, **t, "bytes": in_bytes,
               "ops": ops, **extra, "parity": note, "exact": err == 0})
         check(err == 0, f"{name} disagrees with its plain version "
               f"(max abs err {err})")
+        check(t["n20_n100_within_5pct"], f"{name}: the back-to-back time "
+              f"per launch depends on N ({t['ms_n20']} ms at 20, "
+              f"{t['ms_n100']} ms at 100)")
         rows.append(row)
 
-    # K4: the select walk
-    b_k = select_walk(tiles, scal, cap, params.seg_min, params.seg_max)
-    b_p = select_walk_plain(tiles, scal, cap, params.seg_min, params.seg_max)
+    # K4: the select walk; besides the region's own walk, at the same
+    # shape, a table with no anchor (every bound forced), a carried start
+    # on a non-final region that ends mid-tile, and the region's anchors
+    # walked at the seg_max of large chunk sizes (512 KiB and 4 MiB: fewer
+    # steps between the kernel's chunk checks, and steps longer than a
+    # chunk)
+    def walk(tl, sc):
+        return select_walk(tl, sc, cap, params.seg_min, params.seg_max)
+
+    def walk_plain(tl, sc):
+        return select_walk_plain(tl, sc, cap, params.seg_min, params.seg_max)
+
+    b_k = walk(tiles, scal)
+    err = max_abs_err(b_k, walk_plain(tiles, scal))
+    for tl, sc in ((torch.full_like(tiles, A.NO_ANCHOR), scal),
+                   (tiles, torch.tensor([12345, REGION_BYTES - 1000, 0],
+                                        dtype=torch.int32, device=dev))):
+        err = max(err, max_abs_err(walk(tl, sc), walk_plain(tl, sc)))
+    m_tiles = tiles.shape[1]
+    for lo, hi in ((384 * 1024, 512 * 1024), (3 * 2**20, 4 * 2**20)):
+        c = m_tiles * A.TILE_BYTES // lo + 1
+        err = max(err, max_abs_err(select_walk(tiles, scal, c, lo, hi),
+                                   select_walk_plain(tiles, scal, c, lo, hi)))
     steps = int((b_k >= 0).sum()) + 1
-    win = (params.seg_max - params.seg_min) // A.TILE_BYTES + 1
-    kernel_row("select_walk", max_abs_err(b_k, b_p),
-               cuda_ms(lambda: select_walk(tiles, scal, cap, params.seg_min,
-                                           params.seg_max)),
-               cuda_ms(lambda: select_walk_plain(
-                   tiles, scal, cap, params.seg_min, params.seg_max),
-                   reps=3, warmup=1),
-               nbytes(tiles, scal, b_k), steps * 2 * win * 4,
-               f"full shape: tiles [2, {tiles.shape[1]}], cap {cap}")
+    kernel_row("select_walk", err, kernel_times(lambda: walk(tiles, scal)),
+               single_ms(lambda: walk_plain(tiles, scal), reps=3, warmup=1),
+               nbytes(tiles, scal, b_k),
+               m_tiles * K4_OPS_PER_TILE + steps * K4_OPS_PER_STEP,
+               f"full shape: tiles [2, {m_tiles}], cap {cap}; also no "
+               "anchors, start0 12345 on a non-final region, and seg_max "
+               "512 KiB and 4 MiB",
+               steps=steps, chain_floor_ms=steps * SELECT_CYCLES_PER_STEP
+               / BOOST_HZ * 1e3)
 
     (starts, seg_lens, w_off, sh8, real_blocks, tail_len, consumed,
      nseg) = A.descriptors(b_k, scal[0], s_pad)
@@ -239,9 +330,10 @@ def main() -> int:
     p_k = repack_lanes(words, w_off, sh8, lane_words)
     p_p = repack_lanes_plain(words, w_off, sh8, lane_words)
     kernel_row("repack_lanes", max_abs_err(p_k, p_p),
-               cuda_ms(lambda: repack_lanes(words, w_off, sh8, lane_words)),
-               cuda_ms(lambda: repack_lanes_plain(words, w_off, sh8,
-                                                  lane_words), reps=5),
+               kernel_times(lambda: repack_lanes(words, w_off, sh8,
+                                                 lane_words)),
+               single_ms(lambda: repack_lanes_plain(words, w_off, sh8,
+                                                    lane_words), reps=5),
                nbytes(words, w_off, sh8, p_k), 0,
                f"full shape: [{s_pad}, {lane_words}]")
     del p_p
@@ -250,8 +342,8 @@ def main() -> int:
     t_k = bswap_transpose(p_k)
     t_p = bswap_transpose_plain(p_k)
     kernel_row("bswap_transpose", max_abs_err(t_k, t_p),
-               cuda_ms(lambda: bswap_transpose(p_k)),
-               cuda_ms(lambda: bswap_transpose_plain(p_k), reps=5),
+               kernel_times(lambda: bswap_transpose(p_k)),
+               single_ms(lambda: bswap_transpose_plain(p_k), reps=5),
                nbytes(p_k, t_k), 0,
                f"full shape: [{s_pad}, {lane_words}] -> transposed")
     del t_p
@@ -285,13 +377,13 @@ def main() -> int:
                 "us_per_compression": ms * 1e3 / longest,
                 "live_rows": int(live.sum()), "dead_rows": dead_rows}
 
-    k1_ms = cuda_ms(lambda: strip_chunk_states(*args), reps=10)
-    kernel_row("strip_chunk_states", err, k1_ms, k1_plain_ms,
+    k1_t = kernel_times(lambda: strip_chunk_states(*args), single_reps=10)
+    kernel_row("strip_chunk_states", err, k1_t, k1_plain_ms,
                nbytes(t_k, real_blocks, *out_k),
                live_blocks * K1_OPS_PER_BLOCK,
                f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
                f"({live_blocks} live); states on live rows, dead rows 0",
-               **chain_info(k1_ms))
+               **chain_info(k1_t["ms"]))
     del out_p
 
     # K5: the strip scan with K1's cuts at the same pass-B shape — against
@@ -308,16 +400,17 @@ def main() -> int:
     k5_plain_ms = start.elapsed_time(end)
     check(max_abs_err(s_k, out_k[2]) == 0,
           "strip_states disagrees with strip_chunk_states' states")
-    k5_ms = cuda_ms(lambda: strip_states(t_k, cf_k), reps=10)
+    k5_t = kernel_times(lambda: strip_states(t_k, cf_k), single_reps=10)
     kernel_row("strip_states", max_abs_err(s_k, zero_dead_states(s_p, cf_k)),
-               k5_ms, k5_plain_ms, nbytes(t_k, cf_k, s_k),
+               k5_t, k5_plain_ms, nbytes(t_k, cf_k, s_k),
                live_blocks * K5_OPS_PER_BLOCK,
                f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
                f"({live_blocks} live), K1's cutflag; states on live rows, "
-               "dead rows 0; states == K1's", **chain_info(k5_ms))
+               "dead rows 0; states == K1's", **chain_info(k5_t["ms"]))
     del s_p, s_k
 
-    # where one region's time goes, stage by stage (device time)
+    # where one region's time goes, stage by stage (device time, one event
+    # pair per call as in earlier runs, so the columns stay comparable)
     chain = A.make_chain_fn(params, words.shape[0], 128, "tight")
     cf32, since, srows = A.scan_half(words, w_off, sh8, real_blocks, cp,
                                      s_pad)
@@ -337,7 +430,7 @@ def main() -> int:
     }
     emit({"phase": "chain_stages", "region_bytes": REGION_BYTES,
           "lanes": s_pad, "segments": int(nseg),
-          "ms": {k: cuda_ms(fn, reps=5, warmup=1)
+          "ms": {k: single_ms(fn, reps=5, warmup=1)
                  for k, fn in stages.items()}})
     del stages, cf32, since, srows, t_k, p_k, out_k, words, tiles
 

@@ -48,9 +48,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         [_P, _P, _I, _I, _P]),
     "select_walk": (
         "select_walk.cu", "dfs_select_walk",
-        # tiles, m_tiles, scal(start0, n, final), bounds, cap, win,
-        # seg_min, seg_max, tile_bytes, stream
-        [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+        # tiles, m_tiles, scal(start0, n, final), bounds, cap,
+        # seg_min, seg_max, tile_shift, records, stream
+        [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P]),
     "strip_states": (
         "strip_states.cu", "dfs_strip_states",
         # words_t, cutflag, states, bps, s, stream
@@ -126,13 +126,19 @@ def build_all() -> dict[str, ctypes.CDLL]:
         return dict(_libs)
 
 
+def library(name: str) -> ctypes.CDLL:
+    """Kernel ``name``'s loaded library (built on first use), for the
+    plain helpers a source exports beside its entry point."""
+    return _libs.get(name) or build_all()[name]
+
+
 def launch(name: str, device, *args) -> None:
     """Call kernel ``name``'s C entry point (builds on first use) on
     ``device``'s current stream, raise on a CUDA error code, and count the
     launch. ``args`` are the entry point's arguments before the stream."""
     import torch
 
-    lib = _libs.get(name) or build_all()[name]
+    lib = library(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, KERNELS[name][1])(*args, stream)

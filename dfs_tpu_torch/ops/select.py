@@ -10,15 +10,26 @@ none) it walks segment boundaries in stream order:
     bound = n once n - start <= seg_max (final segment)
     a non-final region withholds its tail segment; -1 pads the rest
 
-CUDA design (``csrc/select_walk.cu``): one block of one warp runs the
-whole ``cap``-step loop. Each step the 32 threads read the ``2 * win``
-window entries (``win = (seg_max - seg_min) / TILE_BYTES + 1`` tiles from
-each plane), keep the in-range ones, and warp max-reduce with
-``__shfl_xor_sync``; thread 0 writes the bound. ``start0``, ``n`` and
-``final`` are read from device memory, so a walk chained on a device
-carry never syncs with the host. What bounds it on this card: latency —
-each step depends on the previous bound, so the walk is a chain of
-~``cap`` dependent L2 round trips; bytes and operations are negligible.
+CUDA design (``csrc/select_walk.cu``): the window scan is taken off the
+dependent chain. ``seg_min`` and ``seg_max`` are multiples of
+``TILE_BYTES``, so the window's tiles hold exactly the bytes around
+``[lo-1, hi-1]``, and its max equals ``pred(hi-1)`` (the largest kept anchor
+``<= hi-1``) whenever that is ``>= lo-1``: anchors are sorted across tiles
+and within each tile. Two kernels in one launch: the first, over the whole
+card, turns the table into records ``{e0, e1, q}`` (``q`` the max anchor of
+the ``(seg_max - seg_min) / TILE_BYTES`` tiles before, or more) in a
+scratch of :func:`record_words` int32; the second, one warp, streams the
+records into a shared-memory ring of 4 chunks of 4096 tiles with bulk
+asynchronous copies (TMA, one mbarrier a slot, two chunks ahead) and takes
+each step from one record, ``pred(x) = max(e0 <= x ? e0 : q, e1 <= x ?
+e1 : q)``: one shared-memory load and nine dependent integer instructions,
+checking that the chunks it reads have arrived once per burst of
+``min(8, 2 MiB / seg_max)`` steps (at least one; 8 at the default
+``seg_max`` of 128 KiB), so any ``seg_max`` walks. ``start0``, ``n`` and
+``final`` are read from device memory, so a walk chained on a device carry
+never syncs with the host. What bounds it on this card: latency — each
+step depends on the previous bound (~550 steps per 64 MiB region); bytes
+and operations are small beside the chain.
 
 Plain version: :func:`select_walk_plain` (the ``make_select_fn`` scan as a
 Python loop over tensor steps).
@@ -33,6 +44,7 @@ from dfs_tpu_torch import kernels
 NAME = "select_walk"
 
 TILE_BYTES = 512
+TILE_SHIFT = TILE_BYTES.bit_length() - 1
 NO_ANCHOR = 2**30
 
 
@@ -88,9 +100,20 @@ def select_walk(tiles: torch.Tensor, scal: torch.Tensor, cap: int,
     kernels.check_cuda(NAME, scal, torch.int32, 1)
     if tiles.shape[0] != 2 or scal.shape[0] != 3:
         raise ValueError(f"{NAME}: bad shapes")
+    if seg_min % TILE_BYTES or seg_max % TILE_BYTES:
+        raise ValueError(f"{NAME}: seg_min and seg_max must be multiples "
+                         f"of {TILE_BYTES}")
+    m_tiles = tiles.shape[1]
     bounds = torch.empty((cap,), dtype=torch.int32, device=tiles.device)
-    kernels.launch(NAME, tiles.device, tiles.data_ptr(), tiles.shape[1],
-                   scal.data_ptr(), bounds.data_ptr(), cap,
-                   select_window_tiles(seg_min, seg_max), seg_min, seg_max,
-                   TILE_BYTES)
+    records = torch.empty((record_words(m_tiles),), dtype=torch.int32,
+                          device=tiles.device)
+    kernels.launch(NAME, tiles.device, tiles.data_ptr(), m_tiles,
+                   scal.data_ptr(), bounds.data_ptr(), cap, seg_min, seg_max,
+                   TILE_SHIFT, records.data_ptr())
     return bounds
+
+
+def record_words(m_tiles: int) -> int:
+    """The int32 count of the kernel's records scratch for ``m_tiles``
+    tiles, as the kernel's source sizes it (its record ring's chunks)."""
+    return int(kernels.library(NAME).dfs_select_walk_records(m_tiles))

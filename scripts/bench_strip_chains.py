@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Design measurements of the strip SHA-256 chain kernel on an NVIDIA card.
+"""Design measurements of the strip SHA-256 chain kernel, and of the
+select walk, on an NVIDIA card.
 
 Times ``chunk_chains_kernel`` (``dfs_tpu_torch/csrc/strip_chunks.cuh``, the
 SHA-256 part of kernels 1 and 5) as shipped and in variants built from the
@@ -15,8 +16,22 @@ of 2048 blocks, 543 of them holding 1536-2048 blocks; random words, seed
 - ``no_block_loads`` / ``no_state_stores``: the scattered loads or stores
   left out (wrong states; they show what those accesses cost).
 
-Also times kernels 1 and 5 through their wrappers. Each line of output is
-one JSON object; the first names the card and its power limit.
+Also times kernels 1 and 5 through their wrappers. Then kernel 4
+(``dfs_tpu_torch/csrc/select_walk.cu``) on one 64 MiB region's anchor
+tiles (``chip_smoke.py``'s region, seed 20261016), as shipped and in
+variants built by text substitution, and, in a build that reads
+``clock64`` around the walk, in cycles per step:
+
+- ``burst_1`` / ``burst_4``: the chunk check before every step, or every
+  4 steps, through the loop that large ``seg_max`` takes, instead of the
+  written-out burst of 8;
+- ``ring_base_per_step``: the ring's shared address left to the compiler,
+  which rebuilds it from the CTA's cluster id at every step.
+
+Every time is per launch, back to back (``chip_smoke.cuda_ms``).
+
+Each line of output is one JSON object; the first names the card and its
+power limit.
 
     python scripts/bench_strip_chains.py     # from the repository root
 """
@@ -26,7 +41,6 @@ from __future__ import annotations
 import ctypes
 import json
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -88,15 +102,18 @@ def variants(header: str) -> dict[str, str]:
     }
 
 
-def build(out: Path, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
+def build(out: Path, variants: dict[str, dict[str, str]], entry: str,
+          argtypes: list) -> dict[str, ctypes.CDLL]:
+    """Compile each variant's ``k.cu`` (beside the other files of its
+    ``{file name: text}``) in parallel; returns {variant: CDLL} with
+    ``entry``'s argtypes set."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = {}
-    for name, text in texts.items():
+    for name, files in variants.items():
         d = out / name
         d.mkdir(parents=True)
-        shutil.copy(CSRC / "sha256_compress.cuh", d)
-        (d / "strip_chunks.cuh").write_text(text)
-        (d / "k.cu").write_text('#include "strip_chunks.cuh"\n' + ENTRY)
+        for fname, text in files.items():
+            (d / fname).write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-w", "-o",
@@ -106,28 +123,92 @@ def build(out: Path, texts: dict[str, str]) -> dict[str, ctypes.CDLL]:
         if proc.wait() != 0:
             raise SystemExit(f"bench_strip_chains: {name} did not build")
         lib = ctypes.CDLL(str(out / name / "k.so"))
-        lib.run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
+        getattr(lib, entry).argtypes = argtypes
         libs[name] = lib
     return libs
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
+SELECT_BURST = ("  const int burst = max(1, min(kMaxBurst, chunk_bytes / "
+                "seg_max));")
+SELECT_RING = '  asm volatile("" : "+r"(ring));\n'
+SELECT_WALK = "  // One burst an iteration"
+SELECT_TAIL = "  for (int j = i + lane; j < cap; j += 32) bounds[j] = -1;"
+
+
+def select_variants(src: str) -> dict[str, str]:
+    """Kernel 4's variants, and of each a build that stores the walk's
+    clock64 cycles and steps into the last two bounds."""
+    for part in (SELECT_BURST, SELECT_RING, SELECT_WALK, SELECT_TAIL):
+        if part not in src:
+            raise SystemExit(f"bench_strip_chains: select_walk.cu changed: "
+                             f"{part!r}")
+
+    def burst(k):
+        return src.replace(SELECT_BURST, f"  const int burst = {k};")
+
+    plain = {"shipped": src, "burst_1": burst(1), "burst_4": burst(4),
+             "ring_base_per_step": src.replace(SELECT_RING, "")}
+    clocked = {
+        f"{name}_clocked": text.replace(
+            SELECT_WALK, "  const long long t_walk = clock64();\n"
+            + SELECT_WALK).replace(
+            SELECT_TAIL, "  const int walk_cycles = (int)(clock64() - "
+            "t_walk);\n" + SELECT_TAIL + "\n  __syncwarp();\n  if (lane == "
+            "0) { bounds[cap - 1] = walk_cycles; bounds[cap - 2] = i; }")
+        for name, text in plain.items()}
+    return {**plain, **clocked}
+
+
+def bench_select(dev) -> None:
+    import numpy as np
     import torch
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    from chip_smoke import REGION_BYTES, SEED, cuda_ms
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops import cdc_anchored as A
+    from dfs_tpu_torch.ops.select import (TILE_SHIFT, record_words,
+                                          select_walk_plain)
+
+    params = A.AnchoredCdcParams()
+    region = np.random.default_rng(SEED).integers(0, 256, size=REGION_BYTES,
+                                                  dtype=np.uint8)
+    words = A.words_tensor(A.region_buffer(region, np.zeros(8, np.uint8),
+                                           params)).to(dev)
+    shape = A.make_chain_fn(params, words.shape[0], 128, "tight").shape
+    tiles = A.anchor_tiles(words, params, shape["m_words"])
+    cap, m_tiles = shape["cap"], tiles.shape[1]
+    scal = torch.tensor([0, REGION_BYTES, 1], dtype=torch.int32, device=dev)
+    want = select_walk_plain(tiles, scal, cap, params.seg_min,
+                             params.seg_max)
+    records = torch.empty(record_words(m_tiles), dtype=torch.int32,
+                          device=dev)
+    bounds = torch.empty(cap, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory(prefix=".bench_select_",
+                                     dir=ROOT) as tmp:
+        libs = build(Path(tmp), {
+            name: {"k.cu": text} for name, text in select_variants(
+                (CSRC / "select_walk.cu").read_text()).items()},
+            "dfs_select_walk", kernels.KERNELS["select_walk"][2])
+        for name, lib in libs.items():
+            def call(lib=lib):
+                rc = lib.dfs_select_walk(
+                    tiles.data_ptr(), m_tiles, scal.data_ptr(),
+                    bounds.data_ptr(), cap, params.seg_min, params.seg_max,
+                    TILE_SHIFT, records.data_ptr(), stream)
+                if rc:
+                    raise SystemExit(f"bench_strip_chains: {name}: "
+                                     f"cudaError {rc}")
+            call()
+            torch.cuda.synchronize()
+            row = {"select_variant": name, "ms": cuda_ms(call, 100)}
+            if name.endswith("_clocked"):
+                steps = int(bounds[cap - 2])
+                row.update(steps=steps, cycles_per_step=int(
+                    bounds[cap - 1]) / steps)
+            else:
+                row["exact"] = torch.equal(bounds, want)
+            print(json.dumps(row), flush=True)
 
 
 def main() -> int:
@@ -138,6 +219,7 @@ def main() -> int:
         print("bench_strip_chains: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from chip_smoke import cuda_ms
     from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
     from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
                                                 strip_states)
@@ -162,15 +244,21 @@ def main() -> int:
     print(json.dumps({"lanes": s, "bps": bps, "chunks": int(cf.sum()),
                       "longest_chunk_blocks": int(since.max()),
                       "strip_chunk_states_ms": cuda_ms(
-                          lambda: strip_chunk_states(*args)),
+                          lambda: strip_chunk_states(*args), 20),
                       "strip_states_ms": cuda_ms(
-                          lambda: strip_states(wt, cf))}), flush=True)
+                          lambda: strip_states(wt, cf), 20)}), flush=True)
     out = torch.empty_like(states)
     stream = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory(prefix=".bench_strip_",
                                      dir=ROOT) as tmp:
-        libs = build(Path(tmp), variants(
-            (CSRC / "strip_chunks.cuh").read_text()))
+        sha = (CSRC / "sha256_compress.cuh").read_text()
+        libs = build(Path(tmp), {
+            name: {"sha256_compress.cuh": sha, "strip_chunks.cuh": text,
+                   "k.cu": '#include "strip_chunks.cuh"\n' + ENTRY}
+            for name, text in variants(
+                (CSRC / "strip_chunks.cuh").read_text()).items()},
+            "run", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p])
         for name, lib in libs.items():
             def call(lib=lib):
                 rc = lib.run(wt.data_ptr(), cf.data_ptr(), out.data_ptr(),
@@ -182,10 +270,11 @@ def main() -> int:
             call()
             torch.cuda.synchronize()
             print(json.dumps({
-                "variant": name, "ms": cuda_ms(call),
+                "variant": name, "ms": cuda_ms(call, 20),
                 "states_equal_k1": torch.equal(out.view(torch.int32),
                                                states.view(torch.int32))}),
                   flush=True)
+    bench_select(dev)
     return 0
 
 

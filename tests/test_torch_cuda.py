@@ -96,6 +96,41 @@ def test_kernels_match_plain_versions(dev):
     assert all(after[k] == before[k] + 1 for k in after)
 
 
+def test_k4_select_walk_on_adversarial_cases(dev):
+    """K4 against its plain version on every case of
+    tests/test_torch_select.py (no anchors, anchors at lo - 1 and hi - 1,
+    plane-1-only windows, windows past the table, n <= seg_max, start0 !=
+    0, three of the kernel's chunks, and the seg_max of 512 KiB and 4 MiB
+    that large chunk sizes bring), and at the full 64 MiB shape ([2,
+    131072], cap 683) with no anchors and with the edge walk from a
+    carried start on a non-final region."""
+    from test_torch_select import (ALL_CASES, SEGMENTS, edge_positions,
+                                   select_cap, tiles_from_positions)
+
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops.select import (NO_ANCHOR, select_walk,
+                                          select_walk_plain)
+
+    seg_min, seg_max = SEGMENTS["prod"]
+    m_full = 131072
+    full = [("full-no-anchors", "prod",
+             np.full((2, m_full), NO_ANCHOR, np.int32), 64 * 2**20, 0, True),
+            ("full-edges", "prod", tiles_from_positions(edge_positions(
+                seg_min, seg_max, 4321, 64 * 2**20 - 77), m_full),
+             64 * 2**20 - 77, 4321, False)]
+    before = kernels.launch_counts()["select_walk"]
+    for label, kind, tiles, n, start0, final in ALL_CASES + full:
+        lo, hi = SEGMENTS[kind]
+        cap = select_cap(kind, tiles.shape[1])
+        scal = torch.tensor([start0, n, int(final)], dtype=torch.int32)
+        want = select_walk_plain(torch.from_numpy(tiles), scal, cap, lo, hi)
+        got = select_walk(torch.from_numpy(tiles).to(dev), scal.to(dev), cap,
+                          lo, hi)
+        assert torch.equal(got.cpu(), want), label
+    assert kernels.launch_counts()["select_walk"] == \
+        before + len(ALL_CASES) + len(full)
+
+
 def _u32(x: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x, np.uint32)
                             .view(np.int32)).view(torch.uint32).to(dev)

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_select import LABELS as SELECT_LABELS
 
 
 def _u32_tensor(x: np.ndarray) -> torch.Tensor:
@@ -125,68 +126,58 @@ def test_k3_bswap_transpose_matches_twin(shape):
     np.testing.assert_array_equal(_np_u32(got), want)
 
 
-def _random_two_plane_tiles(rng, m_tiles, density=2):
-    """Random anchor-tile planes with make_anchor_fn's invariants (the
-    generator tests/test_cdc_anchored.py uses)."""
-    from dfs_tpu.ops.cdc_anchored import TILE_BYTES
-
-    tiles = np.full((2, m_tiles), 2**30, np.int32)
-    k = max(1, m_tiles // density)
-    idx = rng.choice(m_tiles, size=k, replace=False)
-    off1 = rng.integers(0, TILE_BYTES - 1, size=k)
-    tiles[0, idx] = (idx * TILE_BYTES + off1).astype(np.int32)
-    has2 = rng.random(k) < 0.5
-    off2 = off1 + 1 + rng.integers(0, TILE_BYTES - 1 - off1)
-    tiles[1, idx[has2]] = (idx[has2] * TILE_BYTES
-                           + off2[has2]).astype(np.int32)
-    return tiles
-
-
-def _select_cases():
-    """The cases of tests/test_cdc_anchored.py's two select tests: SMALL
-    params on random regions with start0 in {0, 1234}, and the production
-    geometry on a 4 MiB region; final and non-final each."""
-    from dfs_tpu.ops.cdc_anchored import TILE_BYTES, AnchoredCdcParams
+def _dfs_params(kind):
+    from dfs_tpu.ops.cdc_anchored import AnchoredCdcParams
     from dfs_tpu.ops.cdc_v2 import AlignedCdcParams
 
-    small = AnchoredCdcParams(
+    if kind == "prod":
+        return AnchoredCdcParams()
+    return AnchoredCdcParams(
         chunk=AlignedCdcParams(min_blocks=2, avg_blocks=4, max_blocks=16,
                                strip_blocks=64),
         seg_min=2048, seg_max=4096, seg_mask=2047)
-    rng = np.random.default_rng(11)
-    cases = []
-    for _ in range(2):
-        n = int(rng.integers(20000, 120000))
-        m_tiles = 1 << (-(-n // TILE_BYTES) - 1).bit_length()
-        tiles = _random_two_plane_tiles(rng, m_tiles)
-        for final in (True, False):
-            for start0 in (0, 1234):
-                cases.append((small, tiles, n, start0, final))
-    prod = AnchoredCdcParams()
-    n = 4 * 2**20
-    tiles = _random_two_plane_tiles(np.random.default_rng(12),
-                                    n // TILE_BYTES, density=16)
-    for final in (True, False):
-        cases.append((prod, tiles, n, 0, final))
-    return cases
+
+
+def _scan_twin(kind, tiles, n, start0, final):
+    import dfs_tpu.ops.cdc_anchored as A
+
+    params = _dfs_params(kind)
+    m_tiles = tiles.shape[1]
+    cap = m_tiles * A.TILE_BYTES // params.seg_min + 1
+    return params, cap, np.asarray(A.make_select_fn(params, m_tiles, cap)(
+        jnp.asarray(tiles), jnp.int32(start0), jnp.int32(n),
+        jnp.bool_(final)))
 
 
 def test_k4_select_walk_matches_scan_twin():
-    import dfs_tpu.ops.cdc_anchored as A
+    """The plain walk against the JAX scan on every case of
+    tests/test_torch_select.py: the two select tests' random cases of
+    tests/test_cdc_anchored.py and the adversarial geometries."""
+    from test_torch_select import CASES
 
     from dfs_tpu_torch.ops.select import select_walk
 
-    for params, tiles, n, start0, final in _select_cases():
-        m_tiles = tiles.shape[1]
-        cap = m_tiles * A.TILE_BYTES // params.seg_min + 1
-        want = np.asarray(A.make_select_fn(params, m_tiles, cap)(
-            jnp.asarray(tiles), jnp.int32(start0), jnp.int32(n),
-            jnp.bool_(final)))
+    for _, kind, tiles, n, start0, final in CASES:
+        params, cap, want = _scan_twin(kind, tiles, n, start0, final)
         got = select_walk(torch.from_numpy(tiles),
                           torch.tensor([start0, n, int(final)],
                                        dtype=torch.int32),
                           cap, params.seg_min, params.seg_max)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("label", SELECT_LABELS)
+def test_k4_kernel_model_matches_scan_twin(label):
+    """The CUDA kernel's formulation (prefix max + one record a step, as
+    NumPy) against the JAX scan: exact on every case before any card."""
+    from test_torch_select import CASES, select_walk_model
+
+    _, kind, tiles, n, start0, final = CASES[SELECT_LABELS.index(label)]
+    params, cap, want = _scan_twin(kind, tiles, n, start0, final)
+    for block in (2048, 8):          # the kernel's record blocks; tiny
+        got = select_walk_model(tiles, start0, n, final, cap,
+                                params.seg_min, params.seg_max, block=block)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_gear_table_matches_numpy_table():
