@@ -12,6 +12,15 @@ drives the paths end to end and checks each against the NumPy oracle:
   CDC + SHA-256 chain at the default parameters (64 MiB windows, two in
   flight), checked against the oracle, hashlib and a download (kernels
   1-4);
+- ``cluster``: the node as users run it — 5 ``python -m
+  dfs_tpu_torch.cli.main serve`` processes on the card (rf 2, write quorum
+  2, fsync on), the same 256 MiB streamed to node 1 over HTTP in 1 MiB
+  chunked blocks; the chunk table against the oracle, every chunk read
+  back from both of its owners' stores, downloads from a node that did not
+  coordinate (whole and a Range), a re-upload to another node that moves
+  0 B, two concurrent 64 MiB uploads to node 1 (both oracle-equal), and a
+  download after one owner is SIGKILLed (kernels 1-4, counted by node 1's
+  ``/metrics``: its launches move across the streamed upload);
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -26,7 +35,8 @@ just after; a kernel of the path that never launched fails the run.
 
 Each phase prints one JSON line. Before the last line come the card's
 ``nvidia-smi`` name and power limit and the ``{"kernels": [...]}`` table
-(``launches`` counted on the path named by ``launches_path``); the last
+(``launches`` counted on the path named by ``launches_path``, and on
+every path in ``launches_by_path``); the last
 line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero. Without CUDA it exits 2 and prints no result. It imports nothing
 of JAX or of the dfs_tpu package.
@@ -35,11 +45,16 @@ of JAX or of the dfs_tpu package.
 from __future__ import annotations
 
 import hashlib
+import http.client
 import json
+import os
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -47,6 +62,8 @@ SEED = 20261016
 BODY_BYTES = 256 * 1024 * 1024
 BLOCK_BYTES = 1024 * 1024
 REGION_BYTES = 64 * 1024 * 1024
+CLUSTER_NODES = 5
+CONCURRENT_BYTES = 64 * 1024 * 1024
 
 # H100 SXM peaks at the full 700 W power limit: HBM bandwidth (NVIDIA data
 # sheet), and the INT32 rate every kernel here is held to — 132 SMs x 64
@@ -205,6 +222,242 @@ def path_launches(kernels, path: str, needed) -> dict:
     for name in needed:
         check(counts[name] > 0, f"kernel {name} never launched on {path}")
     return counts
+
+
+def _free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _http(port: int, method: str, path: str, body=None,
+          headers: dict | None = None, chunked: bool = False,
+          timeout: float = 900.0) -> tuple[int, dict, bytes]:
+    """One HTTP request to a node on localhost: (status, headers, body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=body, headers=headers or {},
+                     encode_chunked=chunked)
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def _upload(port: int, body, name: str, chunked: bool = False) -> dict:
+    st, _, out = _http(port, "POST", f"/upload?name={name}", body=body,
+                       chunked=chunked)
+    check(st == 201, f"upload {name} to :{port} answered {st}: {out[:300]}")
+    return json.loads(out)
+
+
+def _metrics(port: int) -> dict:
+    st, _, out = _http(port, "GET", "/metrics", timeout=60)
+    check(st == 200, f"/metrics on :{port} answered {st}")
+    return json.loads(out)
+
+
+def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
+                  params, rng, np) -> dict:
+    """The ``cluster`` phase (module docstring). Returns node 1's kernel
+    launches across the streamed 256 MiB upload."""
+    from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
+    from dfs_tpu_torch.ring import static_replica_set
+
+    ids = list(range(1, CLUSTER_NODES + 1))
+    ports = _free_ports(2 * CLUSTER_NODES)
+    http_port = {i: ports[2 * (i - 1)] for i in ids}
+    procs: dict[int, subprocess.Popen] = {}
+    logs = []
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_cluster_",
+                                     dir=root) as d:
+        d = Path(d)
+        (d / "cluster.json").write_text(json.dumps({
+            "replication_factor": 2,
+            "peers": [{"node_id": i, "host": "127.0.0.1",
+                       "port": http_port[i],
+                       "internal_port": ports[2 * (i - 1) + 1]}
+                      for i in ids]}))
+        env = dict(os.environ, PYTHONPATH=str(root))
+        try:
+            t0 = time.perf_counter()
+            for i in ids:
+                logs.append(open(d / f"node{i}.log", "wb"))
+                procs[i] = subprocess.Popen(
+                    [sys.executable, "-m", "dfs_tpu_torch.cli.main", "serve",
+                     "--node-id", str(i), "--cluster-config",
+                     str(d / "cluster.json"), "--data-root", str(d / "data"),
+                     "--write-quorum", "2", "--durability", "fsync",
+                     "--repair-interval", "0"],
+                    cwd=root, env=env, stdout=logs[-1],
+                    stderr=subprocess.STDOUT)
+            for i in ids:
+                while True:
+                    check(procs[i].poll() is None,
+                          f"node {i} exited {procs[i].returncode}")
+                    try:
+                        if _http(http_port[i], "GET", "/status",
+                                 timeout=5)[0] == 200:
+                            break
+                    except OSError:
+                        pass
+                    check(time.perf_counter() - t0 < 300,
+                          f"node {i} did not answer /status")
+                    time.sleep(0.5)
+            start_s = time.perf_counter() - t0
+            # warm-up: the chain's first launches in node 1's process
+            _upload(http_port[1], body[:8 * 2**20], "warm.bin")
+
+            m0 = _metrics(http_port[1])["frag"]["launches"]
+            t0 = time.perf_counter()
+            info = _upload(http_port[1], iter(blocks), "cluster.bin",
+                           chunked=True)
+            upload_s = time.perf_counter() - t0
+            m1 = _metrics(http_port[1])
+            # where the upload's time went, node by node: the CAS tier's
+            # busy and queued seconds and its fsyncs; node 1's stalls and
+            # phase latencies
+            where = {}
+            for i in ids:
+                mi = m1 if i == 1 else _metrics(http_port[i])
+                where[i] = {"fsyncs": mi["durability"]["fsyncs"],
+                            "chunks_stored": mi.get("chunks_stored", 0),
+                            "cas": mi["ingest"]["cas"],
+                            "latency": {
+                                k: v for k, v in mi["latency"].items()
+                                if k.startswith(("upload.",
+                                                 "peer.store_chunks",
+                                                 "peer.has_chunks"))}}
+            where[1]["stalls"] = m1["ingest"]["stalls"]
+            launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+            for k in ("strip_chunk_states", "repack_lanes",
+                      "bswap_transpose", "select_walk"):
+                check(launches[k] > 0, f"kernel {k} never launched in "
+                      "node 1 during the cluster upload")
+            check(m1["frag"]["device"].startswith("cuda:"),
+                  f"node 1 chunks on {m1['frag']['device']}")
+            fid = hashlib.sha256(body).hexdigest()
+            check(info["fileId"] == fid, "cluster fileId != sha256(body)")
+            st, _, doc = _http(http_port[1], "GET",
+                               f"/manifest?fileId={fid}", timeout=120)
+            table = [(c["offset"], c["length"], c["digest"])
+                     for c in json.loads(doc)["chunks"]]
+            check(table == oracle, "cluster chunk table != numpy oracle")
+
+            # the replication guarantee, read back: each chunk on both of
+            # its owners, hashing to its digest
+            for _, _, dg in table:
+                for o in static_replica_set(dg, ids, 2):
+                    p = d / "data" / f"node-{o}" / "chunks" / dg[:2] / dg
+                    check(p.is_file() and hashlib.sha256(
+                        p.read_bytes()).hexdigest() == dg,
+                        f"chunk {dg[:12]} missing or corrupt on owner {o}")
+
+            t0 = time.perf_counter()
+            st, _, got = _http(http_port[3], "GET", f"/download?fileId={fid}")
+            download_s = time.perf_counter() - t0
+            check(st == 200 and got == body,
+                  "download from node 3 not identical")
+            del got
+            lo = len(body) // 3 + 12_345
+            hi = min(len(body) - 1, lo + 999_999)
+            st, h, part = _http(http_port[4], "GET",
+                                f"/download?fileId={fid}",
+                                headers={"Range": f"bytes={lo}-{hi}"})
+            check(st == 206 and part == body[lo:hi + 1]
+                  and h.get("Content-Range")
+                  == f"bytes {lo}-{hi}/{len(body)}", "range read not exact")
+            again = _upload(http_port[2], body, "cluster-again.bin")
+            check(again["transferredBytes"] == 0,
+                  f"re-upload moved {again['transferredBytes']} B")
+
+            # two uploads at once to node 1: two walks on the card, one
+            # plain body (the whole-body walk), one chunked (the stream)
+            two = [rng.integers(0, 256, size=CONCURRENT_BYTES,
+                                dtype=np.uint8).tobytes() for _ in range(2)]
+            res: dict[int, object] = {}
+
+            def up(k: int) -> None:
+                try:
+                    b = two[k]
+                    res[k] = _upload(
+                        http_port[1], b if k == 0 else iter(
+                            [b[i:i + BLOCK_BYTES]
+                             for i in range(0, len(b), BLOCK_BYTES)]),
+                        f"concurrent{k}.bin", chunked=k == 1)
+                except BaseException as e:  # noqa: BLE001 — checked below
+                    res[k] = e
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=up, args=(k,)) for k in (0, 1)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            concurrent_s = time.perf_counter() - t0
+            for k in (0, 1):
+                check(isinstance(res[k], dict), f"concurrent upload {k} "
+                      f"failed: {res[k]}")
+                kid = res[k]["fileId"]
+                check(kid == hashlib.sha256(two[k]).hexdigest(),
+                      f"concurrent upload {k} fileId != sha256")
+                st, _, doc = _http(http_port[1], "GET",
+                                   f"/manifest?fileId={kid}", timeout=120)
+                check([(c["offset"], c["length"], c["digest"])
+                       for c in json.loads(doc)["chunks"]]
+                      == chunk_file_anchored_np(
+                          np.frombuffer(two[k], np.uint8), params),
+                      f"concurrent upload {k} chunk table != numpy oracle")
+            fsyncs = _metrics(http_port[1])["durability"]["fsyncs"]
+
+            # node loss: SIGKILL an owner, read from a survivor that asks
+            # node 3 first for the chunks node 3 and node 4 own
+            procs[3].send_signal(signal.SIGKILL)
+            procs[3].wait(timeout=60)
+            t0 = time.perf_counter()
+            st, _, got = _http(http_port[5], "GET", f"/download?fileId={fid}")
+            degraded_s = time.perf_counter() - t0
+            check(st == 200 and got == body,
+                  "download after SIGKILL of node 3 not identical")
+            del got
+        except BaseException:
+            for i in ids:
+                log = d / f"node{i}.log"
+                if log.is_file():
+                    tail = log.read_bytes()[-3000:].decode("utf-8", "replace")
+                    print(f"--- node {i} log tail ---\n{tail}",
+                          file=sys.stderr)
+            raise
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait(timeout=60)
+            for f in logs:
+                f.close()
+    gib = len(body) / 2**30
+    emit({"phase": "cluster", "nodes": CLUSTER_NODES, "rf": 2,
+          "write_quorum": 2, "durability": "fsync", "bytes": len(body),
+          "block_bytes": BLOCK_BYTES, "start_s": start_s,
+          "chunks": len(table), "upload_s": upload_s,
+          "upload_gib_s": gib / upload_s,
+          "download_s": download_s, "download_gib_s": gib / download_s,
+          "download_after_kill_s": degraded_s,
+          "download_after_kill_gib_s": gib / degraded_s,
+          "concurrent_bytes": 2 * CONCURRENT_BYTES,
+          "concurrent_s": concurrent_s, "oracle_equal": True,
+          "file_id_ok": True, "both_owners_hold_every_chunk": True,
+          "range_exact": True,
+          "reupload_transferred": again["transferredBytes"],
+          "concurrent_oracle_equal": True,
+          "node1_device": m1["frag"]["device"],
+          "node1_fsyncs": fsyncs, "after_upload": where,
+          "launches": launches})
+    return launches
 
 
 def main() -> int:
@@ -492,6 +745,11 @@ def main() -> int:
               "edit_dedup_fraction": dedup,
               "fsyncs": node.store.chunks.fsync_count()})
         node.close()
+    del edited
+
+    # ---- the node as users run it: a 5-process cluster on the card ----
+    launches["cluster"] = cluster_phase(root, body, blocks, oracle, params,
+                                        rng, np)
 
     # ---- the multi-device anchored path ----
     n_cards = torch.cuda.device_count()
@@ -545,6 +803,8 @@ def main() -> int:
     for row in rows:
         row["launches_path"] = LAUNCHES_PATH[row["name"]]
         row["launches"] = launches[row["launches_path"]][row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in launches.items()}
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,330 @@
+"""External HTTP/1.1 API over asyncio streams — dfs_tpu's ``api/http.py``
+for the routes of the default configuration:
+
+    GET    /status               200 "OK"
+    GET    /files                JSON file list
+    GET    /metrics              JSON counters and sections
+    GET    /manifest?fileId=     the manifest JSON
+    POST   /upload?name=         201 JSON {fileId, ...}; Content-Length or
+                                 chunked; 411 without either, 413 too big
+    GET    /download?fileId=     the bytes + Content-Disposition; a single
+                                 Range gives 206 (416 past the end)
+    DELETE /files?fileId=        200 / 404
+    POST   /repair               {"repaired": N, "underReplicated": M}
+    POST   /scrub                {"scanned": N, "corrupt": M}
+
+Every other route answers 404: dfs_tpu's ``/metrics?format=prom``,
+``/metrics/history``, ``/census``, ``/trace``, ``/events``, ``/chaos``,
+``/tier``, ``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``,
+``/commit``, ``/missing`` and ``/upload_resume`` are not ported yet.
+Query strings are URL-decoded; a malformed fileId is a 400.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import time
+from typing import TYPE_CHECKING
+from urllib.parse import parse_qs, unquote, urlsplit
+
+from dfs_tpu_torch.utils.hashing import is_hex_digest
+
+if TYPE_CHECKING:
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+
+_REASONS = {200: "OK", 201: "Created", 206: "Partial Content",
+            400: "Bad Request", 404: "Not Found", 411: "Length Required",
+            413: "Payload Too Large", 416: "Range Not Satisfiable",
+            500: "Internal Server Error", 507: "Insufficient Storage"}
+MAX_BODY = 4 * 1024 * 1024 * 1024
+# plain (Content-Length) uploads above this stream through the
+# bounded-memory ingest instead of materializing the body in node RAM
+STREAM_BODY_BYTES = 64 * 1024 * 1024
+
+
+def _head(status: int, length: int, content_type: str,
+          extra: dict[str, str] | None = None) -> bytes:
+    head = [f"HTTP/1.1 {status} {_REASONS.get(status, 'Unknown')}",
+            f"Content-Type: {content_type}",
+            f"Content-Length: {length}",
+            "Connection: close"]
+    for k, v in (extra or {}).items():
+        head.append(f"{k}: {v}")
+    return ("\r\n".join(head) + "\r\n\r\n").encode()
+
+
+def _resp(status: int, body: bytes, content_type: str,
+          extra: dict[str, str] | None = None) -> bytes:
+    return _head(status, len(body), content_type, extra) + body
+
+
+def plain(status: int, text: str) -> bytes:
+    return _resp(status, text.encode(), "text/plain; charset=utf-8")
+
+
+def as_json(status: int, obj) -> bytes:
+    return _resp(status, json.dumps(obj).encode(), "application/json")
+
+
+def resp_parts(status: int, parts: list, content_type: str,
+               extra: dict[str, str] | None = None) -> list:
+    """``[head, *payload buffers]``, written one by one, never joined."""
+    length = sum(len(p) for p in parts)
+    return [_head(status, length, content_type, extra), *parts]
+
+
+def binary_head(status: int, length: int, filename: str) -> bytes:
+    """Download head; control characters and quotes are stripped from the
+    user-supplied name before it goes into a header."""
+    safe = "".join(c for c in filename if c >= " " and c != '"') or "download"
+    return _head(status, length, "application/octet-stream",
+                 {"Content-Disposition": f'attachment; filename="{safe}"'})
+
+
+def _parse_range(value: str) -> tuple[int | None, int | None] | None:
+    """A single ``bytes=`` range as (first, last), either side open;
+    multi-range or malformed -> None (answered 400)."""
+    if not value.startswith("bytes=") or "," in value:
+        return None
+    first, sep, last = value[len("bytes="):].strip().partition("-")
+    if sep != "-" or (not first and not last):
+        return None
+    if (first and not first.isdigit()) or (last and not last.isdigit()):
+        return None
+    return (int(first) if first else None, int(last) if last else None)
+
+
+async def _chunked_body(reader: asyncio.StreamReader, limit: int = MAX_BODY):
+    """Async generator over an HTTP/1.1 chunked body; ValueError on bad
+    framing or past ``limit`` bytes."""
+    total = 0
+    while True:
+        line = (await reader.readline()).decode("latin-1").strip()
+        if not line:
+            raise ValueError("missing chunk size")
+        try:
+            size = int(line.split(";", 1)[0], 16)   # extensions ignored
+        except ValueError as e:
+            raise ValueError(f"bad chunk size {line!r}") from e
+        if size == 0:
+            while True:                  # the trailer, to its blank line
+                t = await reader.readline()
+                if t in (b"\r\n", b"\n", b""):
+                    return
+        total += size
+        if total > limit:
+            raise ValueError("chunked body exceeds size cap")
+        data = await reader.readexactly(size)
+        if await reader.readexactly(2) != b"\r\n":
+            raise ValueError("missing chunk terminator")
+        yield data
+
+
+def make_http_handler(node: "StorageNodeServer"):
+    async def handler(reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        t0 = time.perf_counter()
+        body_gen = None
+        try:
+            out = await _serve_one(node, reader)
+            if isinstance(out, tuple):          # streamed body
+                out, body_gen = out
+        except Exception as e:  # noqa: BLE001
+            node.log.warning("http error: %s", e)
+            out = plain(500, f"Internal error: {e}")
+        node.latency.record("http.request", time.perf_counter() - t0)
+        try:
+            for part in (out if isinstance(out, list) else [out]):
+                writer.write(part)
+            await writer.drain()
+            if body_gen is not None:
+                try:
+                    async for part in body_gen:
+                        writer.write(part)
+                        await writer.drain()
+                except Exception as e:  # noqa: BLE001
+                    # the head is out: truncation is the only honest signal
+                    node.log.warning("download stream aborted: %s", e)
+        except (ConnectionError, OSError):
+            pass
+        finally:
+            if body_gen is not None:
+                try:
+                    await body_gen.aclose()
+                except Exception:  # noqa: BLE001 - teardown best-effort
+                    pass
+            writer.close()
+            try:
+                await writer.wait_closed()
+            except (ConnectionError, OSError):
+                pass
+
+    return handler
+
+
+async def _serve_one(node: "StorageNodeServer",
+                     reader: asyncio.StreamReader):
+    request_line = (await reader.readline()).decode("latin-1").strip()
+    if not request_line:
+        return plain(400, "Empty request")
+    parts = request_line.split(" ")
+    if len(parts) != 3:
+        return plain(400, "Malformed request line")
+    method, target, _version = parts
+    split = urlsplit(target)
+    path = unquote(split.path)
+    query = {k: v[0] for k, v in parse_qs(split.query).items()}
+    content_length: int | None = None
+    range_header: str | None = None
+    chunked = False
+    while True:
+        line = (await reader.readline()).decode("latin-1")
+        if line in ("\r\n", "\n", ""):
+            break
+        if ":" in line:
+            k, v = line.split(":", 1)
+            key = k.strip().lower()
+            if key == "content-length":
+                try:
+                    content_length = int(v.strip())
+                except ValueError:
+                    return plain(400, "Bad Content-Length")
+                if content_length < 0:
+                    return plain(400, "Bad Content-Length")
+            elif key == "range":
+                range_header = v.strip()
+            elif key == "transfer-encoding":
+                chunked = "chunked" in v.strip().lower()
+    node.counters.inc("http_requests")
+    return await _route(node, reader, method, path, query, content_length,
+                        range_header, chunked)
+
+
+def _file_id(query: dict) -> tuple[str | None, bytes | None]:
+    """(fileId, None) or (None, the 400 to answer)."""
+    file_id = query.get("fileId")
+    if not file_id:
+        return None, plain(400, "Missing fileId")
+    if not is_hex_digest(file_id):
+        return None, plain(400, "Bad fileId")
+    return file_id, None
+
+
+async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
+                 method: str, path: str, query: dict,
+                 content_length: int | None, range_header: str | None,
+                 chunked: bool):
+    from dfs_tpu_torch.node.runtime import (EC_NOT_PORTED, DownloadError,
+                                            NotFoundError,
+                                            RangeNotSatisfiable)
+
+    if method == "GET" and path == "/status":
+        return plain(200, "OK")
+    if method == "GET" and path == "/files":
+        return as_json(200, node.list_files())
+    if method == "GET" and path == "/metrics" and "format" not in query:
+        return as_json(200, node.metrics())
+    if method == "GET" and path == "/manifest":
+        file_id, bad = _file_id(query)
+        if bad is not None:
+            return bad
+        m = node.store.manifests.load(file_id)
+        if m is None:
+            return plain(404, "File not found")
+        return _resp(200, m.to_json().encode(), "application/json")
+    if method == "POST" and path == "/upload":
+        if query.get("ec"):
+            if not query["ec"].isdecimal() or int(query["ec"]) < 1:
+                return plain(400, "Bad ec parameter")
+            return plain(400, EC_NOT_PORTED)
+        if not chunked:
+            if content_length is None:
+                return plain(411, "Length Required")
+            if content_length > MAX_BODY:
+                return plain(413, "Payload Too Large")
+        return await _handle_upload(node, reader, query, chunked,
+                                    content_length)
+    if method == "GET" and path == "/download":
+        file_id, bad = _file_id(query)
+        if bad is not None:
+            return bad
+        rng = None
+        if range_header is not None:
+            rng = _parse_range(range_header)
+            if rng is None:
+                return plain(400, "Bad Range")
+            if rng[0] is not None and rng[1] is not None and rng[0] > rng[1]:
+                rng = None     # invalid range: ignored (RFC 9110 14.1.1)
+        try:
+            if rng is not None:
+                try:
+                    manifest, parts, start, end = await node.download_range(
+                        file_id, *rng)
+                except RangeNotSatisfiable as e:
+                    return _resp(416, b"", "text/plain",
+                                 {"Content-Range": f"bytes */{e.size}"})
+                return resp_parts(
+                    206, parts, "application/octet-stream",
+                    {"Content-Range":
+                     f"bytes {start}-{end - 1}/{manifest.size}",
+                     "Accept-Ranges": "bytes"})
+            # streamed: chunks go out as they verify; the first batch is
+            # fetched before the head, so common failures still answer
+            manifest, body_gen = await node.download_stream(file_id)
+            return binary_head(200, manifest.size, manifest.name), body_gen
+        except NotFoundError:
+            return plain(404, "File not found")
+        except DownloadError as e:
+            return plain(500, str(e))
+    if method == "POST" and path == "/scrub":
+        return as_json(200, await node.scrub_once())
+    if method == "POST" and path == "/repair":
+        repaired = await node.repair_once()
+        return as_json(200, {"repaired": repaired,
+                             "underReplicated": len(node.under_replicated)})
+    if method == "DELETE" and path == "/files":
+        file_id, bad = _file_id(query)
+        if bad is not None:
+            return bad
+        found = await node.delete(file_id)
+        return plain(200 if found else 404,
+                     "Deleted" if found else "File not found")
+    return plain(404, "Not found")
+
+
+async def _handle_upload(node: "StorageNodeServer",
+                         reader: asyncio.StreamReader, query: dict,
+                         chunked: bool, content_length: int | None) -> bytes:
+    """POST /upload: chunked bodies and plain bodies above
+    STREAM_BODY_BYTES feed the streaming ingest as they arrive (read off
+    the socket in ~1 MiB pieces); smaller plain bodies are read whole."""
+    from dfs_tpu_torch.node.runtime import UploadError
+
+    name = query.get("name", "")
+    if chunked or content_length > STREAM_BODY_BYTES:
+        async def _plain_body():
+            left = content_length
+            while left:
+                b = await reader.read(min(1 << 20, left))
+                if not b:
+                    raise asyncio.IncompleteReadError(b"", left)
+                left -= len(b)
+                yield b
+
+        body = _chunked_body(reader) if chunked else _plain_body()
+        try:
+            manifest, stats = await node.upload_stream(body, name)
+        except UploadError as e:
+            return plain(e.status, str(e))
+        except ValueError as e:
+            return plain(400, f"Bad request body: {e}")
+    else:
+        data = await reader.readexactly(content_length)
+        try:
+            manifest, stats = await node.upload(data, name)
+        except UploadError as e:
+            return plain(e.status, str(e))
+    return as_json(201, {"fileId": manifest.file_id, "name": manifest.name,
+                         "size": manifest.size,
+                         "chunks": manifest.total_chunks, **stats})

@@ -1,0 +1,75 @@
+"""Synchronous HTTP client of one node (a copy of the parts of dfs_tpu's
+``cli/client.py`` that the port's routes serve), on urllib."""
+
+from __future__ import annotations
+
+import json
+import urllib.error
+import urllib.parse
+import urllib.request
+from dataclasses import dataclass
+
+DEFAULT_TIMEOUT_S = 5.0
+
+
+@dataclass(frozen=True)
+class RemoteFile:
+    file_id: str
+    name: str
+    size: int = 0
+    chunks: int = 0
+
+
+class NodeClient:
+    def __init__(self, host: str = "127.0.0.1", port: int = 5001,
+                 timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+        self.base = f"http://{host}:{port}"
+        self.timeout_s = timeout_s
+
+    def _request(self, method: str, path: str, body=None,
+                 headers: dict | None = None) -> bytes:
+        req = urllib.request.Request(self.base + path, data=body,
+                                     method=method, headers=headers or {})
+        try:
+            with urllib.request.urlopen(req, timeout=self.timeout_s) as r:
+                return r.read()
+        except urllib.error.HTTPError as e:
+            detail = e.read().decode("utf-8", "replace")
+            raise RuntimeError(f"HTTP {e.code}: {detail}") from e
+
+    def status(self) -> str:
+        return self._request("GET", "/status").decode()
+
+    def list_files(self) -> list[RemoteFile]:
+        items = json.loads(self._request("GET", "/files"))
+        return [RemoteFile(file_id=i["fileId"],
+                           name=i.get("name", i["fileId"]),
+                           size=i.get("size", 0), chunks=i.get("chunks", 0))
+                for i in items]
+
+    def upload(self, data: bytes, name: str) -> dict:
+        q = urllib.parse.urlencode({"name": name})
+        return json.loads(self._request("POST", f"/upload?{q}", body=data))
+
+    def upload_stream(self, blocks, name: str) -> dict:
+        """Upload with chunked transfer encoding (urllib sends a
+        length-less iterable chunked); the node ingests it in bounded
+        memory."""
+        q = urllib.parse.urlencode({"name": name})
+        return json.loads(self._request("POST", f"/upload?{q}",
+                                        body=iter(blocks)))
+
+    def download(self, file_id: str) -> bytes:
+        q = urllib.parse.urlencode({"fileId": file_id})
+        return self._request("GET", f"/download?{q}")
+
+    def manifest(self, file_id: str) -> dict:
+        q = urllib.parse.urlencode({"fileId": file_id})
+        return json.loads(self._request("GET", f"/manifest?{q}"))
+
+    def metrics(self) -> dict:
+        return json.loads(self._request("GET", "/metrics"))
+
+    def delete(self, file_id: str) -> str:
+        q = urllib.parse.urlencode({"fileId": file_id})
+        return self._request("DELETE", f"/files?{q}").decode()

@@ -1,0 +1,266 @@
+"""Command line of the port: ``serve`` runs a storage node, the other
+subcommands talk HTTP to one.
+
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 --nodes 5 \\
+        --base-port 7101 --base-internal-port 7201 --data-root data
+    python -m dfs_tpu_torch.cli.main --port 7101 upload f.bin
+
+``serve`` runs the node's chunking on the CUDA card; without one it exits
+non-zero unless ``--device cpu`` asks for the plain versions. Subcommands:
+serve, status, list, upload, download, delete, metrics.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import sys
+from pathlib import Path
+
+from dfs_tpu_torch.cli.client import NodeClient
+from dfs_tpu_torch.config import (CDCParams, ClusterConfig, DurabilityConfig,
+                                  FragmenterConfig, IngestConfig, NodeConfig)
+
+
+def _client(args) -> NodeClient:
+    return NodeClient(host=args.host, port=args.port,
+                      timeout_s=args.timeout)
+
+
+def node_config(args) -> NodeConfig:
+    """The NodeConfig ``serve`` runs with."""
+    if args.cluster_config:
+        cluster = ClusterConfig.from_file(args.cluster_config)
+        if args.replication_factor is not None:
+            print(f"warning: --replication-factor ignored; using "
+                  f"{cluster.replication_factor} from "
+                  f"{args.cluster_config}", file=sys.stderr)
+    else:
+        cluster = ClusterConfig.localhost(
+            n_nodes=args.nodes, base_port=args.base_port,
+            base_internal_port=args.base_internal_port,
+            replication_factor=args.replication_factor
+            if args.replication_factor is not None else 2)
+    return NodeConfig(
+        node_id=args.node_id, cluster=cluster,
+        data_root=Path(args.data_root), fragmenter=args.fragmenter,
+        cdc=CDCParams(min_size=args.min_chunk, avg_size=args.avg_chunk,
+                      max_size=args.max_chunk),
+        frag=FragmenterConfig(devices=args.cdc_devices,
+                              region_bytes=args.cdc_region_bytes,
+                              staging_buffers=args.cdc_staging_buffers),
+        connect_timeout_s=args.connect_timeout,
+        request_timeout_s=args.request_timeout,
+        retries=args.rpc_retries,
+        health_probe_s=args.probe_interval,
+        write_quorum=args.write_quorum,
+        ingest=IngestConfig(window=args.ingest_window,
+                            flush_bytes=args.ingest_flush_bytes,
+                            credit_bytes=args.ingest_credit_bytes,
+                            slice_inflight=args.replicate_inflight,
+                            cas_io_threads=args.cas_io_threads),
+        durability=DurabilityConfig(mode=args.durability),
+        device=None if args.device == "cuda" else args.device)
+
+
+def cmd_serve(args) -> int:
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+    from dfs_tpu_torch.utils.aio import create_logged_task
+
+    cfg = node_config(args)
+    try:
+        node = StorageNodeServer(cfg)
+    except RuntimeError as e:        # no card (resolve_device's message)
+        print(f"serve: {e}", file=sys.stderr)
+        return 2
+
+    async def run() -> None:
+        await node.start()
+        tasks: list[asyncio.Task] = []   # strong refs to the loops
+
+        def periodic(interval: float, what: str, fn) -> None:
+            if interval <= 0:
+                return
+
+            async def loop() -> None:
+                while True:
+                    await asyncio.sleep(interval)
+                    try:
+                        await fn()
+                    except Exception as e:  # noqa: BLE001
+                        node.log.warning("%s failed: %s", what, e)
+
+            tasks.append(create_logged_task(loop(), node.log, what))
+
+        async def do_repair() -> None:
+            n = await node.repair_once()
+            if n:
+                node.log.info("repair: re-replicated %d chunks", n)
+
+        async def do_scrub() -> None:
+            res = await node.scrub_once()
+            if res["corrupt"]:
+                node.log.warning("scrub: %d corrupt chunks evicted",
+                                 res["corrupt"])
+
+        periodic(args.repair_interval, "repair", do_repair)
+        periodic(args.scrub_interval, "scrub", do_scrub)
+        await asyncio.Event().wait()     # serve until killed
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_status(args) -> int:
+    print(_client(args).status())
+    return 0
+
+
+def cmd_list(args) -> int:
+    files = _client(args).list_files()
+    if not files:
+        print("(no files)")
+    for i, f in enumerate(files, 1):
+        print(f"{i}. {f.name}  id={f.file_id[:16]}…  size={f.size}  "
+              f"chunks={f.chunks}")
+    return 0
+
+
+def cmd_upload(args) -> int:
+    path = Path(args.file)
+    info = _client(args).upload(path.read_bytes(), name=path.name)
+    print(f"Uploaded: fileId={info['fileId']} chunks={info['chunks']} "
+          f"transferred={info.get('transferredBytes', '?')}B "
+          f"dedupSkipped={info.get('dedupSkippedBytes', '?')}B")
+    return 0
+
+
+def cmd_download(args) -> int:
+    c = _client(args)
+    data = c.download(args.file_id)
+    name = args.file_id
+    for f in c.list_files():
+        if f.file_id == args.file_id:
+            name = f.name
+            break
+    out = Path(args.out or "downloads") / name
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_bytes(data)
+    print(f"Saved {len(data)} bytes to {out}")
+    return 0
+
+
+def cmd_delete(args) -> int:
+    print(_client(args).delete(args.file_id))
+    return 0
+
+
+def cmd_metrics(args) -> int:
+    print(json.dumps(_client(args).metrics(), indent=2, sort_keys=True))
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="dfs-tpu-torch",
+        description="content-addressed distributed file storage, chunking "
+                    "on an NVIDIA card")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=5001)
+    ap.add_argument("--timeout", type=float, default=60.0,
+                    help="HTTP timeout of the client subcommands (s)")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    serve = sub.add_parser("serve", help="run a storage node")
+    serve.add_argument("--node-id", type=int, required=True)
+    serve.add_argument("--cluster-config", default=None,
+                       help="JSON/TOML cluster membership file (overrides "
+                            "--nodes/--base-port/--replication-factor)")
+    serve.add_argument("--nodes", type=int, default=5)
+    serve.add_argument("--base-port", type=int, default=5001)
+    serve.add_argument("--base-internal-port", type=int, default=6001)
+    serve.add_argument("--replication-factor", type=int, default=None)
+    serve.add_argument("--data-root", default="data")
+    serve.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="where the chunking runs: the CUDA card "
+                            "(default; fails without one) or the plain "
+                            "versions on the CPU")
+    serve.add_argument("--fragmenter", default="auto",
+                       choices=["auto", "cdc-anchored-cuda"],
+                       help="both: the anchored CDC + SHA-256 chain")
+    serve.add_argument("--cdc-devices", type=int, default=0,
+                       help="window-batched walk over N device slots "
+                            "(0/1 = single-device; chunks identical)")
+    serve.add_argument("--cdc-region-bytes", type=int, default=0,
+                       help="window size of the batched walk (0 = 64 MiB "
+                            "split across the batch)")
+    serve.add_argument("--cdc-staging-buffers", type=int, default=2,
+                       help="window batches in flight in the batched walk")
+    serve.add_argument("--min-chunk", type=int, default=2048)
+    serve.add_argument("--avg-chunk", type=int, default=8192)
+    serve.add_argument("--max-chunk", type=int, default=65536)
+    serve.add_argument("--connect-timeout", type=float, default=2.0,
+                       help="per-attempt peer connect timeout (s)")
+    serve.add_argument("--request-timeout", type=float, default=10.0,
+                       help="per-attempt peer request timeout (s); bulk "
+                            "transfers add a size-derived margin")
+    serve.add_argument("--rpc-retries", type=int, default=3,
+                       help="peer call attempts before a peer counts as "
+                            "unreachable")
+    serve.add_argument("--probe-interval", type=float, default=5.0,
+                       help="seconds between peer health probes; 0 = "
+                            "data-path feedback only")
+    serve.add_argument("--write-quorum", type=int, default=2,
+                       help="copies (the local one included) an upload "
+                            "needs before it acknowledges")
+    serve.add_argument("--repair-interval", type=float, default=30.0,
+                       help="seconds between repair cycles; 0 disables")
+    serve.add_argument("--scrub-interval", type=float, default=3600.0,
+                       help="seconds between local integrity sweeps; 0 "
+                            "disables")
+    serve.add_argument("--ingest-window", type=int, default=2,
+                       help="placement batches in flight while streaming")
+    serve.add_argument("--ingest-flush-bytes", type=int,
+                       default=32 * 1024 * 1024,
+                       help="bytes a streaming placement batch collects")
+    serve.add_argument("--ingest-credit-bytes", type=int,
+                       default=64 * 1024 * 1024,
+                       help="produced-but-unplaced chunk bytes before the "
+                            "fragmenter thread waits")
+    serve.add_argument("--replicate-inflight", type=int, default=2,
+                       help="replication slices in flight per peer")
+    serve.add_argument("--cas-io-threads", type=int, default=4,
+                       help="worker threads of the local chunk store")
+    serve.add_argument("--durability", default="fsync",
+                       choices=["fsync", "none"],
+                       help="fsync every chunk and the manifest before the "
+                            "ack (default), or not")
+    serve.set_defaults(fn=cmd_serve)
+
+    sub.add_parser("status").set_defaults(fn=cmd_status)
+    sub.add_parser("list").set_defaults(fn=cmd_list)
+    up = sub.add_parser("upload")
+    up.add_argument("file")
+    up.set_defaults(fn=cmd_upload)
+    down = sub.add_parser("download")
+    down.add_argument("file_id")
+    down.add_argument("--out", default=None)
+    down.set_defaults(fn=cmd_download)
+    rm = sub.add_parser("delete")
+    rm.add_argument("file_id")
+    rm.set_defaults(fn=cmd_delete)
+    sub.add_parser("metrics").set_defaults(fn=cmd_metrics)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

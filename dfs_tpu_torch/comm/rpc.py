@@ -1,0 +1,313 @@
+"""Async client of the internal storage plane (a port of dfs_tpu's
+``comm/rpc.py`` for the default configuration).
+
+Per-peer pools of persistent :class:`FrameConnection`s, per-attempt
+connect and request timeouts, bounded retries with decorrelated-jitter
+backoff, and a per-peer retry budget. Placement-bearing ops carry the
+sender's ring epoch and map fingerprint (``repoch``/``rfp``), as dfs_tpu's
+client stamps them, so port and dfs_tpu nodes serve each other's frames.
+
+Ops: ``store_chunks`` (with the receiver's hash echo) and its windowed
+form, ``has_chunks``, ``get_chunk(s)``, ``get_manifest``, ``announce``,
+``delete``, ``tombstones``, ``list_manifests``, ``health``.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import random
+import time
+from typing import Any
+
+from dfs_tpu_torch.comm.wire import (Buffer, FrameConnection, WireError,
+                                     buffers_nbytes, pack_chunks,
+                                     unpack_chunks)
+from dfs_tpu_torch.config import PeerAddr
+from dfs_tpu_torch.utils.aio import gather_abort_siblings
+
+
+class RpcError(RuntimeError):
+    """Base for storage-plane call failures."""
+
+
+class RpcUnreachable(RpcError):
+    """Transport-level failure on every attempt: the only error that
+    counts as evidence a peer is dead."""
+
+
+class RpcRemoteError(RpcError):
+    """The peer answered with an application-level error (chunk not
+    found, unknown op, ring mismatch); says nothing about liveness."""
+
+
+# ops that carry the sender's ring epoch + fingerprint
+_EPOCH_OPS = frozenset({"store_chunks", "get_chunk", "get_chunks",
+                        "has_chunks"})
+
+
+class RetryBudget:
+    """Per-peer token bucket gating RETRY attempts (first attempts are
+    free): about ``refill_per_s`` retries a second per peer with
+    ``capacity`` of burst, so a partition costs one budget, not a storm.
+    Touched only from the owning event loop."""
+
+    CAPACITY = 10.0
+    REFILL_PER_S = 0.5
+
+    def __init__(self, capacity: float = CAPACITY,
+                 refill_per_s: float = REFILL_PER_S) -> None:
+        self.capacity = float(capacity)
+        self.refill_per_s = float(refill_per_s)
+        self._tokens: dict[Any, tuple[float, float]] = {}
+        self._exhausted: dict[Any, int] = {}
+
+    def take(self, peer) -> bool:
+        now = time.monotonic()
+        tokens, last = self._tokens.get(peer, (self.capacity, now))
+        tokens = min(self.capacity,
+                     tokens + (now - last) * self.refill_per_s)
+        if tokens >= 1.0:
+            self._tokens[peer] = (tokens - 1.0, now)
+            return True
+        self._tokens[peer] = (tokens, now)
+        self._exhausted[peer] = self._exhausted.get(peer, 0) + 1
+        return False
+
+    def stats(self) -> dict:
+        """``/metrics`` ``retryBudget``."""
+        now = time.monotonic()
+        tokens = {
+            str(p): round(min(self.capacity,
+                              t + (now - last) * self.refill_per_s), 2)
+            for p, (t, last) in sorted(self._tokens.items(),
+                                       key=lambda kv: str(kv[0]))}
+        return {"capacity": self.capacity,
+                "refillPerS": self.refill_per_s,
+                "tokens": tokens,
+                "exhausted": {str(p): n for p, n in
+                              sorted(self._exhausted.items(),
+                                     key=lambda kv: str(kv[0]))}}
+
+
+class InternalClient:
+    """Storage-plane RPC client with a per-peer connection pool."""
+
+    _MAX_IDLE_PER_PEER = 4
+    # bulk transfers get extra time per byte on top of the request
+    # timeout: 1 MB/s is the assumed worst-case effective bandwidth of a
+    # receiver that creates one fsync'd file per chunk
+    _BULK_BYTES_PER_S = 1024 * 1024
+    # decorrelated-jitter backoff: sleep_n = min(CAP, U(BASE, 3 sleep_n-1))
+    _BACKOFF_BASE_S = 0.05
+    _BACKOFF_CAP_S = 0.5
+
+    def __init__(self, connect_timeout_s: float = 2.0,
+                 request_timeout_s: float = 10.0, retries: int = 3,
+                 ring=None) -> None:
+        self.connect_timeout_s = connect_timeout_s
+        self.request_timeout_s = request_timeout_s
+        self.retries = retries
+        self._ring = ring
+        self.retry_budget = RetryBudget()
+        self._backoff_rng = random.Random()
+        self._pool: dict[tuple[str, int], list[FrameConnection]] = {}
+
+    def _checkout(self, peer: PeerAddr) -> FrameConnection | None:
+        pool = self._pool.get((peer.host, peer.internal_port))
+        while pool:
+            conn = pool.pop()
+            if conn.closed:
+                conn.close()
+                continue
+            return conn
+        return None
+
+    def _checkin(self, peer: PeerAddr, conn: FrameConnection) -> None:
+        pool = self._pool.setdefault((peer.host, peer.internal_port), [])
+        if len(pool) < self._MAX_IDLE_PER_PEER and not conn.closed:
+            pool.append(conn)
+        else:
+            conn.close()
+
+    def close(self) -> None:
+        """Drop every pooled connection (node shutdown)."""
+        for pool in self._pool.values():
+            for conn in pool:
+                conn.close()
+        self._pool.clear()
+
+    def _bulk_timeout(self, n_bytes: int) -> float:
+        return self.request_timeout_s + n_bytes / self._BULK_BYTES_PER_S
+
+    async def _request(self, conn: FrameConnection, header: dict, body,
+                       timeout_s: float | None) -> tuple[dict, memoryview]:
+        t = self.request_timeout_s if timeout_s is None \
+            else max(self.request_timeout_s, timeout_s)
+        await asyncio.wait_for(conn.send(header, body), timeout=t)
+        resp, rbody, _ = await asyncio.wait_for(conn.reply(), timeout=t)
+        return resp, rbody
+
+    async def _dial(self, peer: PeerAddr) -> FrameConnection:
+        return await asyncio.wait_for(
+            FrameConnection.connect(peer.host, peer.internal_port),
+            timeout=self.connect_timeout_s)
+
+    async def _call_once(self, peer: PeerAddr, header: dict, body,
+                         timeout_s: float | None
+                         ) -> tuple[dict, memoryview]:
+        conn = self._checkout(peer)
+        reused = conn is not None
+        if conn is None:
+            conn = await self._dial(peer)
+        try:
+            resp, rbody = await self._request(conn, header, body, timeout_s)
+        except (ConnectionError, asyncio.IncompleteReadError, WireError):
+            # a pooled connection the server closed while idle fails on
+            # its first frame: retry ONCE on a fresh dial. A timeout does
+            # not take this path (the peer may still be working on it)
+            conn.close()
+            if not reused:
+                raise
+            conn = await self._dial(peer)
+            try:
+                resp, rbody = await self._request(conn, header, body,
+                                                  timeout_s)
+            except BaseException:
+                conn.close()
+                raise
+        except BaseException:
+            conn.close()
+            raise
+        # the exchange completed, so the connection is in frame sync even
+        # for an application error: pool it either way
+        self._checkin(peer, conn)
+        if not resp.get("ok", False):
+            raise RpcRemoteError(
+                f"peer {peer.node_id} error: {resp.get('error')}")
+        return resp, rbody
+
+    async def call(self, peer: PeerAddr, header: dict,
+                   body: Buffer | list[Buffer] = b"",
+                   retries: int | None = None,
+                   timeout_s: float | None = None
+                   ) -> tuple[dict, memoryview]:
+        """Bounded-retry call. ``body`` (one buffer or a list) rides the
+        wire unjoined; the reply body is a read-only view of the reply
+        frame. ``retries`` overrides the attempt count (1 for a peer the
+        health monitor believes dead); ``timeout_s`` raises, never lowers,
+        the per-attempt budget."""
+        if self._ring is not None and header.get("op") in _EPOCH_OPS \
+                and "repoch" not in header:
+            header["repoch"] = self._ring.epoch
+            header["rfp"] = self._ring.current.fingerprint
+        attempts = retries if retries is not None else self.retries
+        last: Exception | None = None
+        prev_sleep = self._BACKOFF_BASE_S
+        for attempt in range(attempts):
+            if attempt and not self.retry_budget.take(peer.node_id):
+                raise RpcUnreachable(
+                    f"peer {peer.node_id} retry budget exhausted after "
+                    f"{attempt} attempt(s): {type(last).__name__}: {last}")
+            try:
+                return await self._call_once(peer, header, body, timeout_s)
+            except RpcError:
+                raise            # application error: retrying won't help
+            except (OSError, asyncio.TimeoutError, RuntimeError) as e:
+                last = e
+                if attempt + 1 < attempts:
+                    prev_sleep = min(
+                        self._BACKOFF_CAP_S,
+                        self._backoff_rng.uniform(self._BACKOFF_BASE_S,
+                                                  3.0 * prev_sleep))
+                    await asyncio.sleep(prev_sleep)
+        raise RpcUnreachable(
+            f"peer {peer.node_id} unreachable after {attempts} attempts: "
+            f"{type(last).__name__}: {last}")
+
+    # ---- typed ops ----
+
+    async def store_chunks(self, peer: PeerAddr, file_id: str,
+                           chunks: list[tuple[str, Buffer]]) -> list[str]:
+        """Send chunks; returns the digests the receiver recomputed from
+        the bytes it stored (the hash echo the caller verifies)."""
+        table, bufs = pack_chunks(chunks)
+        resp, _ = await self.call(
+            peer, {"op": "store_chunks", "fileId": file_id, "chunks": table},
+            bufs, timeout_s=self._bulk_timeout(buffers_nbytes(bufs)))
+        return list(resp.get("digests", []))
+
+    async def store_chunks_windowed(
+            self, peer: PeerAddr, file_id: str,
+            slices: list[list[tuple[str, Buffer]]], window: int = 2,
+            on_slice=None) -> int:
+        """Send payload slices to ONE peer with up to ``window`` in flight
+        (each on its own pooled connection). ``on_slice(part, echoed)``
+        runs as each completes; an exception it raises cancels the rest
+        and propagates. Returns the peak number in flight."""
+        window = max(1, window)
+        if window == 1 or len(slices) <= 1:
+            for part in slices:
+                echoed = await self.store_chunks(peer, file_id, part)
+                if on_slice is not None:
+                    on_slice(part, echoed)
+            return 1 if slices else 0
+        sem = asyncio.Semaphore(window)
+        inflight = 0
+        peak = 0
+
+        async def one(part) -> None:
+            nonlocal inflight, peak
+            async with sem:
+                inflight += 1
+                peak = max(peak, inflight)
+                try:
+                    echoed = await self.store_chunks(peer, file_id, part)
+                finally:
+                    inflight -= 1
+                if on_slice is not None:
+                    on_slice(part, echoed)
+
+        await gather_abort_siblings(*(one(p) for p in slices))
+        return peak
+
+    async def has_chunks(self, peer: PeerAddr, digests: list[str],
+                         retries: int | None = None) -> set[str]:
+        resp, _ = await self.call(peer, {"op": "has_chunks",
+                                         "digests": digests},
+                                  retries=retries)
+        return set(resp.get("have", []))
+
+    async def announce(self, peer: PeerAddr, manifest_json: str,
+                       fresh: bool = False) -> None:
+        """``fresh=True``: an announce straight from an upload, which
+        clears the receiver's tombstone for the file id; replayed
+        announces leave it unset and bounce off tombstones."""
+        await self.call(peer, {"op": "announce", "manifest": manifest_json,
+                               "fresh": fresh})
+
+    async def get_chunk(self, peer: PeerAddr, digest: str) -> memoryview:
+        _, body = await self.call(peer, {"op": "get_chunk",
+                                         "digest": digest})
+        return body
+
+    async def get_chunks(self, peer: PeerAddr, digests: list[str],
+                         retries: int | None = None,
+                         expect_bytes: int = 0
+                         ) -> list[tuple[str, memoryview]]:
+        """Batched fetch: (digest, payload view) for every requested chunk
+        the peer holds; missing ones are absent."""
+        resp, body = await self.call(
+            peer, {"op": "get_chunks", "digests": digests},
+            retries=retries, timeout_s=self._bulk_timeout(expect_bytes))
+        return unpack_chunks(resp.get("chunks", []), body)
+
+    async def get_manifest(self, peer: PeerAddr, file_id: str
+                           ) -> tuple[str | None, float | None]:
+        """-> (manifest JSON or None, the peer's manifest mtime or None)."""
+        resp, _ = await self.call(peer, {"op": "get_manifest",
+                                         "fileId": file_id})
+        return resp.get("manifest"), resp.get("mtime")
+
+    async def health(self, peer: PeerAddr) -> dict[str, Any]:
+        resp, _ = await self.call(peer, {"op": "health"})
+        return resp

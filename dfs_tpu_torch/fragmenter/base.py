@@ -54,3 +54,60 @@ class Fragmenter(abc.ABC):
             file_id=file_id_from_digests([c.digest for c in chunks]),
             name=name, size=size, fragmenter=self.name,
             chunks=tuple(chunks))
+
+
+def _aligned_from_cdc(cdc_params):
+    """CDCParams byte sizes -> 64-byte block units (quantized), the strip
+    grown to hold one max-size chunk — dfs_tpu's ``_aligned_from_cdc``."""
+    from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
+
+    max_blocks = max(1, cdc_params.max_size // 64)
+    strip_blocks = AlignedCdcParams.__dataclass_fields__[
+        "strip_blocks"].default
+    while strip_blocks < max_blocks:
+        strip_blocks *= 2
+    return AlignedCdcParams(
+        min_blocks=max(1, cdc_params.min_size // 64),
+        avg_blocks=max(1, cdc_params.avg_size // 64),
+        max_blocks=max_blocks,
+        strip_blocks=strip_blocks)
+
+
+def _anchored_params(cdc_params):
+    """The anchored parameters for a node's chunk sizing — dfs_tpu's
+    ``_anchored_params``: seg_max is one lane (the strip's bytes) and
+    seg_min keeps the default 3:4 ratio, tile-aligned. The default
+    CDCParams() maps to AnchoredCdcParams(), so a port node and a dfs_tpu
+    node started with the same flags cut the same chunks."""
+    from dfs_tpu_torch.ops.cdc_anchored import TILE_BYTES, AnchoredCdcParams
+
+    if isinstance(cdc_params, AnchoredCdcParams):
+        return cdc_params
+    if cdc_params is None:
+        return AnchoredCdcParams()
+    chunk = _aligned_from_cdc(cdc_params)
+    seg_max = chunk.strip_blocks * 64
+    seg_min = max(TILE_BYTES, (3 * seg_max // 4) // TILE_BYTES * TILE_BYTES)
+    return AnchoredCdcParams(chunk=chunk, seg_min=seg_min, seg_max=seg_max)
+
+
+def get_fragmenter(kind: str, *, cdc_params=None, frag=None,
+                   device=None) -> Fragmenter:
+    """Factory keyed by ``NodeConfig.fragmenter``. ``"auto"`` (the serve
+    default) and ``"cdc-anchored-cuda"`` both give the anchored chain on
+    ``device`` (None: the CUDA card; "cpu": the plain versions) —
+    :class:`AnchoredCudaFragmenter`, or with ``frag.devices > 1`` the
+    window-batched :class:`ShardedAnchoredCudaFragmenter`. Unlike
+    dfs_tpu's ``auto``, it never picks the CPU by itself: without CUDA it
+    raises unless ``device="cpu"`` was asked for."""
+    if kind not in ("auto", "cdc-anchored-cuda"):
+        raise ValueError(f"unknown fragmenter {kind!r}")
+    params = _anchored_params(cdc_params)
+    if frag is not None and frag.devices > 1:
+        from dfs_tpu_torch.fragmenter.cdc_anchored_sharded import \
+            ShardedAnchoredCudaFragmenter
+
+        return ShardedAnchoredCudaFragmenter(params, frag, device=device)
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+
+    return AnchoredCudaFragmenter(params, device=device)

@@ -22,6 +22,8 @@ that read it has completed.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -166,25 +168,31 @@ class AnchoredCudaFragmenter(_AnchoredBase):
         self.lane_multiple = int(lane_multiple)
         self.max_inflight = max(1, int(max_inflight))
         self._cuda = self.device.type == "cuda"
-        # recycled host staging buffers (pinned on CUDA), keyed by size
+        # recycled host staging buffers (pinned on CUDA), keyed by size.
+        # A node runs concurrent uploads' walks in worker threads on one
+        # fragmenter: each walk keeps its own windows, carry and device
+        # tensors, and issues them on its thread's current stream; the
+        # pool is the state they share, taken and returned under a lock
         self._buf_pool: dict[int, list[torch.Tensor]] = {}
+        self._pool_lock = threading.Lock()
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda \
             else None
 
     # -- staging ----------------------------------------------------------
 
     def _pool_take(self, size: int) -> torch.Tensor:
-        try:
-            return self._buf_pool[size].pop()
-        except (KeyError, IndexError):
-            return torch.empty((size,), dtype=torch.uint8,
-                               pin_memory=self._cuda)
+        with self._pool_lock:
+            free = self._buf_pool.get(size)
+            if free:
+                return free.pop()
+        return torch.empty((size,), dtype=torch.uint8, pin_memory=self._cuda)
 
     def _pool_give(self, host: torch.Tensor, copied) -> None:
         """Return a staging buffer once the copy that read it is done."""
         if copied is not None:
             copied.synchronize()
-        self._buf_pool.setdefault(host.shape[0], []).append(host)
+        with self._pool_lock:
+            self._buf_pool.setdefault(host.shape[0], []).append(host)
 
     def _stage(self, data: np.ndarray, lookback: np.ndarray):
         """Fill a pooled host buffer with the region layout and put it on

@@ -63,6 +63,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _launches: dict[str, int] = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
 build_log: dict[str, str] = {}     # kernel -> ptxas report of its build
 
 
@@ -145,16 +146,19 @@ def launch(name: str, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    _launches[name] += 1
+    with _count_lock:        # walks of concurrent uploads run in threads
+        _launches[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for name in _launches:
-        _launches[name] = 0
+    with _count_lock:
+        for name in _launches:
+            _launches[name] = 0
 
 
 def check_cuda(name: str, t, dtype=None, ndim: int | None = None) -> None:

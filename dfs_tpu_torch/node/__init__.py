@@ -1,8 +1,11 @@
-"""A single storage node: upload, download and list over one data root.
+"""Storage nodes. :mod:`dfs_tpu_torch.node.runtime` is the node as users
+run it (``StorageNodeServer``: HTTP API, internal plane, replication);
+:class:`LocalNode`, here, is its single-node core as a library: upload,
+download and list over one data root.
 
-This is the single-node core of ``dfs_tpu``'s ``StorageNodeServer.upload``,
-``upload_stream`` and ``download``: replication factor 1, no peers, fsync
-durability. An upload
+:class:`LocalNode` follows ``dfs_tpu``'s ``StorageNodeServer.upload``,
+``upload_stream`` and ``download`` with replication factor 1, no peers
+and fsync durability. An upload
 
 1. hashes the body: fileId = sha256(body);
 2. chunks it through the CUDA fragmenter (the anchored chain);

@@ -1,0 +1,1395 @@
+"""The asyncio node runtime: a port of dfs_tpu's ``StorageNodeServer``
+(``dfs_tpu/node/runtime.py``) for the default configuration.
+
+One process per node, two listeners:
+
+- the external HTTP API (:mod:`dfs_tpu_torch.api.http`);
+- the internal binary storage plane (this module), speaking dfs_tpu's
+  frames and ops, so port nodes and dfs_tpu nodes can share a cluster.
+
+An upload hashes the body (fileId = sha256), chunks it through the
+anchored CDC + SHA-256 chain on the card (in a worker thread, so the
+event loop keeps serving), places every distinct chunk on its ring owners
+— local puts and concurrent replication with a hash echo per slice —,
+falls back to sloppy-quorum handoff when an owner is down, fails below
+``write_quorum`` copies, and acks by saving the manifest (fsync'd) and
+announcing it to every peer. A download gathers chunks locally and in
+batches from their owners, verifies every chunk and the whole file, and
+streams them out. Repair re-replicates, moves handoff copies home and
+converges deletes and creates by anti-entropy; scrub re-hashes the local
+store.
+
+What dfs_tpu builds only when configured — the serving tier, the index,
+tiering, similarity, chaos, the elastic ring, the census history, the
+journal, tracing, deadlines, hedging — is not ported. Erasure-coded
+uploads answer 400.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import errno
+import math
+import queue as _queue
+import threading
+import time
+from collections import deque
+
+from dfs_tpu_torch.api.http import make_http_handler
+from dfs_tpu_torch.comm.rpc import InternalClient, RpcError, RpcUnreachable
+from dfs_tpu_torch.comm.wire import (FrameServerProtocol, WireError,
+                                     encode_frame, pack_chunks, unpack_chunks)
+from dfs_tpu_torch.config import NodeConfig
+from dfs_tpu_torch.fragmenter.base import get_fragmenter
+from dfs_tpu_torch.meta.manifest import ChunkRef, Manifest
+from dfs_tpu_torch.node.health import HealthMonitor
+from dfs_tpu_torch.ring.manager import RingManager
+from dfs_tpu_torch.store.aio import AsyncChunkStore
+from dfs_tpu_torch.store.cas import NodeStore
+from dfs_tpu_torch.utils.aio import gather_abort_siblings
+from dfs_tpu_torch.utils.hashing import (is_hex_digest, sha256_hex,
+                                         sha256_many_hex, sha256_new)
+from dfs_tpu_torch.utils.logging import Counters, Stopwatches, get_logger
+from dfs_tpu_torch.utils.trace import LatencyRecorder, span
+
+# the internal-plane ops this node serves; any other answers "unknown op"
+_OPS = frozenset({"store_chunks", "has_chunks", "announce", "tombstones",
+                  "list_manifests", "get_chunk", "get_chunks",
+                  "get_manifest", "delete", "delete_chunks", "health"})
+EC_NOT_PORTED = ("erasure coding is not in this port yet "
+                 "(ROADMAP Queue 1 item 5)")
+
+
+class UploadError(RuntimeError):
+    """An upload that cannot be acknowledged; ``status`` is the HTTP
+    answer (500 below quorum, 400 for a bad request, 507 on ENOSPC)."""
+
+    def __init__(self, msg: str, status: int = 500) -> None:
+        super().__init__(msg)
+        self.status = status
+
+
+class NotFoundError(KeyError):
+    """No manifest for the file id anywhere reachable (or tombstoned)."""
+
+
+class DownloadError(RuntimeError):
+    pass
+
+
+class RangeNotSatisfiable(DownloadError):
+    """The requested byte range lies past the end of the file."""
+
+    def __init__(self, size: int) -> None:
+        super().__init__(f"range not satisfiable (size {size})")
+        self.size = size
+
+
+class ByteBudget:
+    """Counting byte semaphore between the fragmenter thread and the
+    placement loop of a streaming upload: the fragmenter blocks once
+    ``budget`` bytes of produced chunks are unconsumed. One chunk larger
+    than the whole budget is admitted when nothing else is outstanding."""
+
+    def __init__(self, budget: int) -> None:
+        self.budget = max(1, int(budget))
+        self._out = 0
+        self._cv = threading.Condition()
+
+    def acquire(self, n: int, timeout: float | None = None) -> bool:
+        with self._cv:
+            ok = self._cv.wait_for(
+                lambda: self._out + n <= self.budget or self._out == 0,
+                timeout)
+            if ok:
+                self._out += n
+            return ok
+
+    def release(self, n: int) -> None:
+        with self._cv:
+            self._out = max(0, self._out - n)
+            self._cv.notify_all()
+
+
+class StorageNodeServer:
+    # per-RPC payload cap of replication slices, and the batch size of
+    # streamed reads and repair fetches (class-level so tests can scale)
+    _REPLICA_SLICE_BYTES = 8 * 1024 * 1024
+    _FETCH_BATCH_BYTES = 32 * 1024 * 1024
+
+    def __init__(self, cfg: NodeConfig) -> None:
+        self.cfg = cfg
+        self.log = get_logger("node", cfg.node_id)
+        # the fragmenter first: without the card (and without
+        # device="cpu") the node raises here, before it touches the disk
+        self.fragmenter = get_fragmenter(cfg.fragmenter, cdc_params=cfg.cdc,
+                                         frag=cfg.frag, device=cfg.device)
+        self.store = NodeStore(cfg.data_root, cfg.node_id,
+                               fsync=cfg.durability.fsync)
+        self.counters = Counters()
+        self.latency = LatencyRecorder()
+        self.ingest_stalls = Stopwatches()
+        self.ring = RingManager(cfg)
+        self.cas = AsyncChunkStore(self.store.chunks,
+                                   workers=cfg.ingest.cas_io_threads)
+        self._STREAM_FLUSH_BYTES = cfg.ingest.flush_bytes
+        self.client = InternalClient(cfg.connect_timeout_s,
+                                     cfg.request_timeout_s, cfg.retries,
+                                     ring=self.ring)
+        self.health = HealthMonitor(cfg.cluster, cfg.node_id, self.client,
+                                    probe_interval_s=cfg.health_probe_s)
+        self._repair_lock = asyncio.Lock()
+        self.under_replicated: set[str] = set()  # digests needing repair
+        self._internal_server: asyncio.AbstractServer | None = None
+        self._http_server: asyncio.AbstractServer | None = None
+        self._inbound: set[FrameServerProtocol] = set()
+
+    # ------------------------------------------------------------------ #
+    # lifecycle
+    # ------------------------------------------------------------------ #
+
+    async def start(self) -> None:
+        addr = self.cfg.self_addr
+        # crash recovery before anything can be in flight
+        swept = await asyncio.to_thread(self.store.boot_sweep)
+        if swept["tmps"] or swept["orphans"]:
+            self.log.info("boot sweep: %d temp(s), %d aged orphan(s)",
+                          swept["tmps"], swept["orphans"])
+        loop = asyncio.get_running_loop()
+        self._internal_server = await loop.create_server(
+            lambda: FrameServerProtocol(self._serve_internal_frame,
+                                        on_connect=self._inbound.add,
+                                        on_close=self._inbound.discard),
+            addr.host, addr.internal_port)
+        self._http_server = await asyncio.start_server(
+            make_http_handler(self), addr.host, addr.port)
+        if self.cfg.health_probe_s > 0:
+            self.health.start()
+        self.log.info("node %d up: http=%d internal=%d fragmenter=%s on %s",
+                      self.cfg.node_id, addr.port, addr.internal_port,
+                      self.fragmenter.name, self.frag_stats()["device"])
+
+    async def stop(self) -> None:
+        self.health.stop()
+        self.client.close()
+        self.cas.close()
+        # peers keep pooled connections into this node open; close them
+        # or wait_closed() waits on a peer that has not spoken lately
+        for conn in list(self._inbound):
+            conn.close()
+        for srv in (self._internal_server, self._http_server):
+            if srv is not None:
+                srv.close()
+                await srv.wait_closed()
+
+    def _peers(self) -> list:
+        return [p for p in self.cfg.cluster.peers
+                if p.node_id != self.cfg.node_id]
+
+    # ------------------------------------------------------------------ #
+    # internal storage plane (server side)
+    # ------------------------------------------------------------------ #
+
+    async def _serve_internal_frame(self, conn, header: dict,
+                                    body: memoryview, nbytes_in: int) -> None:
+        """Serve one inbound frame; ``body`` is a read-only view of its
+        receive buffer. An op error becomes an error reply. Its time goes
+        to ``/metrics`` latency as ``peer.<op>``, as dfs_tpu's server span
+        of the op."""
+        op = header.get("op")
+        name = f"peer.{op}" if op in _OPS else "peer.other"
+        with span(name, self.latency):
+            try:
+                resp, rbody = await self._dispatch(header, body)
+            except Exception as e:  # noqa: BLE001 — answered to the peer
+                resp, rbody = {"ok": False, "error": str(e)}, b""
+        head, bufs, _ = encode_frame(resp, rbody)
+        try:
+            conn.send_encoded(head, bufs)
+            await conn.drain()
+        except (ConnectionError, OSError, WireError):
+            self.counters.inc("peer_reply_aborted")
+            conn.close()
+
+    async def _dispatch(self, header: dict, body) -> tuple[dict, object]:
+        op = header.get("op")
+        repoch, rfp = header.get("repoch"), header.get("rfp")
+        ring = self.ring.current
+        if isinstance(repoch, int) and not isinstance(repoch, bool) \
+                and (repoch != ring.epoch
+                     or (isinstance(rfp, str) and rfp != ring.fingerprint)):
+            # a placement-bearing op from a node with another ring: refused
+            # with ours, as dfs_tpu refuses it
+            self.counters.inc("ring_epoch_mismatches")
+            return {"ok": False,
+                    "error": f"ring epoch mismatch (have {ring.epoch}, "
+                             f"got {repoch})",
+                    "ringEpoch": ring.epoch, "ring": ring.to_dict()}, b""
+        if op == "store_chunks":
+            # hash echo: every digest recomputed from the received bytes,
+            # off the loop with the writes
+            pairs = unpack_chunks(header.get("chunks", []), body)
+
+            def store_all():
+                echoed = sha256_many_hex([b for _, b in pairs])
+                stored = dedup = nbytes = 0
+                for (claimed, data), actual in zip(pairs, echoed):
+                    if claimed == actual:
+                        if self.store.chunks.put(actual, data, verify=False):
+                            stored += 1
+                            nbytes += len(data)
+                        else:
+                            dedup += 1
+                return echoed, stored, dedup, nbytes
+
+            echoed, stored, dedup, nbytes = await asyncio.to_thread(store_all)
+            if stored:
+                self.counters.inc("chunks_stored", stored)
+                self.counters.inc("bytes_stored", nbytes)
+            if dedup:
+                self.counters.inc("dedup_hits", dedup)
+            return {"ok": True, "digests": echoed}, b""
+        if op == "has_chunks":
+            digests = header.get("digests", [])
+            mask = await self.cas.has_many(digests)
+            return {"ok": True,
+                    "have": [d for d, h in zip(digests, mask) if h]}, b""
+        if op == "announce":
+            m = Manifest.from_json(header["manifest"])
+            if header.get("fresh"):
+                self.store.manifests.clear_tombstone(m.file_id)
+            if await asyncio.to_thread(self.store.manifests.save, m):
+                self.counters.inc("manifests_announced")
+            else:
+                self.counters.inc("announce_rejected_tombstoned")
+            return {"ok": True}, b""
+        if op == "tombstones":
+            # ts None: the tombstone vanished meanwhile (a fresh re-upload
+            # cleared it) and must not be advertised
+            ms = self.store.manifests
+            tombs = [{"id": fid, "ts": ts} for fid in ms.tombstones()
+                     if (ts := ms.tombstone_ts(fid)) is not None]
+            return {"ok": True, "tombs": tombs}, b""
+        if op == "list_manifests":
+            return {"ok": True, "ids": self.store.manifests.ids()}, b""
+        if op == "get_chunk":
+            data = await self.cas.get(header["digest"])
+            if data is None:
+                return {"ok": False, "error": "chunk not found"}, b""
+            return {"ok": True}, data
+        if op == "get_chunks":
+            have = await self.cas.get_many(header.get("digests", []))
+            table, bufs = pack_chunks(have)
+            return {"ok": True, "chunks": table}, bufs
+        if op == "get_manifest":
+            m = self.store.manifests.load(header["fileId"])
+            return {"ok": True,
+                    "manifest": None if m is None else m.to_json(),
+                    "mtime": self.store.manifests.mtime(
+                        header["fileId"])}, b""
+        if op == "delete":
+            await asyncio.to_thread(self._forget_file, header["fileId"])
+            return {"ok": True}, b""
+        if op == "delete_chunks":
+            # a peer asks this node to drop copies it no longer places
+            # here; every digest this node still owns by its own manifests
+            # and ring is refused
+            digests = header.get("digests", [])
+            if not (isinstance(digests, list) and
+                    all(isinstance(d, str) and len(d) == 64
+                        for d in digests)):
+                return {"ok": False, "error": "bad digests"}, b""
+
+            def reclaim():
+                expected = self._expected_digests_here(set(digests))
+                removed, refused = [], []
+                for d in digests:
+                    if d in expected:
+                        refused.append(d)
+                    elif self.store.chunks.delete(d):
+                        removed.append(d)
+                return removed, refused
+
+            removed, refused = await asyncio.to_thread(reclaim)
+            return {"ok": True, "removed": removed, "refused": refused}, b""
+        if op == "health":
+            return {"ok": True, "nodeId": self.cfg.node_id,
+                    "chunks": await asyncio.to_thread(
+                        self.store.chunks.count),
+                    "files": len(self.store.manifests.ids())}, b""
+        return {"ok": False, "error": f"unknown op {op!r}"}, b""
+
+    def _expected_digests_here(self, candidates: set[str]) -> set[str]:
+        """The candidates this node holds canonically by its own
+        manifests and ring. Erasure-coded manifests are not placed by this
+        port, so all of their digests count as expected here."""
+        out: set[str] = set()
+        rf = self.cfg.cluster.replication_factor
+        ring = self.ring.current
+        me = self.cfg.node_id
+        for m in self.store.manifests.list():
+            if m.ec is not None:
+                out.update(d for d in m.all_digests() if d in candidates)
+                continue
+            for c in m.chunks:
+                if c.digest in candidates and me in ring.owners(c.digest,
+                                                                rf):
+                    out.add(c.digest)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # upload
+    # ------------------------------------------------------------------ #
+
+    async def upload(self, data: bytes, name: str,
+                     ec_k: int = 0) -> tuple[Manifest, dict]:
+        """Whole-body upload. Hashing and chunking run in worker threads
+        so a large body never stalls the event loop."""
+        if ec_k:
+            raise UploadError(EC_NOT_PORTED, status=400)
+        with span("upload.hash_file", self.latency):
+            file_id = await asyncio.to_thread(sha256_hex, data)
+        if not name:
+            name = f"file-{file_id[:8]}"
+        with span("upload.fragment", self.latency):
+            manifest = await asyncio.to_thread(
+                self.fragmenter.manifest, data, name=name, file_id=file_id)
+        stats = self._new_upload_stats()
+        stats["bytes"] = len(data)
+        seen: set[str] = set()
+        batch: list[tuple[str, memoryview]] = []
+        view = memoryview(data).toreadonly()
+        for c in manifest.chunks:
+            if c.digest in seen:
+                continue          # duplicate content within the file
+            seen.add(c.digest)
+            batch.append((c.digest, view[c.offset:c.offset + c.length]))
+        stats["uniqueChunks"] = len(seen)
+        await self._place_batch(file_id, batch, stats)
+        await self._finalize_upload(manifest)
+        self.counters.inc("upload_bytes", len(data))
+        return manifest, stats
+
+    async def upload_stream(self, blocks, name: str) -> tuple[Manifest, dict]:
+        """Bounded-memory pipelined ingest of an async iterator of byte
+        blocks (an HTTP chunked body). The fragmenter's streaming walk runs
+        in a worker thread; finished chunks flow back and are placed in
+        ~``ingest.flush_bytes`` batches, up to ``ingest.window`` batches
+        in flight, while the stream still arrives. A byte credit between
+        the two stops the fragmenter, then the body reads, when placement
+        falls behind. The first placement failure aborts the stream:
+        reading stops and no manifest is written (the placed chunks age
+        out through the GC). fileId = sha256 of the whole stream."""
+        loop = asyncio.get_running_loop()
+        inq: _queue.Queue = _queue.Queue(maxsize=4)
+        outq: asyncio.Queue = asyncio.Queue()
+        hasher = sha256_new()
+        frag_dead = threading.Event()
+        aborted = threading.Event()
+        credits = ByteBudget(self.cfg.ingest.credit_bytes)
+
+        def feed_iter():
+            while True:
+                try:
+                    b = inq.get(timeout=0.5)
+                except _queue.Empty:
+                    # the abort must not depend on the end-of-stream
+                    # sentinel arriving
+                    if aborted.is_set():
+                        return
+                    continue
+                if b is None:
+                    return
+                yield b
+
+        def on_chunk(digest: str, payload: bytes) -> None:
+            t0 = time.perf_counter()
+            while not credits.acquire(len(payload), timeout=0.5):
+                if aborted.is_set():
+                    raise RuntimeError("upload aborted")
+            waited = time.perf_counter() - t0
+            if waited > 0.001:
+                self.ingest_stalls.add("creditS", waited)
+            loop.call_soon_threadsafe(outq.put_nowait, (digest, payload))
+
+        def run_fragmenter():
+            try:
+                m = self.fragmenter.manifest_stream(
+                    feed_iter(), name=name or "stream", store=on_chunk)
+                loop.call_soon_threadsafe(outq.put_nowait, ("done", m))
+            except BaseException as e:  # re-raised on the loop below
+                loop.call_soon_threadsafe(outq.put_nowait, ("error", e))
+            finally:
+                frag_dead.set()
+
+        def put_block(b) -> None:
+            # gives up once the fragmenter thread died (it stopped
+            # draining inq)
+            while not frag_dead.is_set():
+                try:
+                    inq.put(b, timeout=0.5)
+                    return
+                except _queue.Full:
+                    continue
+
+        frag_task = asyncio.create_task(asyncio.to_thread(run_fragmenter))
+
+        async def feeder() -> int:
+            total = 0
+            try:
+                async for b in blocks:
+                    if aborted.is_set():
+                        break     # placement failed: stop reading the body
+                    total += len(b)
+                    hasher.update(b)
+                    await asyncio.to_thread(put_block, b)
+            finally:
+                await asyncio.to_thread(put_block, None)
+            return total
+
+        feed_task = asyncio.create_task(feeder())
+        stats = self._new_upload_stats()
+        seen: set[str] = set()
+        batch: list[tuple[str, bytes]] = []
+        pending = 0
+        manifest: Manifest | None = None
+        window = max(1, self.cfg.ingest.window)
+        # (task, per-batch stats) in submission order, merged FIFO
+        inflight: deque[tuple[asyncio.Task, dict]] = deque()
+
+        async def drain_one() -> None:
+            task, bstats = inflight[0]
+            await task            # popped only after: an abort reaps it
+            inflight.popleft()
+            self._merge_upload_stats(stats, bstats)
+
+        async def submit(b: list[tuple[str, bytes]]) -> None:
+            if window == 1:
+                await self._place_batch("", b, stats)
+                return
+            while len(inflight) >= window:
+                t0 = time.perf_counter()
+                for task, _ in inflight:     # surface any failure first
+                    if task.done() and not task.cancelled() \
+                            and task.exception() is not None:
+                        await task
+                if inflight[0][0].done():
+                    await drain_one()
+                else:
+                    await asyncio.wait(
+                        [t for t, _ in inflight if not t.done()],
+                        return_when=asyncio.FIRST_COMPLETED)
+                self.ingest_stalls.add("placementS",
+                                       time.perf_counter() - t0)
+            bstats = self._new_upload_stats()
+            task = asyncio.create_task(self._place_batch("", b, bstats))
+            # a failed placement wakes the consume loop even while it is
+            # parked on outq behind a slow client
+            task.add_done_callback(lambda t: outq.put_nowait(("placed", t)))
+            inflight.append((task, bstats))
+            self.ingest_stalls.peak("placeWindow", len(inflight))
+
+        try:
+            while manifest is None:
+                while inflight and inflight[0][0].done():
+                    await drain_one()
+                item = await outq.get()
+                if item[0] == "placed":
+                    task = item[1]
+                    if not task.cancelled() and task.exception() is not None:
+                        await task            # abort the stream now
+                    continue
+                if item[0] == "error" and isinstance(item[1], BaseException):
+                    raise UploadError(f"fragmenter failed: {item[1]}")
+                if item[0] == "done" and isinstance(item[1], Manifest):
+                    manifest = item[1]
+                    break
+                digest, payload = item
+                credits.release(len(payload))
+                if digest in seen:
+                    continue
+                seen.add(digest)
+                batch.append((digest, payload))
+                pending += len(payload)
+                if pending >= self._STREAM_FLUSH_BYTES:
+                    await submit(batch)
+                    batch, pending = [], 0
+            if batch:
+                await submit(batch)
+            while inflight:
+                t0 = time.perf_counter()
+                await drain_one()
+                self.ingest_stalls.add("placementS",
+                                       time.perf_counter() - t0)
+        except BaseException:
+            aborted.set()                     # unblock fragmenter + feeder
+            feed_task.cancel()
+            for task, _ in inflight:
+                task.cancel()
+            await asyncio.gather(feed_task, frag_task,
+                                 *(t for t, _ in inflight),
+                                 return_exceptions=True)
+            raise
+        try:
+            # re-raises body errors (malformed chunked framing -> 400)
+            total = await feed_task
+        finally:
+            await frag_task
+        if stats["minCopies"] is None:        # empty stream
+            stats["minCopies"] = self.cfg.cluster.replication_factor
+        file_id = hasher.hexdigest()
+        if not name:
+            name = f"file-{file_id[:8]}"
+        manifest = Manifest(file_id=file_id, name=name, size=total,
+                            fragmenter=manifest.fragmenter,
+                            chunks=manifest.chunks)
+        stats["bytes"] = total
+        stats["uniqueChunks"] = len(seen)
+        await self._finalize_upload(manifest)
+        self.counters.inc("upload_bytes", total)
+        return manifest, stats
+
+    @staticmethod
+    def _new_upload_stats() -> dict:
+        return {"bytes": 0, "uniqueChunks": 0, "transferredBytes": 0,
+                "dedupSkippedBytes": 0, "minCopies": None,
+                "handoffChunks": 0, "degraded": False}
+
+    @staticmethod
+    def _merge_upload_stats(into: dict, part: dict) -> None:
+        into["transferredBytes"] += part["transferredBytes"]
+        into["dedupSkippedBytes"] += part["dedupSkippedBytes"]
+        into["handoffChunks"] += part["handoffChunks"]
+        into["degraded"] = into["degraded"] or part["degraded"]
+        if part["minCopies"] is not None:
+            into["minCopies"] = part["minCopies"] \
+                if into["minCopies"] is None \
+                else min(into["minCopies"], part["minCopies"])
+
+    @staticmethod
+    def _slice_payloads(items: list, max_bytes: int) -> list[list]:
+        """Split (digest, payload) lists into <= max_bytes slices (at least
+        one item each): the receiver hash-echoes a whole call before it
+        replies, so no call carries unbounded bytes."""
+        out: list[list] = []
+        cur: list = []
+        size = 0
+        for d, b in items:
+            if cur and size + len(b) > max_bytes:
+                out.append(cur)
+                cur, size = [], 0
+            cur.append((d, b))
+            size += len(b)
+        if cur:
+            out.append(cur)
+        return out
+
+    def _raise_if_disk_full(self, e: OSError) -> None:
+        """A full local disk during placement answers 507, not a 500."""
+        if e.errno != errno.ENOSPC:
+            return
+        self.counters.inc("disk_full_rejects")
+        raise UploadError("Insufficient storage: local CAS put failed "
+                          "(ENOSPC)", status=507) from e
+
+    async def _place_batch(self, file_id: str, batch: list, stats: dict
+                           ) -> None:
+        """Place one batch of unique (digest, payload) chunks: local puts
+        for the chunks this node owns, concurrent replication to the other
+        owners (a ``has_chunks`` probe first, then the missing payloads in
+        bounded slices, each slice's hash echo verified), then
+        sloppy-quorum handoff along the digest's ring for chunks still
+        below quorum. Raises UploadError if any chunk ends below quorum."""
+        ring = self.ring.current
+        ids = ring.member_ids()
+        rf = self.cfg.cluster.replication_factor
+        me = self.cfg.node_id
+        per_node: dict[int, list] = {}
+        copies: dict[str, int] = {}
+        payload_of: dict[str, object] = {}
+        local_puts: list = []
+        for digest, payload in batch:
+            copies[digest] = 0
+            payload_of[digest] = payload
+            for target in ring.owners(digest, rf):
+                if target == me:
+                    local_puts.append((digest, payload))
+                    copies[digest] += 1
+                else:
+                    per_node.setdefault(target, []).append((digest, payload))
+
+        async def put_local(items: list, count_dedup: bool = True) -> None:
+            results = await self.cas.put_many(items, verify=False)
+            nstored = nbytes = 0
+            for (_, b), newly in zip(items, results):
+                if newly:
+                    nstored += 1
+                    nbytes += len(b)
+            if nstored:
+                self.counters.inc("chunks_stored", nstored)
+                self.counters.inc("bytes_stored", nbytes)
+            if count_dedup and len(items) > nstored:
+                self.counters.inc("dedup_hits", len(items) - nstored)
+
+        # (peer, digest) pairs already counted in the byte stats: a chunk
+        # counts at most once per peer across the primary and handoff
+        counted: set[tuple[int, str]] = set()
+
+        async def replicate(node_id: int, wanted: list) -> None:
+            peer = self.cfg.cluster.peer(node_id)
+            # a peer believed dead gets one fast attempt
+            retries = None if self.health.is_alive(node_id) else 1
+            digests = [d for d, _ in wanted]
+            try:
+                # the probe flies while the slices are staged in a thread
+                probe = asyncio.create_task(self.client.call(
+                    peer, {"op": "has_chunks", "digests": digests},
+                    retries=retries))
+                try:
+                    staged = await asyncio.to_thread(
+                        self._slice_payloads, wanted,
+                        self._REPLICA_SLICE_BYTES)
+                    resp, _ = await probe
+                except BaseException:
+                    probe.cancel()
+                    raise
+                have = set(resp.get("have", []))
+                for d, b in wanted:
+                    if d in have:
+                        copies[d] += 1
+                        if (node_id, d) not in counted:
+                            counted.add((node_id, d))
+                            stats["dedupSkippedBytes"] += len(b)
+                            self.counters.inc("dedup_remote_hits")
+                missing = [(d, b) for d, b in wanted if d not in have]
+                if missing:
+                    slices = staged if not have else self._slice_payloads(
+                        missing, self._REPLICA_SLICE_BYTES)
+
+                    def on_slice(part: list, echoed: list[str]) -> None:
+                        # a verified slice is durable on the peer even if
+                        # a later slice fails: credited at once
+                        sent = {d for d, _ in part}
+                        if sent & set(echoed) != sent:
+                            raise RpcError(
+                                f"hash echo mismatch from node {node_id}")
+                        for d, b in part:
+                            copies[d] += 1
+                            if (node_id, d) not in counted:
+                                counted.add((node_id, d))
+                                stats["transferredBytes"] += len(b)
+
+                    peak = await self.client.store_chunks_windowed(
+                        peer, file_id, slices,
+                        window=self.cfg.ingest.slice_inflight,
+                        on_slice=on_slice)
+                    self.ingest_stalls.peak("sliceInflight", peak)
+                self.health.mark_alive(node_id)
+            except RpcError as e:
+                self.log.warning("replication to node %d failed: %s",
+                                 node_id, e)
+                self.counters.inc("replication_failures")
+                if isinstance(e, RpcUnreachable):
+                    self.health.mark_dead(node_id)
+
+        async def place(jobs) -> None:
+            try:
+                await gather_abort_siblings(*jobs)
+            except OSError as e:
+                self._raise_if_disk_full(e)
+                raise
+
+        with span("upload.replicate", self.latency):
+            await place([put_local(local_puts),
+                         *(replicate(nid, w) for nid, w in per_node.items())])
+
+        # sloppy-quorum handoff: chunks below quorum try the next nodes of
+        # their ring; handoff copies are queued for repair, which moves
+        # them home. The quorum is clamped to what placement can reach.
+        quorum = min(self.cfg.write_quorum, rf, len(ids))
+        handoff: set[str] = set()
+        next_try = {d: min(rf, len(ids)) for d in copies}
+        with span("upload.handoff", self.latency):
+            while True:
+                need = [d for d, n in copies.items() if n < quorum]
+                if not need:
+                    break
+                groups: dict[int, list] = {}
+                local_handoff: list = []
+                for d in need:
+                    order = ring.owners(d, len(ids))
+                    if next_try[d] >= len(order):
+                        continue                 # cluster exhausted
+                    target = order[next_try[d]]
+                    next_try[d] += 1
+                    handoff.add(d)
+                    if target == me:
+                        local_handoff.append((d, payload_of[d]))
+                        copies[d] += 1
+                    else:
+                        groups.setdefault(target, []).append(
+                            (d, payload_of[d]))
+                if not (local_handoff or groups):
+                    break
+                jobs = [replicate(nid, w) for nid, w in groups.items()]
+                if local_handoff:
+                    jobs.append(put_local(local_handoff, count_dedup=False))
+                await place(jobs)
+
+        failed = [d for d, n in copies.items() if n < quorum]
+        if failed:
+            raise UploadError(f"Replication failed: {len(failed)} chunks "
+                              f"below quorum {quorum}")
+        for d, n in copies.items():
+            if n < rf or d in handoff:
+                self.under_replicated.add(d)
+        batch_min = min(copies.values(), default=rf)
+        stats["minCopies"] = batch_min if stats["minCopies"] is None \
+            else min(stats["minCopies"], batch_min)
+        stats["handoffChunks"] += len(handoff)
+        stats["degraded"] = stats["degraded"] or bool(
+            handoff or any(n < rf for n in copies.values()))
+
+    async def _finalize_upload(self, manifest: Manifest) -> None:
+        """The ack: the manifest saved last (fsync'd, off the loop), then
+        a best-effort announce to every peer. A fresh upload clears a
+        tombstone, here and (fresh=True) at the peers."""
+        self.store.manifests.clear_tombstone(manifest.file_id)
+        try:
+            saved = await asyncio.to_thread(self.store.manifests.save,
+                                            manifest)
+        except OSError as e:
+            self._raise_if_disk_full(e)
+            raise
+        if not saved:
+            raise UploadError("manifest save refused (tombstone race)")
+        mj = manifest.to_json()
+
+        async def announce(peer) -> None:
+            try:
+                await self.client.announce(peer, mj, fresh=True)
+            except RpcError as e:
+                self.log.warning("announce to node %d failed: %s",
+                                 peer.node_id, e)
+                self.counters.inc("announce_failures")
+
+        await asyncio.gather(*(announce(p) for p in self._peers()))
+        self.counters.inc("uploads")
+
+    # ------------------------------------------------------------------ #
+    # download
+    # ------------------------------------------------------------------ #
+
+    async def _fetch_chunk(self, digest: str, length: int) -> bytes:
+        """One chunk, locally or from any peer, verified against its
+        digest: owners first, then the rest of the address book, each
+        group believed-alive first."""
+        data = await self.cas.get(digest)
+        if data is not None:
+            return data
+        rf = self.cfg.cluster.replication_factor
+        me = self.cfg.node_id
+        candidates = [t for t in self.ring.read_candidates(digest, rf)
+                      if t != me]
+        candidates.sort(key=lambda t: not self.health.is_alive(t))
+        candidates += sorted(
+            (t for t in self.cfg.cluster.sorted_ids()
+             if t != me and t not in candidates),
+            key=lambda t: not self.health.is_alive(t))
+        for target in candidates:
+            try:
+                data = await self.client.get_chunk(
+                    self.cfg.cluster.peer(target), digest)
+                self.health.mark_alive(target)
+            except RpcUnreachable:
+                self.health.mark_dead(target)
+                continue
+            except RpcError:
+                self.counters.inc("remote_chunk_misses")
+                continue
+            if len(data) == length and sha256_hex(data) == digest:
+                self.counters.inc("chunks_fetched_remote")
+                return data
+            self.log.warning("corrupt chunk %s from node %d", digest[:12],
+                             target)
+        raise DownloadError(f"Could not retrieve chunk {digest[:12]}…")
+
+    async def _gather_chunks(self, manifest: Manifest | None, chunks=None,
+                             strict: bool = True,
+                             prefetched: dict | None = None) -> dict:
+        """digest -> verified bytes for the given chunks (default: all of
+        the manifest's): ``prefetched`` first, then the local store, then
+        batched fetches from each chunk's first believed-alive owner (up
+        to rf rounds, a failed peer's chunks regrouping onto the next
+        owner), batched mop-up rounds, a cluster-wide ``has_chunks``
+        sweep, and last the per-chunk walk. ``strict=False`` skips what
+        no peer produced instead of raising."""
+        need: dict[str, int] = {}
+        for c in (manifest.chunks if chunks is None else chunks):
+            need.setdefault(c.digest, c.length)
+        out: dict[str, object] = {}
+        for d in list(need):
+            b = (prefetched or {}).get(d)
+            if b is not None:
+                out[d] = b
+                del need[d]
+        if need:
+            for d, b in await self.cas.get_many(list(need)):
+                out[d] = b
+                del need[d]
+        if not need:
+            return out
+        rf = self.cfg.cluster.replication_factor
+        me = self.cfg.node_id
+
+        def candidates_for(d: str) -> list[int]:
+            return self.ring.read_candidates(d, rf)
+
+        def group_remaining(exclude: set[int]) -> dict[int, list[str]]:
+            groups: dict[int, list[str]] = {}
+            for d in need:
+                if d in out:
+                    continue
+                cands = [t for t in candidates_for(d)
+                         if t != me and t not in exclude]
+                cands.sort(key=lambda t: not self.health.is_alive(t))
+                if cands:
+                    groups.setdefault(cands[0], []).append(d)
+            return groups
+
+        async def fetch_batches(node_id: int, digests: list[str]) -> None:
+            peer = self.cfg.cluster.peer(node_id)
+            batch: list[str] = []
+            size = 0
+
+            async def flush() -> None:
+                nonlocal batch, size
+                if not batch:
+                    return
+                try:
+                    got = await self.client.get_chunks(
+                        peer, batch,
+                        retries=None if self.health.is_alive(node_id) else 1,
+                        expect_bytes=sum(need[d] for d in batch))
+                    self.health.mark_alive(node_id)
+                except RpcUnreachable:
+                    self.health.mark_dead(node_id)
+                    got = []
+                except (RpcError, WireError) as e:
+                    self.counters.inc("fetch_batch_errors")
+                    self.log.warning("batched fetch from node %d failed: "
+                                     "%s: %s", node_id, type(e).__name__, e)
+                    got = []
+                if got:
+                    hexes = await asyncio.to_thread(
+                        sha256_many_hex, [b for _, b in got])
+                    for (d, b), h in zip(got, hexes):
+                        if (d in need and d not in out and h == d
+                                and len(b) == need[d]):
+                            out[d] = b
+                            self.counters.inc("chunks_fetched_remote")
+                batch, size = [], 0
+
+            for d in digests:
+                batch.append(d)
+                size += need[d]
+                if size >= self._FETCH_BATCH_BYTES:
+                    await flush()
+            await flush()
+
+        tried: set[int] = set()
+        for _ in range(rf):
+            groups = group_remaining(tried)
+            if not groups:
+                break
+            await asyncio.gather(*(fetch_batches(nid, ds)
+                                   for nid, ds in groups.items()))
+            tried.update(groups)
+        # mop-up: round r asks each missing digest's r-th candidate, so no
+        # chunk crosses the wire from two peers at once
+        for r in range(rf):
+            missing = [d for d in need if d not in out]
+            if not missing:
+                break
+            by_peer: dict[int, list[str]] = {}
+            for d in missing:
+                cands = [t for t in candidates_for(d) if t != me]
+                if cands:
+                    by_peer.setdefault(cands[min(r, len(cands) - 1)],
+                                       []).append(d)
+            if not by_peer:
+                break
+            await asyncio.gather(*(fetch_batches(nid, ds)
+                                   for nid, ds in by_peer.items()))
+        # cluster-wide sweep: copies parked off their owners (handoff)
+        missing = [d for d in need if d not in out]
+        if missing:
+            claims: dict[str, int] = {}
+
+            async def who_has(nid: int) -> None:
+                try:
+                    have = await self.client.has_chunks(
+                        self.cfg.cluster.peer(nid), missing, retries=1)
+                    for d in have:
+                        claims.setdefault(d, nid)
+                except RpcError:
+                    self.counters.inc("probe_failures")
+
+            await asyncio.gather(*(who_has(p.node_id)
+                                   for p in self._peers()))
+            groups2: dict[int, list[str]] = {}
+            for d, nid in claims.items():
+                groups2.setdefault(nid, []).append(d)
+            if groups2:
+                await asyncio.gather(*(fetch_batches(nid, ds)
+                                       for nid, ds in groups2.items()))
+        missing = [d for d in need if d not in out]
+        if missing:
+            sem = asyncio.Semaphore(8)
+
+            async def one(d: str) -> None:
+                async with sem:
+                    try:
+                        out[d] = await self._fetch_chunk(d, need[d])
+                    except DownloadError:
+                        pass      # stays missing: raised or skipped below
+
+            await asyncio.gather(*(one(d) for d in missing))
+            missing = [d for d in need if d not in out]
+        if missing and strict:
+            raise DownloadError(
+                f"Could not retrieve chunk {missing[0][:12]}…")
+        return out
+
+    async def _resolve_manifest(self, file_id: str) -> Manifest:
+        """The local manifest, else a peer's (adopted with its origin
+        mtime); a tombstoned id is not found even if a peer still has it."""
+        manifest = self.store.manifests.load(file_id)
+        if manifest is None and self.store.manifests.is_tombstoned(file_id):
+            raise NotFoundError(file_id)
+        if manifest is None:
+            for peer in self._peers():
+                try:
+                    mj, mt = await self.client.get_manifest(peer, file_id)
+                except RpcError:
+                    continue
+                if mj:
+                    manifest = Manifest.from_json(mj)
+                    await asyncio.to_thread(self.store.manifests.save,
+                                            manifest, mt)
+                    break
+        if manifest is None:
+            raise NotFoundError(file_id)
+        return manifest
+
+    async def _fetch_verified(self, manifest: Manifest, chunks: list,
+                              strict: bool = True) -> dict:
+        """Gather chunks with the local copies digest-verified first: a
+        rotten local copy is evicted, queued for repair and fetched from a
+        replica instead."""
+        digests = list(dict.fromkeys(c.digest for c in chunks))
+        local = await self.cas.get_many(digests)
+        hexes = await asyncio.to_thread(sha256_many_hex,
+                                        [b for _, b in local])
+        good: dict[str, bytes] = {}
+        for (d, b), h in zip(local, hexes):
+            if h == d:
+                good[d] = b
+            else:
+                self.store.chunks.delete(d)
+                self.under_replicated.add(d)
+                self.log.warning("evicted corrupt local chunk %s on read",
+                                 d[:12])
+        return await self._gather_chunks(manifest, chunks=chunks,
+                                         prefetched=good, strict=strict)
+
+    async def download_range(self, file_id: str, first: int | None,
+                             last: int | None
+                             ) -> tuple[Manifest, list, int, int]:
+        """An HTTP byte range ((first, last) as parsed from ``bytes=``;
+        either side open): only the overlapping chunks are gathered.
+        Returns (manifest, payload views in order, start, end)."""
+        manifest = await self._resolve_manifest(file_id)
+        size = manifest.size
+        if first is None:                   # suffix: the last N bytes
+            if not last:
+                raise RangeNotSatisfiable(size)
+            start, end = max(0, size - last), size
+        else:
+            start = first
+            end = size if last is None else min(last + 1, size)
+        if start >= size or start >= end:
+            raise RangeNotSatisfiable(size)
+        wanted = [c for c in manifest.chunks
+                  if c.offset < end and c.offset + c.length > start]
+        by_digest = await self._fetch_verified(manifest, wanted)
+        parts = []
+        for c in wanted:
+            b = memoryview(by_digest[c.digest])
+            parts.append(b[max(0, start - c.offset):
+                           min(c.length, end - c.offset)])
+        self.counters.inc("range_downloads")
+        return manifest, parts, start, end
+
+    async def download_stream(self, file_id: str):
+        """-> (manifest, async generator of chunk payloads in order).
+        Chunks are gathered in ~32 MiB batches, so node memory stays about
+        one batch. Every chunk is verified, and the whole-file hash is
+        checked incrementally with the final chunk held back: a corrupt
+        assembly is truncated before its last byte. The first batch is
+        fetched before returning, so a missing chunk fails before any
+        byte is sent."""
+        manifest = await self._resolve_manifest(file_id)
+        batches: list[list] = []
+        cur: list = []
+        size = 0
+        for c in manifest.chunks:
+            cur.append(c)
+            size += c.length
+            if size >= self._FETCH_BATCH_BYTES:
+                batches.append(cur)
+                cur, size = [], 0
+        if cur:
+            batches.append(cur)
+        first = await self._fetch_verified(manifest, batches[0]) \
+            if batches else {}
+
+        async def gen():
+            nonlocal first
+            hasher = sha256_new()
+            held = None
+            total = 0
+            for i, batch in enumerate(batches):
+                if i:
+                    got = await self._fetch_verified(manifest, batch)
+                else:
+                    got, first = first, None
+                payloads = [got[c.digest] for c in batch]
+                await asyncio.to_thread(
+                    lambda ps=payloads: [hasher.update(p) for p in ps])
+                for b in payloads:
+                    if held is not None:
+                        total += len(held)
+                        yield held
+                    held = b
+            if hasher.hexdigest() != file_id:
+                raise DownloadError("File corrupted")
+            if held is not None:
+                total += len(held)
+                yield held
+            self.counters.inc("downloads")
+            self.counters.inc("download_bytes", total)
+
+        return manifest, gen()
+
+    async def download(self, file_id: str) -> tuple[Manifest, bytearray]:
+        """The whole file as one buffer, through :meth:`download_stream`."""
+        manifest, gen = await self.download_stream(file_id)
+        out = bytearray()
+        with span("download.gather", self.latency):
+            async for part in gen:
+                out += part
+        return manifest, out
+
+    # ------------------------------------------------------------------ #
+    # metrics
+    # ------------------------------------------------------------------ #
+
+    def ingest_stats(self) -> dict:
+        ing = self.cfg.ingest
+        return {"window": ing.window,
+                "flushBytes": self._STREAM_FLUSH_BYTES,
+                "creditBytes": ing.credit_bytes,
+                "sliceInflight": ing.slice_inflight,
+                "stalls": self.ingest_stalls.snapshot(),
+                "cas": self.cas.stats()}
+
+    def frag_stats(self) -> dict:
+        """``/metrics`` ``frag``: the FragmenterConfig knobs, the engine,
+        the device it runs on and the kernel launches of this process —
+        what actually runs."""
+        from dfs_tpu_torch import kernels
+
+        f = self.cfg.frag
+        mesh = getattr(self.fragmenter, "mesh", None)
+        device = ",".join(str(d) for d in mesh.flat) if mesh is not None \
+            else str(self.fragmenter.device)
+        return {"devices": f.devices,
+                "regionBytes": f.region_bytes,
+                "stagingBuffers": f.staging_buffers,
+                "engine": self.fragmenter.name,
+                "degraded": False,
+                "device": device,
+                "launches": kernels.launch_counts()}
+
+    def durability_stats(self) -> dict:
+        return {"mode": self.cfg.durability.mode,
+                "fsyncs": self.store.chunks.fsync_count()}
+
+    def metrics(self) -> dict:
+        """``GET /metrics``: the counters and the sections of dfs_tpu's
+        document for the parts ported."""
+        snap: dict = self.counters.snapshot()
+        snap["nodeId"] = self.cfg.node_id
+        snap["underReplicated"] = len(self.under_replicated)
+        snap["latency"] = self.latency.snapshot()
+        snap["peersAlive"] = self.health.snapshot()
+        snap["ingest"] = self.ingest_stats()
+        snap["frag"] = self.frag_stats()
+        snap["durability"] = self.durability_stats()
+        snap["retryBudget"] = self.client.retry_budget.stats()
+        snap["ring"] = self.ring.stats()
+        return snap
+
+    # ------------------------------------------------------------------ #
+    # listing, delete, anti-entropy, repair, scrub
+    # ------------------------------------------------------------------ #
+
+    def list_files(self) -> list[dict]:
+        return [{"fileId": m.file_id, "name": m.name, "size": m.size,
+                 "chunks": m.total_chunks, "fragmenter": m.fragmenter}
+                for m in self.store.manifests.list()]
+
+    def _forget_file(self, file_id: str, ts: float | None = None,
+                     gc: bool = True) -> bool:
+        """Tombstone a manifest and (``gc``) sweep the chunks no manifest
+        references any more. ``ts`` carries an origin deletion time."""
+        found = self.store.manifests.delete(file_id, ts=ts)
+        if gc:
+            self.store.gc()
+        return found
+
+    async def delete(self, file_id: str) -> bool:
+        found = await asyncio.to_thread(self._forget_file, file_id)
+
+        async def forget(peer) -> None:
+            try:
+                await self.client.call(peer, {"op": "delete",
+                                              "fileId": file_id})
+            except RpcError:
+                # converges later through tombstone anti-entropy
+                self.counters.inc("delete_propagate_failures")
+
+        await asyncio.gather(*(forget(p) for p in self._peers()))
+        return found
+
+    async def _tombstone_antientropy(self) -> int:
+        """Pull peers' tombstones and converge last-writer-wins: a node
+        that slept through a delete applies it (with its origin time)
+        before it re-replicates; a tombstone older than our manifest is
+        answered by re-announcing the manifest (fresh) instead. Returns
+        the number applied."""
+        known = set(self.store.manifests.tombstones())
+        applied = 0
+        for peer in self._peers():
+            try:
+                resp, _ = await self.client.call(peer, {"op": "tombstones"},
+                                                 retries=1)
+                self.health.mark_alive(peer.node_id)
+            except RpcError:
+                self.counters.inc("antientropy_rpc_failures")
+                continue
+            for t in resp.get("tombs", []):
+                fid, ts = t.get("id"), t.get("ts")
+                if fid in known or not isinstance(fid, str) \
+                        or not is_hex_digest(fid) or ts is None:
+                    continue
+                try:
+                    ts = float(ts)
+                except (TypeError, ValueError):
+                    continue
+                if not math.isfinite(ts):
+                    continue
+                local_mtime = self.store.manifests.mtime(fid)
+                if local_mtime is not None and local_mtime > ts:
+                    m = self.store.manifests.load(fid)
+                    if m is not None:
+                        try:
+                            await self.client.announce(peer, m.to_json(),
+                                                       fresh=True)
+                        except RpcError:
+                            self.counters.inc("antientropy_rpc_failures")
+                    continue
+                await asyncio.to_thread(self._forget_file, fid, ts, False)
+                known.add(fid)
+                applied += 1
+        if applied:
+            await asyncio.to_thread(self.store.gc)
+            self.log.info("anti-entropy: applied %d tombstones", applied)
+        return applied
+
+    async def _manifest_antientropy(self) -> int:
+        """Adopt manifests this node missed (announce is best-effort),
+        keeping their origin mtime; tombstoned ids are skipped. Returns the
+        number adopted."""
+        known = set(self.store.manifests.ids())
+        adopted = 0
+        for peer in self._peers():
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "list_manifests"}, retries=1)
+                self.health.mark_alive(peer.node_id)
+            except RpcError:
+                self.counters.inc("antientropy_rpc_failures")
+                continue
+            for fid in resp.get("ids", []):
+                if (fid in known or not isinstance(fid, str)
+                        or not is_hex_digest(fid)
+                        or self.store.manifests.is_tombstoned(fid)):
+                    continue
+                try:
+                    mj, mt = await self.client.get_manifest(peer, fid)
+                except RpcError:
+                    self.counters.inc("antientropy_rpc_failures")
+                    continue
+                if not mj:
+                    continue
+                try:
+                    m = Manifest.from_json(mj)
+                except (ValueError, KeyError):
+                    continue              # a corrupt peer manifest
+                if m.file_id == fid and await asyncio.to_thread(
+                        self.store.manifests.save, m, mt):
+                    known.add(fid)
+                    adopted += 1
+        if adopted:
+            self.log.info("anti-entropy: adopted %d manifests", adopted)
+        return adopted
+
+    async def repair_once(self) -> int:
+        """One repair cycle, serialized: tombstone anti-entropy first (so a
+        deleted file is never pushed back), manifest anti-entropy second,
+        then restore this node's own missing copies, push each owner what
+        it lacks (verified by hash echo), move confirmed handoff copies
+        home, and sweep aged orphans. Returns the chunks repaired."""
+        async with self._repair_lock:
+            return await self._repair_once_locked()
+
+    async def _repair_once_locked(self) -> int:
+        await self._tombstone_antientropy()
+        await self._manifest_antientropy()
+        ring = self.ring.current
+        rf = self.cfg.cluster.replication_factor
+        me = self.cfg.node_id
+        need: dict[int, list[tuple[str, int]]] = {}
+        chunk_len: dict[str, int] = {}
+        own_missing: dict[str, int] = {}
+        stray: dict[str, frozenset[int]] = {}
+        local_digests = set(await asyncio.to_thread(
+            self.store.chunks.digests))
+        for m in self.store.manifests.list():
+            if m.ec is not None:
+                continue          # erasure-coded files: not ported
+            for c in m.chunks:
+                chunk_len[c.digest] = c.length
+                targets = ring.owners(c.digest, rf)
+                for target in targets:
+                    if target != me:
+                        need.setdefault(target, []).append(
+                            (c.digest, c.length))
+                    elif c.digest not in local_digests:
+                        own_missing[c.digest] = c.length
+                if me not in targets and c.digest in local_digests:
+                    stray[c.digest] = frozenset(targets)
+
+        repaired = 0
+        if own_missing:
+            refs = [ChunkRef(index=0, offset=0, length=ln, digest=d)
+                    for d, ln in own_missing.items()]
+            batch: list[ChunkRef] = []
+            size = 0
+            for i, r in enumerate(refs):
+                batch.append(r)
+                size += r.length
+                if size >= self._FETCH_BATCH_BYTES or i == len(refs) - 1:
+                    got = await self._gather_chunks(None, chunks=batch,
+                                                    strict=False)
+                    items = list(got.items())
+                    stored = await self.cas.put_many(items, verify=False)
+                    for (d, _), newly in zip(items, stored):
+                        self.under_replicated.discard(d)
+                        if newly:
+                            self.counters.inc("chunks_stored")
+                    repaired += len(items)
+                    batch, size = [], 0
+        verified: set[str] = set()
+        # digest -> owners that CONFIRMED their copy this cycle: a stray
+        # local copy is deleted only once all its owners confirmed
+        confirmed: dict[str, set[int]] = {}
+        for node_id, wanted in need.items():
+            peer = self.cfg.cluster.peer(node_id)
+            digests = sorted({d for d, _ in wanted})
+            try:
+                have = await self.client.has_chunks(peer, digests)
+                verified |= have
+                for d in have:
+                    confirmed.setdefault(d, set()).add(node_id)
+                to_push = sorted(set(digests) - have)
+                local = dict(await self.cas.get_many(to_push))
+                payload = []
+                for d in to_push:
+                    b = local.get(d)
+                    if b is None:
+                        try:
+                            b = await self._fetch_chunk(d, chunk_len[d])
+                        except DownloadError:
+                            continue      # stays queued; next cycle
+                    payload.append((d, b))
+                # serial slices: repair must not compete with live ingest
+                for part in self._slice_payloads(
+                        payload, self._REPLICA_SLICE_BYTES):
+                    echoed = set(await self.client.store_chunks(
+                        peer, "", part))
+                    ok = {d for d, _ in part} & echoed
+                    repaired += len(ok)
+                    verified |= ok
+                    for d in ok:
+                        confirmed.setdefault(d, set()).add(node_id)
+            except RpcError as e:
+                self.log.warning("repair push to node %d failed: %s",
+                                 node_id, e)
+                self.counters.inc("repair_push_failures")
+        self.under_replicated -= verified
+
+        def relocate() -> list[str]:
+            return [d for d, holders in stray.items()
+                    if holders <= confirmed.get(d, set())
+                    and self.store.chunks.delete(d)]
+
+        relocated = await asyncio.to_thread(relocate) if stray else []
+        if relocated:
+            self.counters.inc("relocated_chunks", len(relocated))
+        # chunks of aborted streams (placed, never committed): the hour of
+        # grace keeps in-flight uploads safe
+        swept = await asyncio.to_thread(self.store.gc, 3600.0)
+        if swept:
+            self.log.info("gc: swept %d aged orphan chunks", len(swept))
+        self.counters.inc("repairs")
+        return repaired
+
+    async def scrub_once(self) -> dict:
+        """Re-hash every local chunk; delete the ones that no longer hash
+        to their digest and queue them for repair."""
+        scanned = corrupt = 0
+        ch = self.store.chunks
+        digests = await asyncio.to_thread(ch.digests)
+        for i in range(0, len(digests), 64):
+            def read_and_hash(ds=digests[i:i + 64]) -> list[tuple[str, bool]]:
+                blobs = [(d, ch.get(d)) for d in ds]
+                present = [(d, b) for d, b in blobs if b is not None]
+                hexes = sha256_many_hex([b for _, b in present])
+                return [(d, h == d) for (d, _), h in zip(present, hexes)]
+
+            for d, ok in await asyncio.to_thread(read_and_hash):
+                scanned += 1
+                if ok:
+                    continue
+                corrupt += 1
+                ch.delete(d)
+                self.under_replicated.add(d)
+                self.log.warning("scrub: corrupt chunk %s deleted", d[:12])
+        self.counters.inc("scrubs")
+        if corrupt:
+            self.counters.inc("scrub_corrupt", corrupt)
+        return {"scanned": scanned, "corrupt": corrupt}
+

@@ -17,6 +17,11 @@ def sha256_hex(data: bytes | bytearray | memoryview | np.ndarray) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
+def sha256_many_hex(chunks) -> list[str]:
+    """Lowercase-hex SHA-256 of each buffer of a batch."""
+    return [hashlib.sha256(c).hexdigest() for c in chunks]
+
+
 def sha256_new() -> "hashlib._Hash":
     """Fresh incremental SHA-256 hasher for whole-stream ids."""
     return hashlib.sha256()

@@ -239,6 +239,36 @@ def test_node_roundtrip_on_card(dev, tmp_path):
     assert st2["transferredBytes"] == 0
 
 
+def test_concurrent_walks_on_one_fragmenter(dev):
+    """A node chunks concurrent uploads with one fragmenter, each walk in
+    its own worker thread on the card: four at once, whole and streamed,
+    each equal to the oracle."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+
+    f = AnchoredCudaFragmenter(SMALL, region_bytes=16384, cpu_cutoff=0,
+                               lane_multiple=8, device=dev)
+    bodies = [corpus(150000 + 7919 * k, seed=20 + k) for k in range(4)]
+
+    def walk(k):
+        data = bodies[k]
+        if k % 2:
+            return [c for bt in f.chunks_stream(
+                [data[i:i + 5000].tobytes()
+                 for i in range(0, len(data), 5000)]) for c in bt]
+        return f.chunk(data.tobytes())
+
+    before = kernels.launch_counts()["strip_chunk_states"]
+    with ThreadPoolExecutor(4) as pool:
+        got = list(pool.map(walk, range(4)))
+    for data, chunks in zip(bodies, got):
+        assert [(c.offset, c.length, c.digest) for c in chunks] \
+            == A.chunk_file_anchored_np(data, SMALL)
+    assert kernels.launch_counts()["strip_chunk_states"] > before
+
+
 def test_sharded_path_on_two_slots_of_one_card(dev):
     """The multi-device anchored path on a 2-slot mesh of one card (each
     slot its own stream): both parity checks, and the window-batched walk

@@ -148,3 +148,42 @@ def test_small_stream_takes_oracle_path_under_cutoff():
     assert f.cpu_cutoff >= len(data)
     assert _table(f.chunk(data)) == _table(REF.chunk(data))
     assert f.stream_span() == WINDOW * 3
+
+
+def test_staging_pool_hands_each_buffer_to_one_walk_at_a_time():
+    """Concurrent uploads share one fragmenter's staging pool: under a
+    short switch interval and more threads than cores, no buffer is ever
+    held by two takers at once and none is lost."""
+    import sys
+    import threading
+
+    f = AnchoredCudaFragmenter(device="cpu")
+    held: set[int] = set()
+    mu = threading.Lock()
+    clashes = []
+
+    def worker():
+        for _ in range(300):
+            buf = f._pool_take(64)
+            with mu:
+                if id(buf) in held:
+                    clashes.append(id(buf))
+                held.add(id(buf))
+            with mu:
+                held.discard(id(buf))
+            f._pool_give(buf, None)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert clashes == []
+    pooled = f._buf_pool[64]
+    assert len(pooled) == len({id(b) for b in pooled}) <= 16

@@ -1,0 +1,157 @@
+"""A mixed cluster: one dfs_tpu node (its CPU anchored engine) and two
+nodes of the port in one rf-2 cluster, on the CPU. They share the wire,
+the ring and the on-disk layout, so an upload through either kind gives
+the same fileId and chunk digests and either kind serves the other's
+files; the frame encoder and the ring fingerprint are held equal
+directly."""
+
+import asyncio
+import hashlib
+import socket
+
+import numpy as np
+import pytest
+
+from dfs_tpu.cli.client import NodeClient as RefClient
+from dfs_tpu.comm import wire as ref_wire
+from dfs_tpu.config import CDCParams as RefCDC
+from dfs_tpu.config import ClusterConfig as RefCluster
+from dfs_tpu.config import NodeConfig as RefNodeConfig
+from dfs_tpu.config import PeerAddr as RefPeer
+from dfs_tpu.node import placement as ref_placement
+from dfs_tpu.node.runtime import StorageNodeServer as RefServer
+from dfs_tpu.ring import RingMap as RefRing
+
+from dfs_tpu_torch.cli.client import NodeClient
+from dfs_tpu_torch.comm import wire
+from dfs_tpu_torch.config import CDCParams, ClusterConfig, NodeConfig, \
+    PeerAddr
+from dfs_tpu_torch.fragmenter.base import _anchored_params
+from dfs_tpu_torch.node import placement
+from dfs_tpu_torch.node.runtime import StorageNodeServer
+from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
+from dfs_tpu_torch.ring import RingMap
+
+SIZES = dict(min_size=64, avg_size=256, max_size=1024)
+
+
+def corpus(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, size=n,
+                                                dtype=np.uint8).tobytes()
+
+
+def _free_ports(n):
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def test_mixed_cluster_agrees_and_serves_both_ways(tmp_path):
+    ports = _free_ports(6)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(3)]
+    ref_cluster = RefCluster(peers=tuple(
+        RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    a, b = corpus(50_000, seed=11), corpus(45_000, seed=12)
+
+    async def http(fn, *args):
+        return await asyncio.to_thread(fn, *args)
+
+    async def go():
+        ref = RefServer(RefNodeConfig(
+            node_id=1, cluster=ref_cluster, data_root=tmp_path,
+            fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+            health_probe_s=0))
+        ports_ = [StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu"))
+            for i in (2, 3)]
+        nodes = [ref, *ports_]
+        for n in nodes:
+            await n.start()
+        try:
+            c_ref = RefClient(port=addrs[0][1], timeout_s=30)
+            c_port = NodeClient(port=addrs[1][1], timeout_s=30)
+            c_port3 = NodeClient(port=addrs[2][1], timeout_s=30)
+            ia = await http(c_ref.upload, a, "a.bin")      # dfs_tpu node
+            ib = await http(c_port.upload, b, "b.bin")     # port node
+            assert ia["fileId"] == hashlib.sha256(a).hexdigest()
+            assert ib["fileId"] == hashlib.sha256(b).hexdigest()
+            assert ia["minCopies"] == ib["minCopies"] == 2
+            params = _anchored_params(CDCParams(**SIZES))
+            for body, info in ((a, ia), (b, ib)):
+                want = chunk_file_anchored_np(np.frombuffer(body, np.uint8),
+                                              params)
+                for c in (c_ref, c_port, c_port3):
+                    doc = await http(c.manifest, info["fileId"])
+                    assert [(x["offset"], x["length"], x["digest"])
+                            for x in doc["chunks"]] == want
+            # each kind downloads the other's upload
+            assert await http(c_port.download, ia["fileId"]) == a
+            assert await http(c_port3.download, ia["fileId"]) == a
+            assert await http(c_ref.download, ib["fileId"]) == b
+            # the same bytes through a port node: same id, nothing moves
+            again = await http(c_port3.upload, a, "a.bin")
+            assert again["fileId"] == ia["fileId"]
+            assert again["transferredBytes"] == 0
+            # repair and anti-entropy across kinds find nothing to do
+            assert await ref.repair_once() == 0
+            assert await ports_[0].repair_once() == 0
+        finally:
+            for n in nodes:
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+FRAMES = [
+    ({"op": "health"}, b""),
+    ({"op": "store_chunks", "fileId": "", "chunks": [
+        {"digest": "ab" * 32, "length": 3}]}, [b"xyz"]),
+    ({"op": "get_chunks", "digests": ["00" * 32, "ff" * 32],
+      "repoch": 0, "rfp": "0123456789abcdef"}, b""),
+    ({"ok": True, "manifest": '{"a": "é\\"q"}', "mtime": 1.5},
+     [bytearray(b"ab"), memoryview(b"cde")]),
+    ({"ok": False, "error": "unknown op 'x'", "n": None, "f": [1.0, -2]},
+     b"\x00" * 1000),
+]
+
+
+@pytest.mark.parametrize("header,body", FRAMES)
+def test_frames_are_byte_identical(header, body):
+    head, bufs, total = wire.encode_frame(dict(header), body)
+    rhead, rbufs, rtotal = ref_wire.encode_frame(dict(header), body)
+    assert head == rhead and total == rtotal
+    assert b"".join(bytes(x) for x in bufs) \
+        == b"".join(bytes(x) for x in rbufs)
+    table, pb = wire.pack_chunks([("ab" * 32, b"xyz"), ("cd" * 32, b"")])
+    assert (table, pb) == ref_wire.pack_chunks(
+        [("ab" * 32, b"xyz"), ("cd" * 32, b"")])
+
+
+@pytest.mark.parametrize("ids", [[1], [1, 2, 3], [1, 2, 3, 4, 5],
+                                 [3, 10, 7, 12]])
+def test_ring_fingerprint_and_owners_match(ids):
+    mine, ref = RingMap.static(ids), RefRing.static(ids)
+    assert mine.fingerprint == ref.fingerprint
+    assert mine.to_dict() == ref.to_dict()
+    rng = np.random.default_rng(len(ids))
+    for _ in range(50):
+        d = rng.bytes(32).hex()
+        for rf in (1, 2, 3):
+            assert mine.owners(d, rf) == ref.owners(d, rf)
+        assert mine.handoff_order([ids[-1]]) == ref.handoff_order([ids[-1]])
+        assert placement.replica_set(d, sorted(ids), 2) \
+            == ref_placement.replica_set(d, sorted(ids), 2)
+    for pinned in ([ids[0]], [ids[-1], ids[0]]):
+        assert placement.handoff_order(pinned, sorted(ids)) \
+            == ref_placement.handoff_order(pinned, sorted(ids))

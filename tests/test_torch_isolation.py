@@ -1,7 +1,8 @@
 """The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
 imports JAX or anything of dfs_tpu, a process that uses the port — the
-single-device and the sharded walk — never loads either, and without CUDA
-the entry points raise instead of running on the CPU."""
+single-device and the sharded walk, and a node served over HTTP — never
+loads either, and without CUDA the entry points raise instead of running
+on the CPU."""
 
 import ast
 import os
@@ -63,6 +64,34 @@ with tempfile.TemporaryDirectory() as d:
                    frag=FragmenterConfig(devices=2, region_bytes=16384))
     m2, _ = n2.upload_stream(iter([body[:7000], body[7000:]]))
     assert m2.chunks == m.chunks and n2.download(m2.file_id) == body
+    # the node as users run it: a started StorageNodeServer over HTTP
+    import asyncio, socket
+    from pathlib import Path
+    import dfs_tpu_torch.api.http, dfs_tpu_torch.cli.main  # noqa: F401
+    from dfs_tpu_torch.cli.client import NodeClient
+    from dfs_tpu_torch.config import ClusterConfig, NodeConfig
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    cluster = ClusterConfig.localhost(1, ports[0], ports[1], 1)
+
+    async def serve():
+        srv = StorageNodeServer(NodeConfig(node_id=1, cluster=cluster,
+                                           data_root=Path(d) / "srv",
+                                           health_probe_s=0, device="cpu"))
+        await srv.start()
+        try:
+            c = NodeClient(port=ports[0], timeout_s=30)
+            fid = (await asyncio.to_thread(c.upload, body, "b"))["fileId"]
+            assert await asyncio.to_thread(c.download, fid) == body
+        finally:
+            await srv.stop()
+
+    asyncio.run(serve())
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "dfs_tpu")
              or k.startswith(("jax.", "jaxlib.", "dfs_tpu.")))
@@ -81,6 +110,7 @@ def test_port_process_never_loads_jax_or_dfs_tpu(tmp_path):
 
 def test_entry_points_raise_without_cuda(tmp_path):
     from dfs_tpu_torch import resolve_device
+    from dfs_tpu_torch.fragmenter.base import get_fragmenter
     from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
     from dfs_tpu_torch.node import LocalNode
 
@@ -90,6 +120,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
         LocalNode(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         AnchoredCudaFragmenter()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_fragmenter("auto")
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

@@ -144,3 +144,8 @@ def test_port_data_root_opens_in_the_reference(tmp_path):
     got = b"".join(ref.chunks.get(c.digest) for c in rm.chunks)
     assert got == body
     assert ref.manifests.ids() == [m.file_id]
+    # both stores read the same catalog off the same root
+    assert n.store.chunks.digests() == ref.chunks.digests()
+    assert n.store.chunks.count() == ref.chunks.count() == len(m.chunks)
+    assert n.store.chunks.total_bytes() == ref.chunks.total_bytes() \
+        == len(body)
