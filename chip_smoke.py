@@ -20,7 +20,17 @@ drives the paths end to end and checks each against the NumPy oracle:
   coordinate (whole and a Range), a re-upload to another node that moves
   0 B, two concurrent 64 MiB uploads to node 1 (both oracle-equal), and a
   download after one owner is SIGKILLed (kernels 1-4, counted by node 1's
-  ``/metrics``: its launches move across the streamed upload);
+  ``/metrics``: its launches move across the streamed upload); and
+  erasure coding as users run it: a 64 MiB body uploaded whole with
+  ``?ec=3`` to node 1 before the kill (chunked on the card, kernels 1-4,
+  P+Q encoded on the card), its table, its parity digests and every
+  shard's holder checked, and read back from node 1 after nodes 3 and 4
+  are both SIGKILLed (by decode);
+- ``ec_codec``: the EC codec on the card at that file's stripes (k=3 and
+  k=1, padded per stripe): the batched encode the node runs against the
+  NumPy oracle stripe by stripe, timed; the batched decode in torch on
+  the card against the NumPy decode in each erasure case; the sharded EC
+  step on 4 slots of the first card;
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -60,6 +70,8 @@ from pathlib import Path
 
 SEED = 20261016
 BODY_BYTES = 256 * 1024 * 1024
+EC_BYTES = 64 * 1024 * 1024
+EC_K = 3
 BLOCK_BYTES = 1024 * 1024
 REGION_BYTES = 64 * 1024 * 1024
 CLUSTER_NODES = 5
@@ -248,8 +260,10 @@ def _http(port: int, method: str, path: str, body=None,
         conn.close()
 
 
-def _upload(port: int, body, name: str, chunked: bool = False) -> dict:
-    st, _, out = _http(port, "POST", f"/upload?name={name}", body=body,
+def _upload(port: int, body, name: str, chunked: bool = False,
+            ec: int = 0) -> dict:
+    st, _, out = _http(port, "POST", f"/upload?name={name}"
+                       + (f"&ec={ec}" if ec else ""), body=body,
                        chunked=chunked)
     check(st == 201, f"upload {name} to :{port} answered {st}: {out[:300]}")
     return json.loads(out)
@@ -261,12 +275,145 @@ def _metrics(port: int) -> dict:
     return json.loads(out)
 
 
+def ec_stripes(body: bytes, table: list, k: int, np):
+    """The stripes of a file at width ``k`` as the node forms them: the
+    chunks of ``table`` grouped by ``ec_stripe_groups``, each shard a view
+    of ``body``, and each stripe's padded length. Returns (groups, the
+    encode's input, the shards zero-padded into [k, shard_len] arrays)."""
+    from dfs_tpu_torch.meta.manifest import (ChunkRef, ec_stripe_groups,
+                                             stripe_shard_len)
+
+    view = memoryview(body)
+    chunks = tuple(ChunkRef(i, o, ln, d) for i, (o, ln, d)
+                   in enumerate(table))
+    groups = ec_stripe_groups(chunks, k)
+    stripes, padded = [], []
+    for grp in groups:
+        pad = stripe_shard_len(grp)
+        shards = [view[c.offset:c.offset + c.length] for c in grp]
+        arr = np.zeros((len(grp), pad), dtype=np.uint8)
+        for j, b in enumerate(shards):
+            arr[j, :len(b)] = np.frombuffer(b, dtype=np.uint8)
+        stripes.append((shards, pad))
+        padded.append(arr)
+    return groups, stripes, padded
+
+
+def ec_codec_phase(body: bytes, table: list, dev, np) -> list:
+    """The ``ec_codec`` phase (module docstring). Returns the NumPy
+    oracle's (p, q) of every k=3 stripe, which the cluster phase holds the
+    uploaded manifest's parity digests to."""
+    import torch
+
+    from dfs_tpu_torch.ops import ec as E
+    from dfs_tpu_torch.parallel.mesh import make_mesh
+    from dfs_tpu_torch.parallel.sharded_cdc import (make_ec_step,
+                                                    shard_ec_inputs)
+
+    def same(a, b) -> bool:
+        return a.dtype == b.dtype and a.shape == b.shape \
+            and bool(np.array_equal(a, b))
+
+    out: dict = {"phase": "ec_codec", "bytes": len(body), "k": EC_K,
+                 "chunks": len(table)}
+    parity3 = None
+    for k in (EC_K, 1):
+        groups, stripes, padded = ec_stripes(body, table, k, np)
+        t0 = time.perf_counter()
+        want = [E.encode_pq_np(a) for a in padded]
+        oracle_s = time.perf_counter() - t0
+        if k == EC_K:
+            parity3 = want
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = E.encode_stripes(stripes, device=dev)
+        call_s = time.perf_counter() - t0
+        check(len(got) == len(want) and all(
+            same(g[0], w[0]) and same(g[1], w[1])
+            for g, w in zip(got, want)),
+            f"encode_stripes on {dev} != encode_pq_np at k={k}")
+        plan = E.StripePlan(stripes)
+        packed = torch.from_numpy(plan.pack(stripes)).to(dev)
+        # one event pair per call: the encode is hundreds of small
+        # launches, more than the launch queue holds behind a device spin
+        ms = single_ms(lambda: plan.encode(packed), reps=10)
+        data_bytes = sum(c.length for grp in groups for c in grp)
+        parity_bytes = 2 * sum(st[1] for st in stripes)
+        moved = data_bytes + parity_bytes
+        bound_ms = moved / PEAK_BYTES_S * 1e3
+        # the decode: each erasure case over every stripe it applies to,
+        # in torch on the card against the NumPy decode and the shards
+        cases = {0: lambda a: ([None] + list(a[1:]), True, False),
+                 1: lambda a: ([None] + list(a[1:]), False, True),
+                 2: lambda a: ([None] + list(a[1:-1]) + [None], True, True)}
+        decode = {}
+        for case, lose in cases.items():
+            batch, orig = [], []
+            for a, (p, q) in zip(padded, want):
+                if case == 2 and len(a) < 2:
+                    continue
+                data, hp, hq = lose(a)
+                batch.append((data, p if hp else None, q if hq else None))
+                orig.append(a)
+            t0 = time.perf_counter()
+            rec_np = E.recover_stripes_np(batch)
+            np_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec_dev = E.recover_stripes(batch, device=dev)
+            dev_s = time.perf_counter() - t0
+            check(all(len(r) == len(a) and all(same(x, y) and same(x, z)
+                                               for x, y, z in zip(r, rn, a))
+                      for r, rn, a in zip(rec_dev, rec_np, orig)),
+                  f"recover_stripes on {dev} != NumPy decode (k={k}, "
+                  f"case {case})")
+            decode[case] = {"stripes": len(batch), "numpy_s": np_s,
+                            "device_s": dev_s}
+        out[f"k{k}"] = {
+            "stripes": len(stripes), "groups": len(plan.groups),
+            "data_bytes": data_bytes, "parity_bytes": parity_bytes,
+            "packed_bytes": plan.in_bytes + plan.out_bytes,
+            "encode_ms": ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "encode_call_s": call_s, "oracle_numpy_s": oracle_s,
+            "encode_exact": True, "decode": decode, "decode_exact": True}
+    check(E.encode_stripes([], device=dev) == []
+          and E.recover_stripes([], device=dev) == [],
+          "the zero-length file has stripes")
+
+    # the sharded step on 4 slots of the card: the most common (width,
+    # bucket) group of the k=3 stripes, cut to a multiple of 4
+    _, stripes, padded = ec_stripes(body, table, EC_K, np)
+    plan = E.StripePlan(stripes)
+    kk, bucket, idxs, _, _ = max(plan.groups, key=lambda g: len(g[2]))
+    idxs = idxs[:len(idxs) // 4 * 4]
+    arr = np.zeros((len(idxs), kk, bucket), dtype=np.uint8)
+    for r, s_ in enumerate(idxs):
+        arr[r, :, :padded[s_].shape[1]] = padded[s_]
+    mesh = make_mesh(4, device=[dev] * 4)
+    p, q, nb = make_ec_step(mesh, kk)(shard_ec_inputs(
+        mesh, arr.view(np.uint32)))
+    torch.cuda.synchronize()
+    p = p.view(torch.int32).cpu().numpy().view(np.uint8)
+    q = q.view(torch.int32).cpu().numpy().view(np.uint8)
+    for r in range(len(idxs)):
+        wp, wq = E.encode_pq_np(arr[r])
+        check(same(p[r], wp) and same(q[r], wq),
+              f"make_ec_step stripe {r} != encode_pq_np")
+    check(int(nb) == 2 * arr.shape[0] * bucket, "make_ec_step parity bytes")
+    out["sharded_step"] = {"slots": 4, "stripes": len(idxs), "k": kk,
+                           "bucket": bucket, "exact": True}
+    emit(out)
+    return parity3
+
+
 def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
-                  params, rng, np) -> dict:
+                  params, rng, np, ec_body: bytes, ec_table: list,
+                  ec_parity: list) -> dict:
     """The ``cluster`` phase (module docstring). Returns node 1's kernel
-    launches across the streamed 256 MiB upload."""
+    launches across the streamed 256 MiB upload and across the EC
+    upload."""
+    from dfs_tpu_torch.meta.manifest import Manifest, ec_stripe_groups
     from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
-    from dfs_tpu_torch.ring import static_replica_set
+    from dfs_tpu_torch.ring import static_ec_shard_node, static_replica_set
 
     ids = list(range(1, CLUSTER_NODES + 1))
     ports = _free_ports(2 * CLUSTER_NODES)
@@ -414,6 +561,54 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
                       f"concurrent upload {k} chunk table != numpy oracle")
             fsyncs = _metrics(http_port[1])["durability"]["fsyncs"]
 
+            # erasure coding: the EC body whole to node 1 at k=3, chunked
+            # and encoded on the card; every shard once, on its holder
+            e0 = _metrics(http_port[1])["frag"]
+            t0 = time.perf_counter()
+            ec_info = _upload(http_port[1], ec_body, "ec.bin", ec=EC_K)
+            ec_upload_s = time.perf_counter() - t0
+            e1 = _metrics(http_port[1])["frag"]
+            ec_launches = {k: e1["launches"][k] - e0["launches"][k]
+                           for k in e0["launches"]}
+            for k in ("strip_chunk_states", "repack_lanes",
+                      "bswap_transpose", "select_walk"):
+                check(ec_launches[k] > 0, f"kernel {k} never launched in "
+                      "node 1 during the EC upload")
+            enc = e1["ecEncode"]
+            check(enc["device"] == "cuda:0"
+                  and enc["calls"] == e0["ecEncode"]["calls"] + 1,
+                  f"node 1's EC encode ran on {enc['device']} "
+                  f"({enc['calls']} calls)")
+            ec_fid = hashlib.sha256(ec_body).hexdigest()
+            check(ec_info["fileId"] == ec_fid, "EC fileId != sha256(body)")
+            st, _, doc = _http(http_port[1], "GET",
+                               f"/manifest?fileId={ec_fid}", timeout=120)
+            ecm = Manifest.from_json(doc)
+            check([(c.offset, c.length, c.digest) for c in ecm.chunks]
+                  == ec_table, "EC chunk table != numpy oracle")
+            check(ecm.ec is not None and ecm.ec.k == EC_K
+                  and len(ecm.ec.stripes) == len(ec_parity),
+                  "EC manifest layout")
+            check(all(st_.p == hashlib.sha256(p.tobytes()).hexdigest()
+                      and st_.q == hashlib.sha256(q.tobytes()).hexdigest()
+                      for st_, (p, q) in zip(ecm.ec.stripes, ec_parity)),
+                  "EC P/Q digests != sha256 of encode_pq_np")
+            check(ec_info["ecParityBytes"]
+                  == sum(2 * st_.shard_len for st_ in ecm.ec.stripes),
+                  "ecParityBytes")
+            shards = 0
+            for s_, (st_, grp) in enumerate(zip(
+                    ecm.ec.stripes, ec_stripe_groups(ecm.chunks, EC_K))):
+                digests = [c.digest for c in grp] + [st_.p, st_.q]
+                for j, dg in enumerate(digests):
+                    o = static_ec_shard_node(ec_fid, s_, j, ids)
+                    p = d / "data" / f"node-{o}" / "chunks" / dg[:2] / dg
+                    check(p.is_file() and hashlib.sha256(
+                        p.read_bytes()).hexdigest() == dg,
+                        f"EC shard {dg[:12]} missing or corrupt on its "
+                        f"holder {o}")
+                    shards += 1
+
             # node loss: SIGKILL an owner, read from a survivor that asks
             # node 3 first for the chunks node 3 and node 4 own
             procs[3].send_signal(signal.SIGKILL)
@@ -424,6 +619,22 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
             check(st == 200 and got == body,
                   "download after SIGKILL of node 3 not identical")
             del got
+
+            # a second node lost: every EC stripe has lost two shards; node
+            # 1 reads the EC file whole by decode
+            procs[4].send_signal(signal.SIGKILL)
+            procs[4].wait(timeout=60)
+            dec0 = _metrics(http_port[1]).get("ec_decodes", 0)
+            t0 = time.perf_counter()
+            st, _, got = _http(http_port[1], "GET",
+                               f"/download?fileId={ec_fid}")
+            ec_two_down_s = time.perf_counter() - t0
+            check(st == 200 and got == ec_body,
+                  "EC download with nodes 3 and 4 killed not identical")
+            del got
+            ec_decodes = _metrics(http_port[1]).get("ec_decodes", 0) - dec0
+            check(ec_decodes > 0, "EC download with two nodes killed "
+                  "decoded nothing")
         except BaseException:
             for i in ids:
                 log = d / f"node{i}.log"
@@ -457,7 +668,18 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
           "node1_device": m1["frag"]["device"],
           "node1_fsyncs": fsyncs, "after_upload": where,
           "launches": launches})
-    return launches
+    ec_gib = len(ec_body) / 2**30
+    emit({"phase": "cluster_ec", "nodes": CLUSTER_NODES, "k": EC_K,
+          "bytes": len(ec_body), "chunks": len(ecm.chunks),
+          "stripes": len(ecm.ec.stripes), "shards": shards,
+          "parity_bytes": ec_info["ecParityBytes"],
+          "upload_s": ec_upload_s, "upload_gib_s": ec_gib / ec_upload_s,
+          "download_two_killed_s": ec_two_down_s,
+          "download_two_killed_gib_s": ec_gib / ec_two_down_s,
+          "ec_decodes": ec_decodes, "encode": enc, "oracle_equal": True,
+          "file_id_ok": True, "parity_digests_equal_oracle": True,
+          "every_shard_on_its_holder": True, "launches": ec_launches})
+    return launches, ec_launches
 
 
 def main() -> int:
@@ -748,8 +970,14 @@ def main() -> int:
     del edited
 
     # ---- the node as users run it: a 5-process cluster on the card ----
-    launches["cluster"] = cluster_phase(root, body, blocks, oracle, params,
-                                        rng, np)
+    ec_rng = np.random.default_rng(SEED + 1)
+    ec_body = ec_rng.integers(0, 256, size=EC_BYTES, dtype=np.uint8)
+    ec_table = A.chunk_file_anchored_np(ec_body, params)
+    ec_body = ec_body.tobytes()
+    ec_parity = ec_codec_phase(ec_body, ec_table, dev, np)
+    launches["cluster"], launches["cluster_ec"] = cluster_phase(
+        root, body, blocks, oracle, params, rng, np, ec_body, ec_table,
+        ec_parity)
 
     # ---- the multi-device anchored path ----
     n_cards = torch.cuda.device_count()

@@ -6,7 +6,9 @@ for the routes of the default configuration:
     GET    /metrics              JSON counters and sections
     GET    /manifest?fileId=     the manifest JSON
     POST   /upload?name=         201 JSON {fileId, ...}; Content-Length or
-                                 chunked; 411 without either, 413 too big
+                                 chunked; 411 without either, 413 too big;
+                                 ``&ec=K`` erasure-codes a whole body with
+                                 k = K (400 on a chunked body)
     GET    /download?fileId=     the bytes + Content-Disposition; a single
                                  Range gives 206 (416 past the end)
     DELETE /files?fileId=        200 / 404
@@ -215,8 +217,7 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
                  method: str, path: str, query: dict,
                  content_length: int | None, range_header: str | None,
                  chunked: bool):
-    from dfs_tpu_torch.node.runtime import (EC_NOT_PORTED, DownloadError,
-                                            NotFoundError,
+    from dfs_tpu_torch.node.runtime import (DownloadError, NotFoundError,
                                             RangeNotSatisfiable)
 
     if method == "GET" and path == "/status":
@@ -234,17 +235,22 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
             return plain(404, "File not found")
         return _resp(200, m.to_json().encode(), "application/json")
     if method == "POST" and path == "/upload":
+        ec_k = 0
         if query.get("ec"):
+            # isdecimal: isdigit passes digits int() rejects
             if not query["ec"].isdecimal() or int(query["ec"]) < 1:
                 return plain(400, "Bad ec parameter")
-            return plain(400, EC_NOT_PORTED)
+            ec_k = int(query["ec"])
+            if chunked:
+                return plain(400, "ec requires a whole-body upload "
+                                  "(parity stripes span chunk groups)")
         if not chunked:
             if content_length is None:
                 return plain(411, "Length Required")
             if content_length > MAX_BODY:
                 return plain(413, "Payload Too Large")
         return await _handle_upload(node, reader, query, chunked,
-                                    content_length)
+                                    content_length, ec_k)
     if method == "GET" and path == "/download":
         file_id, bad = _file_id(query)
         if bad is not None:
@@ -295,14 +301,16 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
 
 async def _handle_upload(node: "StorageNodeServer",
                          reader: asyncio.StreamReader, query: dict,
-                         chunked: bool, content_length: int | None) -> bytes:
+                         chunked: bool, content_length: int | None,
+                         ec_k: int) -> bytes:
     """POST /upload: chunked bodies and plain bodies above
     STREAM_BODY_BYTES feed the streaming ingest as they arrive (read off
-    the socket in ~1 MiB pieces); smaller plain bodies are read whole."""
+    the socket in ~1 MiB pieces); smaller plain bodies, and every EC body
+    (its stripes group chunks across the whole file), are read whole."""
     from dfs_tpu_torch.node.runtime import UploadError
 
     name = query.get("name", "")
-    if chunked or content_length > STREAM_BODY_BYTES:
+    if chunked or (content_length > STREAM_BODY_BYTES and not ec_k):
         async def _plain_body():
             left = content_length
             while left:
@@ -322,7 +330,7 @@ async def _handle_upload(node: "StorageNodeServer",
     else:
         data = await reader.readexactly(content_length)
         try:
-            manifest, stats = await node.upload(data, name)
+            manifest, stats = await node.upload(data, name, ec_k=ec_k)
         except UploadError as e:
             return plain(e.status, str(e))
     return as_json(201, {"fileId": manifest.file_id, "name": manifest.name,

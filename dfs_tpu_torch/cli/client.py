@@ -47,8 +47,12 @@ class NodeClient:
                            size=i.get("size", 0), chunks=i.get("chunks", 0))
                 for i in items]
 
-    def upload(self, data: bytes, name: str) -> dict:
-        q = urllib.parse.urlencode({"name": name})
+    def upload(self, data: bytes, name: str, ec: int = 0) -> dict:
+        """Whole-body upload; ``ec`` > 0 erasure-codes it with k = ec."""
+        params = {"name": name}
+        if ec:
+            params["ec"] = str(ec)
+        q = urllib.parse.urlencode(params)
         return json.loads(self._request("POST", f"/upload?{q}", body=data))
 
     def upload_stream(self, blocks, name: str) -> dict:

@@ -4,6 +4,7 @@ subcommands talk HTTP to one.
     python -m dfs_tpu_torch.cli.main serve --node-id 1 --nodes 5 \\
         --base-port 7101 --base-internal-port 7201 --data-root data
     python -m dfs_tpu_torch.cli.main --port 7101 upload f.bin
+    python -m dfs_tpu_torch.cli.main --port 7101 upload --ec 3 f.bin
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
 non-zero unless ``--device cpu`` asks for the plain versions. Subcommands:
@@ -132,10 +133,13 @@ def cmd_list(args) -> int:
 
 def cmd_upload(args) -> int:
     path = Path(args.file)
-    info = _client(args).upload(path.read_bytes(), name=path.name)
+    info = _client(args).upload(path.read_bytes(), name=path.name,
+                                ec=args.ec)
+    extra = (f" ecParity={info['ecParityBytes']}B"
+             if "ecParityBytes" in info else "")
     print(f"Uploaded: fileId={info['fileId']} chunks={info['chunks']} "
           f"transferred={info.get('transferredBytes', '?')}B "
-          f"dedupSkipped={info.get('dedupSkippedBytes', '?')}B")
+          f"dedupSkipped={info.get('dedupSkippedBytes', '?')}B{extra}")
     return 0
 
 
@@ -245,6 +249,10 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("list").set_defaults(fn=cmd_list)
     up = sub.add_parser("upload")
     up.add_argument("file")
+    up.add_argument("--ec", type=int, default=0, metavar="K",
+                    help="erasure-code with K data shards + P/Q parity "
+                         "per stripe (needs K+2 cluster nodes; any two "
+                         "lost shards per stripe are recoverable)")
     up.set_defaults(fn=cmd_upload)
     down = sub.add_parser("download")
     down.add_argument("file_id")

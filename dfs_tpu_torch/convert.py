@@ -15,8 +15,11 @@ out as ``<data_root>/node-<id>/chunks/<d[:2]>/<digest>`` (raw chunk bytes,
 named by their sha256) and ``<data_root>/node-<id>/manifests/<fileId>.json``
 (manifest v2 JSON, the same schema and the same serialization), so
 :class:`dfs_tpu_torch.node.LocalNode` opens a root that ``dfs_tpu`` wrote
-and the other way round. Chunks stored as similarity deltas (``deltas/``)
-and EC parity are outside this port's slice.
+and the other way round. An erasure-coded file's data shards and P/Q
+parity are plain chunks of that store, named by their digests, and its
+manifest carries the stripe layout (``ec``), so EC files cross as they
+are. Chunks stored as similarity deltas (``deltas/``) are outside this
+port's slice.
 """
 
 from __future__ import annotations

@@ -13,16 +13,20 @@ event loop keeps serving), places every distinct chunk on its ring owners
 — local puts and concurrent replication with a hash echo per slice —,
 falls back to sloppy-quorum handoff when an owner is down, fails below
 ``write_quorum`` copies, and acks by saving the manifest (fsync'd) and
-announcing it to every peer. A download gathers chunks locally and in
-batches from their owners, verifies every chunk and the whole file, and
-streams them out. Repair re-replicates, moves handoff copies home and
-converges deletes and creates by anti-entropy; scrub re-hashes the local
-store.
+announcing it to every peer. An erasure-coded upload
+(``ec_k``) stores one copy of every chunk plus P+Q parity per stripe of k
+chunks, encoded on the fragmenter's device (:mod:`dfs_tpu_torch.ops.ec`),
+each shard of a stripe pinned to its own node. A download gathers chunks
+locally and in batches from their owners (an EC shard's stripe holder),
+verifies every chunk and the whole file, and streams them out; an EC shard
+that no node serves is decoded from its stripe. Repair re-replicates,
+regenerates this node's lost EC shards by decode, moves handoff copies
+home and converges deletes and creates by anti-entropy; scrub re-hashes
+the local store.
 
 What dfs_tpu builds only when configured — the serving tier, the index,
 tiering, similarity, chaos, the elastic ring, the census history, the
-journal, tracing, deadlines, hedging — is not ported. Erasure-coded
-uploads answer 400.
+journal, tracing, deadlines, hedging — is not ported.
 """
 
 from __future__ import annotations
@@ -33,7 +37,11 @@ import math
 import queue as _queue
 import threading
 import time
+import types
 from collections import deque
+from typing import Mapping, Sequence
+
+import numpy as np
 
 from dfs_tpu_torch.api.http import make_http_handler
 from dfs_tpu_torch.comm.rpc import InternalClient, RpcError, RpcUnreachable
@@ -41,8 +49,12 @@ from dfs_tpu_torch.comm.wire import (FrameServerProtocol, WireError,
                                      encode_frame, pack_chunks, unpack_chunks)
 from dfs_tpu_torch.config import NodeConfig
 from dfs_tpu_torch.fragmenter.base import get_fragmenter
-from dfs_tpu_torch.meta.manifest import ChunkRef, Manifest
+from dfs_tpu_torch.meta.manifest import (ChunkRef, EcInfo, Manifest,
+                                         StripeRef, ec_stripe_groups,
+                                         stripe_shard_len)
+from dfs_tpu_torch.ops import ec as ec_ops
 from dfs_tpu_torch.node.health import HealthMonitor
+from dfs_tpu_torch.ring import RingMap
 from dfs_tpu_torch.ring.manager import RingManager
 from dfs_tpu_torch.store.aio import AsyncChunkStore
 from dfs_tpu_torch.store.cas import NodeStore
@@ -56,8 +68,6 @@ from dfs_tpu_torch.utils.trace import LatencyRecorder, span
 _OPS = frozenset({"store_chunks", "has_chunks", "announce", "tombstones",
                   "list_manifests", "get_chunk", "get_chunks",
                   "get_manifest", "delete", "delete_chunks", "health"})
-EC_NOT_PORTED = ("erasure coding is not in this port yet "
-                 "(ROADMAP Queue 1 item 5)")
 
 
 class UploadError(RuntimeError):
@@ -83,6 +93,63 @@ class RangeNotSatisfiable(DownloadError):
     def __init__(self, size: int) -> None:
         super().__init__(f"range not satisfiable (size {size})")
         self.size = size
+
+
+def ec_placement_map(manifest: Manifest, ring
+                     ) -> Mapping[str, tuple[int, ...]]:
+    """digest -> holder nodes of every shard (data and parity) of an
+    erasure-coded manifest, from the manifest and the ring alone, so any
+    node locates any shard. ``ring`` is a :class:`RingMap` or a list of
+    node ids (the static map over them). A digest in several stripes
+    (dedup within the file) gets the union of its slots' holders. Cached
+    per (layout fingerprint, ring): a degraded read asks twice."""
+    if not isinstance(ring, RingMap):
+        ring = RingMap.static(list(ring))
+    ec = manifest.ec
+    assert ec is not None
+    key = (manifest.file_id, ec.k, len(manifest.chunks), len(ec.stripes),
+           ec.stripes[0].p if ec.stripes else "",
+           ec.stripes[-1].q if ec.stripes else "", ring.key)
+    hit = _EC_PLACEMENT_CACHE.get(key)
+    if hit is None:
+        hit = _ec_placement_build(manifest, ring)
+        if len(_EC_PLACEMENT_CACHE) >= 64:
+            _EC_PLACEMENT_CACHE.pop(next(iter(_EC_PLACEMENT_CACHE)))
+        _EC_PLACEMENT_CACHE[key] = hit
+    return hit
+
+
+_EC_PLACEMENT_CACHE: dict = {}
+
+
+def _ec_placement_build(manifest: Manifest, ring: RingMap
+                        ) -> Mapping[str, tuple[int, ...]]:
+    ec = manifest.ec
+    assert ec is not None
+    pl: dict[str, list[int]] = {}
+    groups = ec_stripe_groups(manifest.chunks, ec.k)
+    for s, (st, grp) in enumerate(zip(ec.stripes, groups)):
+        # one ring walk per stripe: the k data holders, then P and Q
+        holders = ring.ec_stripe_nodes(manifest.file_id, s, len(grp) + 2)
+        for j, c in enumerate(grp):
+            pl.setdefault(c.digest, []).append(holders[j])
+        pl.setdefault(st.p, []).append(holders[len(grp)])
+        pl.setdefault(st.q, []).append(holders[len(grp) + 1])
+    # read-only: the cached map is shared by every reader
+    return types.MappingProxyType(
+        {d: tuple(dict.fromkeys(v)) for d, v in pl.items()})
+
+
+def ec_shard_items(manifest: Manifest) -> list[tuple[str, int]]:
+    """(digest, byte length) of every shard of an EC manifest: data
+    chunks at their length, parity at the stripe's padded shard length."""
+    ec = manifest.ec
+    assert ec is not None
+    out = [(c.digest, c.length) for c in manifest.chunks]
+    for st in ec.stripes:
+        out.append((st.p, st.shard_len))
+        out.append((st.q, st.shard_len))
+    return out
 
 
 class ByteBudget:
@@ -140,6 +207,7 @@ class StorageNodeServer:
                                     probe_interval_s=cfg.health_probe_s)
         self._repair_lock = asyncio.Lock()
         self.under_replicated: set[str] = set()  # digests needing repair
+        self._ec_encode_device: str | None = None  # where EC last encoded
         self._internal_server: asyncio.AbstractServer | None = None
         self._http_server: asyncio.AbstractServer | None = None
         self._inbound: set[FrameServerProtocol] = set()
@@ -321,20 +389,26 @@ class StorageNodeServer:
 
     def _expected_digests_here(self, candidates: set[str]) -> set[str]:
         """The candidates this node holds canonically by its own
-        manifests and ring. Erasure-coded manifests are not placed by this
-        port, so all of their digests count as expected here."""
+        manifests and ring: an EC shard where the stripe placement pins
+        it here, a replicated chunk where the ring makes this node an
+        owner. ``delete_chunks`` deletes only what this never returns."""
         out: set[str] = set()
         rf = self.cfg.cluster.replication_factor
         ring = self.ring.current
         me = self.cfg.node_id
         for m in self.store.manifests.list():
             if m.ec is not None:
-                out.update(d for d in m.all_digests() if d in candidates)
-                continue
-            for c in m.chunks:
-                if c.digest in candidates and me in ring.owners(c.digest,
-                                                                rf):
-                    out.add(c.digest)
+                pl = ec_placement_map(m, ring)
+                for d in m.all_digests():
+                    if d in candidates and me in pl.get(d, ()):
+                        out.add(d)
+            else:
+                for c in m.chunks:
+                    if c.digest in candidates \
+                            and me in ring.owners(c.digest, rf):
+                        out.add(c.digest)
+            if len(out) == len(candidates):
+                break
         return out
 
     # ------------------------------------------------------------------ #
@@ -343,10 +417,11 @@ class StorageNodeServer:
 
     async def upload(self, data: bytes, name: str,
                      ec_k: int = 0) -> tuple[Manifest, dict]:
-        """Whole-body upload. Hashing and chunking run in worker threads
-        so a large body never stalls the event loop."""
-        if ec_k:
-            raise UploadError(EC_NOT_PORTED, status=400)
+        """Whole-body upload. Hashing, chunking and the EC encode run in
+        worker threads so a large body never stalls the event loop. With
+        ``ec_k`` the chunks are grouped into stripes of ``ec_k``, each
+        stripe gains P and Q, and every shard is placed once, on its
+        stripe holder (the parity is the redundancy)."""
         with span("upload.hash_file", self.latency):
             file_id = await asyncio.to_thread(sha256_hex, data)
         if not name:
@@ -365,10 +440,78 @@ class StorageNodeServer:
             seen.add(c.digest)
             batch.append((c.digest, view[c.offset:c.offset + c.length]))
         stats["uniqueChunks"] = len(seen)
-        await self._place_batch(file_id, batch, stats)
+        placement = None
+        rf = None
+        if ec_k:
+            ids = self.ring.current.member_ids()
+            if ec_k + 2 > len(ids):
+                raise UploadError(
+                    f"ec={ec_k} needs {ec_k + 2} nodes, ring has "
+                    f"{len(ids)} active (shards of a stripe must land "
+                    "on distinct nodes)", status=400)
+            if ec_k > 255:
+                # the Q coefficients repeat beyond GF(256)*'s order 255
+                raise UploadError("ec must be <= 255", status=400)
+            with span("upload.ec_encode", self.latency):
+                manifest, parity = await asyncio.to_thread(
+                    self._ec_extend, manifest, data, ec_k)
+            for d, b in parity:
+                # P and Q share a digest at k=1 (Q == P): placed once
+                if d not in seen:
+                    seen.add(d)
+                    batch.append((d, b))
+            stats["ecParityBytes"] = sum(len(b) for _, b in parity)
+            placement = ec_placement_map(manifest, self.ring.current)
+            rf = 1
+        await self._place_batch(file_id, batch, stats, rf=rf,
+                                placement=placement)
         await self._finalize_upload(manifest)
         self.counters.inc("upload_bytes", len(data))
         return manifest, stats
+
+    def _ec_device(self):
+        """Where the EC encode runs: the fragmenter's device (its first
+        slot on a mesh) — the card when the node chunks on it."""
+        mesh = getattr(self.fragmenter, "mesh", None)
+        return mesh.flat[0] if mesh is not None else self.fragmenter.device
+
+    def _ec_extend(self, manifest: Manifest, data: bytes, k: int
+                   ) -> tuple[Manifest, list[tuple[str, bytes]]]:
+        """P+Q parity per stripe of ``k`` data chunks: the EC manifest and
+        the parity (digest, payload) list. Worker-thread code."""
+        view = memoryview(data)
+        src = {c.digest: view[c.offset:c.offset + c.length]
+               for c in manifest.chunks}
+        return self._ec_extend_from(manifest, src, k)
+
+    def _ec_extend_from(self, manifest: Manifest,
+                        chunk_bytes: Mapping[str, bytes], k: int
+                        ) -> tuple[Manifest, list[tuple[str, bytes]]]:
+        """:meth:`_ec_extend` with the payloads from a digest map. Every
+        stripe is encoded in one :func:`ec_ops.encode_stripes` call on
+        :meth:`_ec_device`, on this thread's current stream."""
+        import dataclasses as _dc
+
+        groups = ec_stripe_groups(manifest.chunks, k)
+        dev = self._ec_device()
+        parity_pq = ec_ops.encode_stripes(
+            [([chunk_bytes[c.digest] for c in grp], stripe_shard_len(grp))
+             for grp in groups], device=dev)
+        self._ec_encode_device = str(dev)
+        self.counters.inc("ec_encodes")
+        self.counters.inc("ec_encode_stripes", len(groups))
+        blobs = [b.tobytes() for pq in parity_pq for b in pq]
+        hexes = sha256_many_hex(blobs)
+        stripes: list[StripeRef] = []
+        parity: list[tuple[str, bytes]] = []
+        for s, grp in enumerate(groups):
+            pd, qd = hexes[2 * s], hexes[2 * s + 1]
+            stripes.append(StripeRef(p=pd, q=qd,
+                                     shard_len=stripe_shard_len(grp)))
+            parity.append((pd, blobs[2 * s]))
+            parity.append((qd, blobs[2 * s + 1]))
+        ec = EcInfo(k=k, stripes=tuple(stripes))
+        return _dc.replace(manifest, ec=ec), parity
 
     async def upload_stream(self, blocks, name: str) -> tuple[Manifest, dict]:
         """Bounded-memory pipelined ingest of an async iterator of byte
@@ -592,18 +735,36 @@ class StorageNodeServer:
         raise UploadError("Insufficient storage: local CAS put failed "
                           "(ENOSPC)", status=507) from e
 
-    async def _place_batch(self, file_id: str, batch: list, stats: dict
-                           ) -> None:
+    async def _place_batch(self, file_id: str, batch: list, stats: dict,
+                           rf: int | None = None,
+                           placement: Mapping[str, tuple[int, ...]]
+                           | None = None) -> None:
         """Place one batch of unique (digest, payload) chunks: local puts
         for the chunks this node owns, concurrent replication to the other
         owners (a ``has_chunks`` probe first, then the missing payloads in
         bounded slices, each slice's hash echo verified), then
         sloppy-quorum handoff along the digest's ring for chunks still
-        below quorum. Raises UploadError if any chunk ends below quorum."""
+        below quorum. Raises UploadError if any chunk ends below quorum.
+        ``rf`` overrides the cluster's replication factor (EC shards are
+        placed once) and ``placement`` pins digests to explicit holders
+        (the EC stripe placement); a pinned digest hands off along
+        ``ring.handoff_order(pinned)``, the order the read side walks."""
         ring = self.ring.current
         ids = ring.member_ids()
-        rf = self.cfg.cluster.replication_factor
+        if rf is None:
+            rf = self.cfg.cluster.replication_factor
+        placement = placement or {}
         me = self.cfg.node_id
+
+        def primary_targets(digest: str) -> Sequence[int]:
+            return placement.get(digest) or ring.owners(digest, rf)
+
+        def handoff_ring(digest: str) -> list[int]:
+            pinned = placement.get(digest)
+            if not pinned:
+                return ring.owners(digest, len(ids))
+            return ring.handoff_order(pinned)
+
         per_node: dict[int, list] = {}
         copies: dict[str, int] = {}
         payload_of: dict[str, object] = {}
@@ -611,7 +772,7 @@ class StorageNodeServer:
         for digest, payload in batch:
             copies[digest] = 0
             payload_of[digest] = payload
-            for target in ring.owners(digest, rf):
+            for target in primary_targets(digest):
                 if target == me:
                     local_puts.append((digest, payload))
                     copies[digest] += 1
@@ -708,7 +869,7 @@ class StorageNodeServer:
         # them home. The quorum is clamped to what placement can reach.
         quorum = min(self.cfg.write_quorum, rf, len(ids))
         handoff: set[str] = set()
-        next_try = {d: min(rf, len(ids)) for d in copies}
+        next_try = {d: len(primary_targets(d)) for d in copies}
         with span("upload.handoff", self.latency):
             while True:
                 need = [d for d, n in copies.items() if n < quorum]
@@ -717,7 +878,7 @@ class StorageNodeServer:
                 groups: dict[int, list] = {}
                 local_handoff: list = []
                 for d in need:
-                    order = ring.owners(d, len(ids))
+                    order = handoff_ring(d)
                     if next_try[d] >= len(order):
                         continue                 # cluster exhausted
                     target = order[next_try[d]]
@@ -816,14 +977,19 @@ class StorageNodeServer:
 
     async def _gather_chunks(self, manifest: Manifest | None, chunks=None,
                              strict: bool = True,
-                             prefetched: dict | None = None) -> dict:
+                             prefetched: dict | None = None,
+                             ec_fallback: bool = True) -> dict:
         """digest -> verified bytes for the given chunks (default: all of
         the manifest's): ``prefetched`` first, then the local store, then
         batched fetches from each chunk's first believed-alive owner (up
         to rf rounds, a failed peer's chunks regrouping onto the next
         owner), batched mop-up rounds, a cluster-wide ``has_chunks``
-        sweep, and last the per-chunk walk. ``strict=False`` skips what
-        no peer produced instead of raising."""
+        sweep, and last the per-chunk walk. An EC manifest's shards are
+        asked of their stripe holders and then their handoff order; the
+        per-chunk walk is skipped for them and, with ``ec_fallback``, what
+        no node served is decoded from its stripe (:meth:`_ec_recover`).
+        ``strict=False`` skips what no peer produced instead of
+        raising."""
         need: dict[str, int] = {}
         for c in (manifest.chunks if chunks is None else chunks):
             need.setdefault(c.digest, c.length)
@@ -841,8 +1007,15 @@ class StorageNodeServer:
             return out
         rf = self.cfg.cluster.replication_factor
         me = self.cfg.node_id
+        # EC shards sit at their stripe holders, not at the digest's
+        # owners: ask those, then the handoff order the write side walked
+        pref = ec_placement_map(manifest, self.ring.current) \
+            if manifest is not None and manifest.ec is not None else {}
 
-        def candidates_for(d: str) -> list[int]:
+        def candidates_for(d: str) -> Sequence[int]:
+            pinned = pref.get(d)
+            if pinned:
+                return self.ring.current.handoff_order(pinned)
             return self.ring.read_candidates(d, rf)
 
         def group_remaining(exclude: set[int]) -> dict[int, list[str]]:
@@ -943,8 +1116,11 @@ class StorageNodeServer:
             if groups2:
                 await asyncio.gather(*(fetch_batches(nid, ds)
                                        for nid, ds in groups2.items()))
+        # the per-chunk walk: not for EC shards, which every peer was just
+        # asked for; their next stop is the parity decode
         missing = [d for d in need if d not in out]
-        if missing:
+        is_ec = manifest is not None and manifest.ec is not None
+        if missing and not is_ec:
             sem = asyncio.Semaphore(8)
 
             async def one(d: str) -> None:
@@ -956,10 +1132,142 @@ class StorageNodeServer:
 
             await asyncio.gather(*(one(d) for d in missing))
             missing = [d for d in need if d not in out]
+        if missing and is_ec and ec_fallback:
+            await self._ec_recover(manifest, set(missing), out)
+            missing = [d for d in need if d not in out]
         if missing and strict:
             raise DownloadError(
                 f"Could not retrieve chunk {missing[0][:12]}…")
         return out
+
+    async def _ec_recover(self, manifest: Manifest, wanted: set[str],
+                          out: dict) -> None:
+        """Rebuild lost shards of an EC manifest from their stripe-mates.
+        The surviving shards of every affected stripe come in one gather
+        (non-strict, no decode: no recursion); the stripes then decode in
+        one batched host solve (:func:`ec_ops.recover_stripes_np`), each
+        recovered shard digest-verified before it joins ``out``. Lost
+        parity is re-encoded from the recovered data. A stripe past the
+        two-erasure budget is skipped (the caller decides whether that is
+        fatal); one that needs a shard another stripe of this pass
+        recovers (in-file dedup) waits for the next round."""
+        ec = manifest.ec
+        assert ec is not None
+        groups = ec_stripe_groups(manifest.chunks, ec.k)
+        affected = [
+            (s, st, grp)
+            for s, (st, grp) in enumerate(zip(ec.stripes, groups))
+            if wanted.intersection([c.digest for c in grp]
+                                   + [st.p, st.q])]
+        # the wanted digests were just shown unreachable: not asked again
+        fetch: dict[str, ChunkRef] = {}
+        for s, st, grp in affected:
+            for c in grp:
+                if c.digest not in out and c.digest not in wanted:
+                    fetch.setdefault(c.digest, ChunkRef(
+                        index=0, offset=0, length=c.length,
+                        digest=c.digest))
+            for d in (st.p, st.q):
+                if d not in out and d not in wanted:
+                    fetch.setdefault(d, ChunkRef(
+                        index=0, offset=0, length=st.shard_len, digest=d))
+        have = dict(out)
+        if fetch:
+            got = await self._gather_chunks(
+                manifest, chunks=list(fetch.values()), strict=False,
+                ec_fallback=False)
+            have.update(got)
+
+        def padded(d: str, ln: int, shard_len: int) -> np.ndarray | None:
+            # `out` first: a digest shared between stripes may have been
+            # recovered by an earlier round of this pass
+            b = out.get(d)
+            if b is None:
+                b = have.get(d)
+            if b is None or len(b) != ln:
+                return None
+            if ln == shard_len:
+                return np.frombuffer(b, dtype=np.uint8)
+            arr = np.zeros(shard_len, dtype=np.uint8)
+            arr[:ln] = np.frombuffer(b, dtype=np.uint8)
+            return arr
+
+        pending = affected
+        while pending:
+            deferred = []
+            inputs = []
+            meta = []
+            for s, st, grp in pending:
+                data = [padded(c.digest, c.length, st.shard_len)
+                        for c in grp]
+                p = padded(st.p, st.shard_len, st.shard_len)
+                q = padded(st.q, st.shard_len, st.shard_len)
+                lost = sum(d is None for d in data) \
+                    + (p is None) + (q is None)
+                if lost > 2:
+                    deferred.append((s, st, grp, lost))
+                    continue
+                inputs.append((data, p, q))
+                meta.append((s, st, grp))
+            recs: list = []
+            if inputs:
+                try:
+                    recs = await asyncio.to_thread(
+                        ec_ops.recover_stripes_np, inputs)
+                except ValueError as e:
+                    # per stripe, so one malformed stripe cannot sink the
+                    # others
+                    self.log.warning("ec batch decode failed (%s); "
+                                     "retrying per stripe", e)
+
+                    def per_stripe() -> list:
+                        got = []
+                        for data, p, q in inputs:
+                            try:
+                                got.append(ec_ops.recover_stripe(data, p, q))
+                            except ValueError as e2:
+                                got.append(None)
+                                self.log.warning("ec decode failed: %s", e2)
+                        return got
+
+                    recs = await asyncio.to_thread(per_stripe)
+            progress = False
+            for (s, st, grp), rec in zip(meta, recs):
+                if rec is None:
+                    continue
+                recovered = False
+                for c, arr in zip(grp, rec):
+                    if c.digest in wanted and c.digest not in out:
+                        b = arr[:c.length].tobytes()
+                        if sha256_hex(b) == c.digest:
+                            out[c.digest] = b
+                            recovered = True
+                        else:
+                            self.log.error(
+                                "ec decode produced wrong digest for %s",
+                                c.digest[:12])
+                if (st.p in wanted and st.p not in out) \
+                        or (st.q in wanted and st.q not in out):
+                    full = np.stack([np.asarray(a) for a in rec])
+                    pb, qb = ec_ops.encode_pq_np(full)
+                    for d, b in ((st.p, pb.tobytes()),
+                                 (st.q, qb.tobytes())):
+                        if d in wanted and d not in out \
+                                and sha256_hex(b) == d:
+                            out[d] = b
+                            recovered = True
+                if recovered:
+                    progress = True
+                    self.counters.inc("ec_decodes")
+            if not deferred:
+                break
+            if not progress:
+                for s, st, grp, lost in deferred:
+                    self.log.warning(
+                        "ec stripe %d of %s: %d shards lost, beyond P+Q",
+                        s, manifest.file_id[:12], lost)
+                break
+            pending = [(s, st, grp) for s, st, grp, _ in deferred]
 
     async def _resolve_manifest(self, file_id: str) -> Manifest:
         """The local manifest, else a peer's (adopted with its origin
@@ -1106,11 +1414,13 @@ class StorageNodeServer:
 
     def frag_stats(self) -> dict:
         """``/metrics`` ``frag``: the FragmenterConfig knobs, the engine,
-        the device it runs on and the kernel launches of this process —
-        what actually runs."""
+        the device it runs on, the kernel launches of this process and
+        where the EC encode ran (``ecEncode``: its device, calls and
+        stripes) — what actually runs."""
         from dfs_tpu_torch import kernels
 
         f = self.cfg.frag
+        counts = self.counters.snapshot()
         mesh = getattr(self.fragmenter, "mesh", None)
         device = ",".join(str(d) for d in mesh.flat) if mesh is not None \
             else str(self.fragmenter.device)
@@ -1120,7 +1430,11 @@ class StorageNodeServer:
                 "engine": self.fragmenter.name,
                 "degraded": False,
                 "device": device,
-                "launches": kernels.launch_counts()}
+                "launches": kernels.launch_counts(),
+                "ecEncode": {"device": self._ec_encode_device,
+                             "calls": counts.get("ec_encodes", 0),
+                             "stripes": counts.get("ec_encode_stripes",
+                                                   0)}}
 
     def durability_stats(self) -> dict:
         return {"mode": self.cfg.durability.mode,
@@ -1259,9 +1573,11 @@ class StorageNodeServer:
     async def repair_once(self) -> int:
         """One repair cycle, serialized: tombstone anti-entropy first (so a
         deleted file is never pushed back), manifest anti-entropy second,
-        then restore this node's own missing copies, push each owner what
-        it lacks (verified by hash echo), move confirmed handoff copies
-        home, and sweep aged orphans. Returns the chunks repaired."""
+        then restore this node's own missing copies (an EC shard by
+        decode when no node holds it), push each owner or stripe holder
+        what it lacks (verified by hash echo), move confirmed handoff
+        copies home (never an EC shard), and sweep aged orphans. Returns
+        the chunks repaired."""
         async with self._repair_lock:
             return await self._repair_once_locked()
 
@@ -1274,12 +1590,32 @@ class StorageNodeServer:
         need: dict[int, list[tuple[str, int]]] = {}
         chunk_len: dict[str, int] = {}
         own_missing: dict[str, int] = {}
+        own_missing_ec: list[tuple[Manifest, list[ChunkRef]]] = []
+        ec_digests: set[str] = set()
         stray: dict[str, frozenset[int]] = {}
         local_digests = set(await asyncio.to_thread(
             self.store.chunks.digests))
         for m in self.store.manifests.list():
             if m.ec is not None:
-                continue          # erasure-coded files: not ported
+                # EC shards live at their stripe holders, one copy each; a
+                # holder missing its shard regenerates it here by decode
+                # (the push loop below moves surviving copies only)
+                pl = ec_placement_map(m, ring)
+                miss: dict[str, int] = {}
+                for d, ln in ec_shard_items(m):
+                    chunk_len[d] = ln
+                    ec_digests.add(d)
+                    for target in pl[d]:
+                        if target != me:
+                            need.setdefault(target, []).append((d, ln))
+                        elif d not in local_digests:
+                            miss[d] = ln
+                if miss:
+                    own_missing_ec.append(
+                        (m, [ChunkRef(index=0, offset=0, length=ln,
+                                      digest=d)
+                             for d, ln in miss.items()]))
+                continue
             for c in m.chunks:
                 chunk_len[c.digest] = c.length
                 targets = ring.owners(c.digest, rf)
@@ -1292,17 +1628,18 @@ class StorageNodeServer:
                 if me not in targets and c.digest in local_digests:
                     stray[c.digest] = frozenset(targets)
 
-        repaired = 0
-        if own_missing:
-            refs = [ChunkRef(index=0, offset=0, length=ln, digest=d)
-                    for d, ln in own_missing.items()]
+        async def restore_missing(manifest: Manifest | None,
+                                  refs: list[ChunkRef]) -> int:
+            """This node's missing copies, gathered in bounded batches
+            (with the manifest: EC shards decode) and put locally."""
+            n = 0
             batch: list[ChunkRef] = []
             size = 0
             for i, r in enumerate(refs):
                 batch.append(r)
                 size += r.length
                 if size >= self._FETCH_BATCH_BYTES or i == len(refs) - 1:
-                    got = await self._gather_chunks(None, chunks=batch,
+                    got = await self._gather_chunks(manifest, chunks=batch,
                                                     strict=False)
                     items = list(got.items())
                     stored = await self.cas.put_many(items, verify=False)
@@ -1310,8 +1647,17 @@ class StorageNodeServer:
                         self.under_replicated.discard(d)
                         if newly:
                             self.counters.inc("chunks_stored")
-                    repaired += len(items)
+                    n += len(items)
                     batch, size = [], 0
+            return n
+
+        repaired = 0
+        if own_missing:
+            repaired += await restore_missing(
+                None, [ChunkRef(index=0, offset=0, length=ln, digest=d)
+                       for d, ln in own_missing.items()])
+        for m, refs in own_missing_ec:
+            repaired += await restore_missing(m, refs)
         verified: set[str] = set()
         # digest -> owners that CONFIRMED their copy this cycle: a stray
         # local copy is deleted only once all its owners confirmed
@@ -1350,6 +1696,9 @@ class StorageNodeServer:
                                  node_id, e)
                 self.counters.inc("repair_push_failures")
         self.under_replicated -= verified
+        # EC shards are pinned to their stripe holders: never relocated
+        for d in ec_digests:
+            stray.pop(d, None)
 
         def relocate() -> list[str]:
             return [d for d, holders in stray.items()

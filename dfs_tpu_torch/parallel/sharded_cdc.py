@@ -24,12 +24,14 @@ path; the JAX steps' ``psum`` of the chunk count is a sum over the slots.
   kernels 2, 3, 1 and the plain compaction) on host lane tables.
 - **The aligned v2 step** (:func:`make_aligned_step`): strips sharded over
   the slots, kernel 3, plain candidates and selection, kernel 5.
+- **The EC step** (:func:`make_ec_step`): erasure stripes sharded over the
+  slots, P+Q by ``ops.ec.pq_horner`` (plain torch, as dfs_tpu's was XLA).
 
 The parity checks hold the steps to the NumPy oracles on a toy geometry
 (:func:`anchored_sharded_parity_check`, :func:`aligned_sharded_parity_check`)
 and at production geometry (:func:`anchored_sharded_production_check`).
-The rolling (``make_sharded_step``, ``make_sharded_bitmap_step``), sketch
-and EC steps are not ported yet.
+The rolling (``make_sharded_step``, ``make_sharded_bitmap_step``) and
+sketch steps are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from dfs_tpu_torch.ops.cdc_anchored import (TILE_BYTES, AnchoredCdcParams,
 from dfs_tpu_torch.ops.cdc_v2 import (BLOCK, AlignedCdcParams,
                                       candidates_np, gear_candidates,
                                       select_cuts, select_cuts_blocks)
+from dfs_tpu_torch.ops.ec import pq_horner
 from dfs_tpu_torch.ops.layout import bswap_transpose
 from dfs_tpu_torch.ops.repack import repack_lanes
 from dfs_tpu_torch.ops.select import NO_ANCHOR
@@ -185,6 +188,43 @@ def make_aligned_step(mesh: DeviceMesh, params: AlignedCdcParams):
 def shard_aligned_inputs(mesh: DeviceMesh, words_le, real_blocks):
     """Aligned-step inputs with the strip axis split over the slots."""
     return _split(mesh, words_le), _split(mesh, real_blocks)
+
+
+# ---------------------------------------------------------------------------
+# erasure parity, sharded: stripes are independent
+# ---------------------------------------------------------------------------
+
+def make_ec_step(mesh: DeviceMesh, k: int):
+    """Multi-device P+Q encode over GF(256): the stripe axis shards over
+    every slot with no exchange; each slot runs :func:`pq_horner` over its
+    stripes' bytes. The JAX step's psum of the parity bytes is a sum over
+    the slots.
+
+    step(stripes — per-slot [NS/n, k, w] u32) -> (p [NS, w] u32, q [NS, w]
+    u32, parity_bytes — the 2 * 4 * NS * w parity bytes, an int64 tensor)
+    """
+    def local_step(slot, stripes):
+        ns, kk, w = stripes.shape
+        p, q = pq_horner(stripes.view(torch.int32).view(torch.uint8), k,
+                         axis=1)
+        nbytes = torch.tensor(2 * 4 * ns * w, dtype=torch.int64,
+                              device=stripes.device)
+        return (p.contiguous().view(torch.int32).view(torch.uint32),
+                q.contiguous().view(torch.int32).view(torch.uint32), nbytes)
+
+    def step(stripes):
+        outs = _run_slots(mesh, local_step, [(s,) for s in stripes])
+        return (_gather(mesh, [o[0] for o in outs], 0),
+                _gather(mesh, [o[1] for o in outs], 0),
+                _count(mesh, [o[2] for o in outs]))
+
+    return step
+
+
+def shard_ec_inputs(mesh: DeviceMesh, stripes):
+    """EC-step input [NS, k, w] u32 with the stripe axis split over the
+    slots."""
+    return _split(mesh, stripes)
 
 
 # ---------------------------------------------------------------------------

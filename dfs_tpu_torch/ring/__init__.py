@@ -4,7 +4,10 @@ default-config cluster runs.
 
 A chunk's owners are a cyclic replica set over the sorted member ids:
 the primary is ``int(digest[:16], 16) mod N`` and the others follow
-cyclically. :attr:`RingMap.fingerprint` is computed exactly as dfs_tpu
+cyclically. An erasure stripe's k + 2 shards fan out consecutively from a
+base derived from the file id and the stripe number
+(:func:`static_ec_shard_node`), bit for bit as dfs_tpu places them, so
+either kind of node finds the other's shards. :attr:`RingMap.fingerprint` is computed exactly as dfs_tpu
 computes it, so the ``repoch``/``rfp`` pair that placement-bearing RPCs
 carry matches between a port node and a dfs_tpu node over the same peers
 — a mismatch would make every ``store_chunks`` of a mixed cluster fail.
@@ -35,6 +38,14 @@ def static_replica_set(digest: str, node_ids: list[int],
     rf = min(rf, len(node_ids))
     start = digest_point(digest) % len(node_ids)
     return [node_ids[(start + j) % len(node_ids)] for j in range(rf)]
+
+
+def static_ec_shard_node(file_id: str, stripe: int, shard: int,
+                         node_ids: list[int]) -> int:
+    if not node_ids:
+        raise ValueError("empty cluster")
+    base = (int(file_id[:16], 16) + stripe * 2654435761) % len(node_ids)
+    return node_ids[(base + shard) % len(node_ids)]
 
 
 def static_handoff_order(pinned: Sequence[int],
@@ -101,6 +112,19 @@ class RingMap:
         """Owner node ids of a content digest, primary first."""
         return static_replica_set(digest, self.member_ids(), rf)
 
+    def ec_stripe_nodes(self, file_id: str, stripe: int,
+                        nshards: int) -> list[int]:
+        """Holder per shard (0..k-1 data, k = P, k+1 = Q) of one erasure
+        stripe: consecutive members from the stripe's base, all distinct
+        while ``nshards`` <= the member count (upload enforces k + 2 <=
+        members). Over every member id, dead ones included."""
+        ids = self.member_ids()
+        return [static_ec_shard_node(file_id, stripe, j, ids)
+                for j in range(nshards)]
+
+    def ec_shard_node(self, file_id: str, stripe: int, shard: int) -> int:
+        return self.ec_stripe_nodes(file_id, stripe, shard + 1)[shard]
+
     def handoff_order(self, pinned: Sequence[int]) -> list[int]:
         """Pinned holders, then the rest of the membership cyclically from
         the first pinned holder."""
@@ -108,4 +132,5 @@ class RingMap:
 
 
 __all__ = ["POINT_HEX", "RingMap", "RingMember", "digest_point",
-           "static_handoff_order", "static_replica_set"]
+           "static_ec_shard_node", "static_handoff_order",
+           "static_replica_set"]

@@ -3,7 +3,7 @@ nodes of the port in one rf-2 cluster, on the CPU. They share the wire,
 the ring and the on-disk layout, so an upload through either kind gives
 the same fileId and chunk digests and either kind serves the other's
 files; the frame encoder and the ring fingerprint are held equal
-directly."""
+directly. With four port nodes, erasure-coded files cross both ways."""
 
 import asyncio
 import hashlib
@@ -108,6 +108,71 @@ def test_mixed_cluster_agrees_and_serves_both_ways(tmp_path):
             assert await ports_[0].repair_once() == 0
         finally:
             for n in nodes:
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+def test_mixed_cluster_ec_reads_with_two_holders_down(tmp_path):
+    """One dfs_tpu node and four port nodes, k=3 over 5 (each stripe's 5
+    shards on 5 distinct nodes): an EC file uploaded through a port node
+    and one uploaded through the dfs_tpu node; both kinds compute the
+    same stripe placement for each; then two port nodes stop and each
+    kind reads the other's file byte-identically, by decode."""
+    from dfs_tpu.node.runtime import ec_placement_map as ref_pl
+
+    from dfs_tpu_torch.node.runtime import ec_placement_map
+
+    ports = _free_ports(10)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(5)]
+    ref_cluster = RefCluster(peers=tuple(
+        RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    a, b = corpus(30_000, seed=13), corpus(25_000, seed=14)
+    ids = [1, 2, 3, 4, 5]
+
+    async def http(fn, *args):
+        return await asyncio.to_thread(fn, *args)
+
+    async def go():
+        ref = RefServer(RefNodeConfig(
+            node_id=1, cluster=ref_cluster, data_root=tmp_path,
+            fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+            health_probe_s=0))
+        mine = {i: StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu"))
+            for i in (2, 3, 4, 5)}
+        for n in (ref, *mine.values()):
+            await n.start()
+        try:
+            c_ref = RefClient(port=addrs[0][1], timeout_s=30)
+            ia = await http(NodeClient(port=addrs[1][1],
+                                       timeout_s=30).upload, a, "a.bin", 3)
+            ib = await http(c_ref.upload, b, "b.bin", 3)
+            assert ia["ecParityBytes"] > 0 and ib["ecParityBytes"] > 0
+            for info in (ia, ib):
+                fid = info["fileId"]
+                rm = ref.store.manifests.load(fid)
+                pm = mine[5].store.manifests.load(fid)
+                assert rm.to_json() == pm.to_json()
+                assert dict(ec_placement_map(pm, ids)) \
+                    == dict(ref_pl(rm, ids)) \
+                    == dict(ec_placement_map(pm, mine[5].ring.current)) \
+                    == dict(ref_pl(rm, ref.ring.current))
+            for i in (3, 4):
+                await mine.pop(i).stop()
+            assert await http(c_ref.download, ia["fileId"]) == a
+            assert await http(NodeClient(port=addrs[4][1],
+                                         timeout_s=30).download,
+                              ib["fileId"]) == b
+            assert ref.counters.snapshot().get("ec_decodes", 0) > 0
+            assert mine[5].counters.snapshot().get("ec_decodes", 0) > 0
+        finally:
+            for n in (ref, *mine.values()):
                 await n.stop()
 
     asyncio.run(asyncio.wait_for(go(), timeout=60))
