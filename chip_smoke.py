@@ -31,6 +31,19 @@ drives the paths end to end and checks each against the NumPy oracle:
   NumPy oracle stripe by stripe, timed; the batched decode in torch on
   the card against the NumPy decode in each erasure case; the sharded EC
   step on 4 slots of the first card;
+- ``sim_sketch``: the similarity plane's min-hash sketcher on the card over
+  every chunk of that 64 MiB file (default SimConfig: 16 lanes, 8-byte
+  shingles, 64 KiB window) against the NumPy oracle, timed by one event
+  pair per call beside its bound, and the sharded sketch step on 4 slots
+  of the first card;
+- ``cluster_sim``: 5 ``serve --sim`` processes (rf 2, write quorum 2,
+  fsync on) on fresh ports and a fresh root: that 64 MiB file streamed to
+  node 1, then generation 2 (one 4-byte overwrite every 64 KiB); both
+  tables against the oracle, both read back from node 3 and generation 2
+  from node 5 after SIGKILL of node 3; after the nodes stop, every chunk
+  of both generations opened through the port's ChunkStore on both of its
+  owners (deltas reconstructed) and hashed; deltas written > 0 and their
+  bytes below 10% of the raw bytes they replace (kernels 1-4 in node 1);
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -54,6 +67,7 @@ of JAX or of the dfs_tpu package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import http.client
 import json
@@ -66,6 +80,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 SEED = 20261016
@@ -76,6 +91,9 @@ BLOCK_BYTES = 1024 * 1024
 REGION_BYTES = 64 * 1024 * 1024
 CLUSTER_NODES = 5
 CONCURRENT_BYTES = 64 * 1024 * 1024
+# cluster_sim's generation 2: one 4-byte overwrite every 64 KiB
+SIM_EDIT_AT = 12_345
+SIM_EDIT_STRIDE = 64 * 1024
 
 # H100 SXM peaks at the full 700 W power limit: HBM bandwidth (NVIDIA data
 # sheet), and the INT32 rate every kernel here is held to — 132 SMs x 64
@@ -405,23 +423,20 @@ def ec_codec_phase(body: bytes, table: list, dev, np) -> list:
     return parity3
 
 
-def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
-                  params, rng, np, ec_body: bytes, ec_table: list,
-                  ec_parity: list) -> dict:
-    """The ``cluster`` phase (module docstring). Returns node 1's kernel
-    launches across the streamed 256 MiB upload and across the EC
-    upload."""
-    from dfs_tpu_torch.meta.manifest import Manifest, ec_stripe_groups
-    from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
-    from dfs_tpu_torch.ring import static_ec_shard_node, static_replica_set
-
+@contextlib.contextmanager
+def serve_cluster(root: Path, prefix: str, extra: tuple = ()):
+    """``CLUSTER_NODES`` ``python -m dfs_tpu_torch.cli.main serve``
+    processes on fresh ports and a fresh data root under ``root`` (rf 2,
+    write quorum 2, fsync on, no repair loop, plus ``extra`` flags), each
+    answering ``/status``. Yields their directory, HTTP ports, processes
+    and start-up seconds; on failure the nodes' log tails go to stderr;
+    every process is killed on the way out."""
     ids = list(range(1, CLUSTER_NODES + 1))
     ports = _free_ports(2 * CLUSTER_NODES)
     http_port = {i: ports[2 * (i - 1)] for i in ids}
     procs: dict[int, subprocess.Popen] = {}
     logs = []
-    with tempfile.TemporaryDirectory(prefix=".chip_smoke_cluster_",
-                                     dir=root) as d:
+    with tempfile.TemporaryDirectory(prefix=prefix, dir=root) as d:
         d = Path(d)
         (d / "cluster.json").write_text(json.dumps({
             "replication_factor": 2,
@@ -439,7 +454,7 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
                      "--node-id", str(i), "--cluster-config",
                      str(d / "cluster.json"), "--data-root", str(d / "data"),
                      "--write-quorum", "2", "--durability", "fsync",
-                     "--repair-interval", "0"],
+                     "--repair-interval", "0", *extra],
                     cwd=root, env=env, stdout=logs[-1],
                     stderr=subprocess.STDOUT)
             for i in ids:
@@ -455,186 +470,8 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
                     check(time.perf_counter() - t0 < 300,
                           f"node {i} did not answer /status")
                     time.sleep(0.5)
-            start_s = time.perf_counter() - t0
-            # warm-up: the chain's first launches in node 1's process
-            _upload(http_port[1], body[:8 * 2**20], "warm.bin")
-
-            m0 = _metrics(http_port[1])["frag"]["launches"]
-            t0 = time.perf_counter()
-            info = _upload(http_port[1], iter(blocks), "cluster.bin",
-                           chunked=True)
-            upload_s = time.perf_counter() - t0
-            m1 = _metrics(http_port[1])
-            # where the upload's time went, node by node: the CAS tier's
-            # busy and queued seconds and its fsyncs; node 1's stalls and
-            # phase latencies
-            where = {}
-            for i in ids:
-                mi = m1 if i == 1 else _metrics(http_port[i])
-                where[i] = {"fsyncs": mi["durability"]["fsyncs"],
-                            "chunks_stored": mi.get("chunks_stored", 0),
-                            "cas": mi["ingest"]["cas"],
-                            "latency": {
-                                k: v for k, v in mi["latency"].items()
-                                if k.startswith(("upload.",
-                                                 "peer.store_chunks",
-                                                 "peer.has_chunks"))}}
-            where[1]["stalls"] = m1["ingest"]["stalls"]
-            launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
-            for k in ("strip_chunk_states", "repack_lanes",
-                      "bswap_transpose", "select_walk"):
-                check(launches[k] > 0, f"kernel {k} never launched in "
-                      "node 1 during the cluster upload")
-            check(m1["frag"]["device"].startswith("cuda:"),
-                  f"node 1 chunks on {m1['frag']['device']}")
-            fid = hashlib.sha256(body).hexdigest()
-            check(info["fileId"] == fid, "cluster fileId != sha256(body)")
-            st, _, doc = _http(http_port[1], "GET",
-                               f"/manifest?fileId={fid}", timeout=120)
-            table = [(c["offset"], c["length"], c["digest"])
-                     for c in json.loads(doc)["chunks"]]
-            check(table == oracle, "cluster chunk table != numpy oracle")
-
-            # the replication guarantee, read back: each chunk on both of
-            # its owners, hashing to its digest
-            for _, _, dg in table:
-                for o in static_replica_set(dg, ids, 2):
-                    p = d / "data" / f"node-{o}" / "chunks" / dg[:2] / dg
-                    check(p.is_file() and hashlib.sha256(
-                        p.read_bytes()).hexdigest() == dg,
-                        f"chunk {dg[:12]} missing or corrupt on owner {o}")
-
-            t0 = time.perf_counter()
-            st, _, got = _http(http_port[3], "GET", f"/download?fileId={fid}")
-            download_s = time.perf_counter() - t0
-            check(st == 200 and got == body,
-                  "download from node 3 not identical")
-            del got
-            lo = len(body) // 3 + 12_345
-            hi = min(len(body) - 1, lo + 999_999)
-            st, h, part = _http(http_port[4], "GET",
-                                f"/download?fileId={fid}",
-                                headers={"Range": f"bytes={lo}-{hi}"})
-            check(st == 206 and part == body[lo:hi + 1]
-                  and h.get("Content-Range")
-                  == f"bytes {lo}-{hi}/{len(body)}", "range read not exact")
-            again = _upload(http_port[2], body, "cluster-again.bin")
-            check(again["transferredBytes"] == 0,
-                  f"re-upload moved {again['transferredBytes']} B")
-
-            # two uploads at once to node 1: two walks on the card, one
-            # plain body (the whole-body walk), one chunked (the stream)
-            two = [rng.integers(0, 256, size=CONCURRENT_BYTES,
-                                dtype=np.uint8).tobytes() for _ in range(2)]
-            res: dict[int, object] = {}
-
-            def up(k: int) -> None:
-                try:
-                    b = two[k]
-                    res[k] = _upload(
-                        http_port[1], b if k == 0 else iter(
-                            [b[i:i + BLOCK_BYTES]
-                             for i in range(0, len(b), BLOCK_BYTES)]),
-                        f"concurrent{k}.bin", chunked=k == 1)
-                except BaseException as e:  # noqa: BLE001 — checked below
-                    res[k] = e
-
-            t0 = time.perf_counter()
-            threads = [threading.Thread(target=up, args=(k,)) for k in (0, 1)]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join()
-            concurrent_s = time.perf_counter() - t0
-            for k in (0, 1):
-                check(isinstance(res[k], dict), f"concurrent upload {k} "
-                      f"failed: {res[k]}")
-                kid = res[k]["fileId"]
-                check(kid == hashlib.sha256(two[k]).hexdigest(),
-                      f"concurrent upload {k} fileId != sha256")
-                st, _, doc = _http(http_port[1], "GET",
-                                   f"/manifest?fileId={kid}", timeout=120)
-                check([(c["offset"], c["length"], c["digest"])
-                       for c in json.loads(doc)["chunks"]]
-                      == chunk_file_anchored_np(
-                          np.frombuffer(two[k], np.uint8), params),
-                      f"concurrent upload {k} chunk table != numpy oracle")
-            fsyncs = _metrics(http_port[1])["durability"]["fsyncs"]
-
-            # erasure coding: the EC body whole to node 1 at k=3, chunked
-            # and encoded on the card; every shard once, on its holder
-            e0 = _metrics(http_port[1])["frag"]
-            t0 = time.perf_counter()
-            ec_info = _upload(http_port[1], ec_body, "ec.bin", ec=EC_K)
-            ec_upload_s = time.perf_counter() - t0
-            e1 = _metrics(http_port[1])["frag"]
-            ec_launches = {k: e1["launches"][k] - e0["launches"][k]
-                           for k in e0["launches"]}
-            for k in ("strip_chunk_states", "repack_lanes",
-                      "bswap_transpose", "select_walk"):
-                check(ec_launches[k] > 0, f"kernel {k} never launched in "
-                      "node 1 during the EC upload")
-            enc = e1["ecEncode"]
-            check(enc["device"] == "cuda:0"
-                  and enc["calls"] == e0["ecEncode"]["calls"] + 1,
-                  f"node 1's EC encode ran on {enc['device']} "
-                  f"({enc['calls']} calls)")
-            ec_fid = hashlib.sha256(ec_body).hexdigest()
-            check(ec_info["fileId"] == ec_fid, "EC fileId != sha256(body)")
-            st, _, doc = _http(http_port[1], "GET",
-                               f"/manifest?fileId={ec_fid}", timeout=120)
-            ecm = Manifest.from_json(doc)
-            check([(c.offset, c.length, c.digest) for c in ecm.chunks]
-                  == ec_table, "EC chunk table != numpy oracle")
-            check(ecm.ec is not None and ecm.ec.k == EC_K
-                  and len(ecm.ec.stripes) == len(ec_parity),
-                  "EC manifest layout")
-            check(all(st_.p == hashlib.sha256(p.tobytes()).hexdigest()
-                      and st_.q == hashlib.sha256(q.tobytes()).hexdigest()
-                      for st_, (p, q) in zip(ecm.ec.stripes, ec_parity)),
-                  "EC P/Q digests != sha256 of encode_pq_np")
-            check(ec_info["ecParityBytes"]
-                  == sum(2 * st_.shard_len for st_ in ecm.ec.stripes),
-                  "ecParityBytes")
-            shards = 0
-            for s_, (st_, grp) in enumerate(zip(
-                    ecm.ec.stripes, ec_stripe_groups(ecm.chunks, EC_K))):
-                digests = [c.digest for c in grp] + [st_.p, st_.q]
-                for j, dg in enumerate(digests):
-                    o = static_ec_shard_node(ec_fid, s_, j, ids)
-                    p = d / "data" / f"node-{o}" / "chunks" / dg[:2] / dg
-                    check(p.is_file() and hashlib.sha256(
-                        p.read_bytes()).hexdigest() == dg,
-                        f"EC shard {dg[:12]} missing or corrupt on its "
-                        f"holder {o}")
-                    shards += 1
-
-            # node loss: SIGKILL an owner, read from a survivor that asks
-            # node 3 first for the chunks node 3 and node 4 own
-            procs[3].send_signal(signal.SIGKILL)
-            procs[3].wait(timeout=60)
-            t0 = time.perf_counter()
-            st, _, got = _http(http_port[5], "GET", f"/download?fileId={fid}")
-            degraded_s = time.perf_counter() - t0
-            check(st == 200 and got == body,
-                  "download after SIGKILL of node 3 not identical")
-            del got
-
-            # a second node lost: every EC stripe has lost two shards; node
-            # 1 reads the EC file whole by decode
-            procs[4].send_signal(signal.SIGKILL)
-            procs[4].wait(timeout=60)
-            dec0 = _metrics(http_port[1]).get("ec_decodes", 0)
-            t0 = time.perf_counter()
-            st, _, got = _http(http_port[1], "GET",
-                               f"/download?fileId={ec_fid}")
-            ec_two_down_s = time.perf_counter() - t0
-            check(st == 200 and got == ec_body,
-                  "EC download with nodes 3 and 4 killed not identical")
-            del got
-            ec_decodes = _metrics(http_port[1]).get("ec_decodes", 0) - dec0
-            check(ec_decodes > 0, "EC download with two nodes killed "
-                  "decoded nothing")
+            yield types.SimpleNamespace(dir=d, port=http_port, procs=procs,
+                                        start_s=time.perf_counter() - t0)
         except BaseException:
             for i in ids:
                 log = d / f"node{i}.log"
@@ -650,6 +487,403 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
                 p.wait(timeout=60)
             for f in logs:
                 f.close()
+
+
+def sim_sketch_phase(body: bytes, table: list, dev, np) -> None:
+    """The ``sim_sketch`` phase (module docstring)."""
+    import torch
+
+    from dfs_tpu_torch.config import SimConfig
+    from dfs_tpu_torch.parallel.mesh import make_mesh
+    from dfs_tpu_torch.parallel.sharded_cdc import sketch_rows_fn
+    from dfs_tpu_torch.sim.sketch import (SimSketcher, SketchPlan,
+                                          lane_tensor, sketch_np, sketch_rows)
+
+    cfg = SimConfig(enabled=True)
+    q, lanes = cfg.shingle_bytes, cfg.sketch_size
+    skt = SimSketcher(cfg, device=dev)
+    view = memoryview(body)
+    chunks = [view[o:o + ln] for o, ln, _ in table]
+    check(all(len(c) <= skt.window for c in chunks),
+          "a chunk of the default chain is longer than the sketch window")
+    t0 = time.perf_counter()
+    want = np.stack([sketch_np(np.frombuffer(c, np.uint8), lanes, q,
+                               skt.lanes_a, skt.lanes_b) for c in chunks])
+    oracle_s = time.perf_counter() - t0
+    skt.sketch_many(chunks[:64])                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = skt.sketch_many(chunks)
+    call_s = time.perf_counter() - t0
+    check(np.array_equal(got, want), "SimSketcher on the card != sketch_np")
+    # the device part alone: one event pair per call, as ec_codec (the
+    # sketch is thousands of small launches)
+    plan = SketchPlan([len(c) for c in chunks], q)
+    packed = torch.from_numpy(plan.pack(chunks)).to(dev)
+    a, b = lane_tensor(skt.lanes_a, dev), lane_tensor(skt.lanes_b, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_mib = torch.cuda.memory_allocated(dev) / 2**20
+    ms = single_ms(lambda: plan.sketch(
+        packed, lambda blk, ln: sketch_rows(blk, ln, a, b, q)),
+        reps=5, warmup=1)
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20 - base_mib
+    # the sharded step on 4 slots of the card, the same rows
+    four = sketch_rows_fn(make_mesh(4, device=[dev] * 4), skt.lanes_a,
+                          skt.lanes_b, q)
+    got4 = plan.sketch(packed, four).view(torch.int32).cpu().numpy()
+    check(np.array_equal(got4.view(np.uint32), want[plan.order]),
+          "make_sketch_step on 4 slots of the card != sketch_np")
+    ms4 = single_ms(lambda: plan.sketch(packed, four), reps=3, warmup=1)
+    in_bytes = plan.data_bytes + 4 * len(chunks)
+    out_bytes = len(chunks) * lanes * 4
+    ops = plan.live_positions * (2 * q + 4 * lanes)
+    bound_bytes_ms = (in_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+    bound_ops_ms = ops / PEAK_INT_OPS_S * 1e3
+    emit({"phase": "sim_sketch", "bytes": len(body), "chunks": len(chunks),
+          "lanes": lanes, "shingle_bytes": q, "window": skt.window,
+          "groups": len(plan.groups), "packed_bytes": plan.nbytes,
+          "positions_computed": plan.positions,
+          "positions_unpadded": plan.live_positions,
+          "padding_frac": plan.positions / max(1, plan.live_positions) - 1,
+          "ms": ms, "ms_4_slots": ms4,
+          "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+          "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
+          else "operations", "bound_bytes_ms": bound_bytes_ms,
+          "bound_ops_ms": bound_ops_ms, "ops": ops,
+          "peak_mib": peak_mib, "sketch_many_s": call_s,
+          "oracle_numpy_s": oracle_s, "exact": True,
+          "exact_4_slots": True})
+
+
+def _disk_bytes(path: Path) -> int:
+    """Bytes of every file under ``path`` (a node's chunks/, deltas/
+    included)."""
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def cluster_sim_phase(root: Path, body: bytes, table: list, params,
+                      np) -> dict:
+    """The ``cluster_sim`` phase (module docstring). Returns node 1's
+    kernel launches across both uploads."""
+    from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
+    from dfs_tpu_torch.ring import static_replica_set
+    from dfs_tpu_torch.store.cas import ChunkStore
+
+    gen2 = bytearray(body)
+    for off in range(SIM_EDIT_AT, len(gen2), SIM_EDIT_STRIDE):
+        gen2[off:off + 4] = bytes(x ^ 0xFF for x in gen2[off:off + 4])
+    gen2 = bytes(gen2)
+    table2 = chunk_file_anchored_np(np.frombuffer(gen2, np.uint8), params)
+    gens = {1: (body, table), 2: (gen2, table2)}
+    blocks = {g: [b[i:i + BLOCK_BYTES] for i in range(0, len(b), BLOCK_BYTES)]
+              for g, (b, _) in gens.items()}
+    ids = list(range(1, CLUSTER_NODES + 1))
+    with serve_cluster(root, ".chip_smoke_sim_", ("--sim",)) as c:
+        d, port = c.dir, c.port
+        nodes = {i: d / "data" / f"node-{i}" / "chunks" for i in ids}
+        warm = np.random.default_rng(SEED + 2).integers(
+            0, 256, size=8 * 2**20, dtype=np.uint8).tobytes()
+        _upload(port[1], warm, "warm.bin")   # the chain and the sketch
+        m0 = _metrics(port[1])["frag"]["launches"]
+        up_s, info, disk = {}, {}, {}
+        for g in (1, 2):
+            t0 = time.perf_counter()
+            info[g] = _upload(port[1], iter(blocks[g]), f"gen{g}.bin",
+                              chunked=True)
+            up_s[g] = time.perf_counter() - t0
+            disk[g] = {i: _disk_bytes(nodes[i]) for i in ids}
+        m1 = _metrics(port[1])
+        launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+        for k in ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+                  "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in node 1 "
+                  "during the sim uploads")
+        check(m1["sim"]["enabled"] and m1["sim"]["device"] == "cuda:0",
+              f"node 1 sketches on {m1['sim'].get('device')}")
+        for g, (b, tbl) in gens.items():
+            fid = hashlib.sha256(b).hexdigest()
+            check(info[g]["fileId"] == fid, f"gen {g} fileId != sha256")
+            st, _, doc = _http(port[1], "GET", f"/manifest?fileId={fid}",
+                               timeout=120)
+            check([(x["offset"], x["length"], x["digest"])
+                   for x in json.loads(doc)["chunks"]] == tbl,
+                  f"gen {g} chunk table != numpy oracle")
+        dl_s = {}
+        for g, (b, _) in gens.items():
+            t0 = time.perf_counter()
+            st, _, got = _http(port[3], "GET", "/download?fileId="
+                               + hashlib.sha256(b).hexdigest())
+            dl_s[g] = time.perf_counter() - t0
+            check(st == 200 and got == b, f"gen {g} from node 3 not identical")
+        sims = {i: _metrics(port[i])["sim"] for i in ids}
+        c.procs[3].send_signal(signal.SIGKILL)
+        c.procs[3].wait(timeout=60)
+        t0 = time.perf_counter()
+        st, _, got = _http(port[5], "GET", "/download?fileId="
+                           + hashlib.sha256(gen2).hexdigest())
+        killed_s = time.perf_counter() - t0
+        check(st == 200 and got == gen2,
+              "gen 2 from node 5 after SIGKILL of node 3 not identical")
+        del got
+        for i in ids:
+            if i != 3:
+                sims[i] = _metrics(port[i])["sim"]
+        for p in c.procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+
+        # after the nodes stop: every chunk of both generations on both of
+        # its owners, through the port's ChunkStore (deltas reconstructed)
+        stores = {i: ChunkStore(nodes[i]) for i in ids}
+        old = {dg for _, _, dg in table}
+        new = {dg: ln for _, ln, dg in table2 if dg not in old}
+        delta_copies = 0
+        for g, (_, tbl) in gens.items():
+            for dg in {dg for _, _, dg in tbl}:
+                for o in static_replica_set(dg, ids, 2):
+                    b = stores[o].get(dg)
+                    check(b is not None and hashlib.sha256(b).hexdigest()
+                          == dg, f"gen {g} chunk {dg[:12]} missing or "
+                          f"corrupt on owner {o}")
+                    if g == 2 and dg in new \
+                            and stores[o].delta_base(dg) is not None:
+                        delta_copies += 1
+    per_node = {}
+    for i in ids:
+        raw2 = sum(ln for dg, ln in new.items()
+                   if i in static_replica_set(dg, ids, 2))
+        per_node[i] = {k: sims[i][k] for k in (
+            "sketched", "deltasWritten", "deltaBytes", "rawBytesDeferred",
+            "deltaReads", "deltaChunks", "encodeAttempts")}
+        per_node[i].update({"disk_after_gen1": disk[1][i],
+                            "disk_after_gen2": disk[2][i],
+                            "gen2_stored_bytes": disk[2][i] - disk[1][i],
+                            "gen2_raw_would_be": raw2})
+    written = sum(v["deltasWritten"] for v in per_node.values())
+    dbytes = sum(v["deltaBytes"] for v in per_node.values())
+    deferred = sum(v["rawBytesDeferred"] for v in per_node.values())
+    check(written > 0, "no node wrote a delta for generation 2")
+    check(dbytes < 0.1 * deferred, f"delta bytes {dbytes} not below 10% of "
+          f"the raw bytes they replace ({deferred})")
+    eligible = [dg for dg, ln in new.items() if ln >= 4096]
+    gib = len(body) / 2**30
+    emit({"phase": "cluster_sim", "nodes": CLUSTER_NODES, "rf": 2,
+          "write_quorum": 2, "durability": "fsync", "sim": True,
+          "bytes": len(body), "edits": len(range(SIM_EDIT_AT, len(body),
+                                                 SIM_EDIT_STRIDE)),
+          "chunks_gen1": len(table), "chunks_gen2": len(table2),
+          "new_chunks_gen2": len(new), "eligible_new_chunks": len(eligible),
+          "eligible_copies": 2 * len(eligible),
+          "delta_copies": delta_copies,
+          "delta_rate": delta_copies / max(1, 2 * len(eligible)),
+          "upload_gen1_s": up_s[1], "upload_gen1_gib_s": gib / up_s[1],
+          "upload_gen2_s": up_s[2], "upload_gen2_gib_s": gib / up_s[2],
+          "transferred_gen2": info[2]["transferredBytes"],
+          "download_gen1_s": dl_s[1], "download_gen2_s": dl_s[2],
+          "download_gen2_after_kill_s": killed_s,
+          "deltas_written": written, "delta_bytes": dbytes,
+          "raw_bytes_deferred": deferred,
+          "delta_frac": dbytes / max(1, deferred), "per_node": per_node,
+          "oracle_equal": True, "file_id_ok": True,
+          "both_generations_identical": True,
+          "both_owners_hold_every_chunk": True, "launches": launches})
+    return launches
+
+
+def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
+                  params, rng, np, ec_body: bytes, ec_table: list,
+                  ec_parity: list) -> dict:
+    """The ``cluster`` phase (module docstring). Returns node 1's kernel
+    launches across the streamed 256 MiB upload and across the EC
+    upload."""
+    from dfs_tpu_torch.meta.manifest import Manifest, ec_stripe_groups
+    from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
+    from dfs_tpu_torch.ring import static_ec_shard_node, static_replica_set
+
+    ids = list(range(1, CLUSTER_NODES + 1))
+    with serve_cluster(root, ".chip_smoke_cluster_") as c:
+        d, http_port, procs, start_s = c.dir, c.port, c.procs, c.start_s
+        # warm-up: the chain's first launches in node 1's process
+        _upload(http_port[1], body[:8 * 2**20], "warm.bin")
+
+        m0 = _metrics(http_port[1])["frag"]["launches"]
+        t0 = time.perf_counter()
+        info = _upload(http_port[1], iter(blocks), "cluster.bin",
+                       chunked=True)
+        upload_s = time.perf_counter() - t0
+        m1 = _metrics(http_port[1])
+        # where the upload's time went, node by node: the CAS tier's
+        # busy and queued seconds and its fsyncs; node 1's stalls and
+        # phase latencies
+        where = {}
+        for i in ids:
+            mi = m1 if i == 1 else _metrics(http_port[i])
+            where[i] = {"fsyncs": mi["durability"]["fsyncs"],
+                        "chunks_stored": mi.get("chunks_stored", 0),
+                        "cas": mi["ingest"]["cas"],
+                        "latency": {
+                            k: v for k, v in mi["latency"].items()
+                            if k.startswith(("upload.",
+                                             "peer.store_chunks",
+                                             "peer.has_chunks"))}}
+        where[1]["stalls"] = m1["ingest"]["stalls"]
+        launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+        for k in ("strip_chunk_states", "repack_lanes",
+                  "bswap_transpose", "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in "
+                  "node 1 during the cluster upload")
+        check(m1["frag"]["device"].startswith("cuda:"),
+              f"node 1 chunks on {m1['frag']['device']}")
+        fid = hashlib.sha256(body).hexdigest()
+        check(info["fileId"] == fid, "cluster fileId != sha256(body)")
+        st, _, doc = _http(http_port[1], "GET",
+                           f"/manifest?fileId={fid}", timeout=120)
+        table = [(c["offset"], c["length"], c["digest"])
+                 for c in json.loads(doc)["chunks"]]
+        check(table == oracle, "cluster chunk table != numpy oracle")
+
+        # the replication guarantee, read back: each chunk on both of
+        # its owners, hashing to its digest
+        for _, _, dg in table:
+            for o in static_replica_set(dg, ids, 2):
+                p = d / "data" / f"node-{o}" / "chunks" / dg[:2] / dg
+                check(p.is_file() and hashlib.sha256(
+                    p.read_bytes()).hexdigest() == dg,
+                    f"chunk {dg[:12]} missing or corrupt on owner {o}")
+
+        t0 = time.perf_counter()
+        st, _, got = _http(http_port[3], "GET", f"/download?fileId={fid}")
+        download_s = time.perf_counter() - t0
+        check(st == 200 and got == body,
+              "download from node 3 not identical")
+        del got
+        lo = len(body) // 3 + 12_345
+        hi = min(len(body) - 1, lo + 999_999)
+        st, h, part = _http(http_port[4], "GET",
+                            f"/download?fileId={fid}",
+                            headers={"Range": f"bytes={lo}-{hi}"})
+        check(st == 206 and part == body[lo:hi + 1]
+              and h.get("Content-Range")
+              == f"bytes {lo}-{hi}/{len(body)}", "range read not exact")
+        again = _upload(http_port[2], body, "cluster-again.bin")
+        check(again["transferredBytes"] == 0,
+              f"re-upload moved {again['transferredBytes']} B")
+
+        # two uploads at once to node 1: two walks on the card, one
+        # plain body (the whole-body walk), one chunked (the stream)
+        two = [rng.integers(0, 256, size=CONCURRENT_BYTES,
+                            dtype=np.uint8).tobytes() for _ in range(2)]
+        res: dict[int, object] = {}
+
+        def up(k: int) -> None:
+            try:
+                b = two[k]
+                res[k] = _upload(
+                    http_port[1], b if k == 0 else iter(
+                        [b[i:i + BLOCK_BYTES]
+                         for i in range(0, len(b), BLOCK_BYTES)]),
+                    f"concurrent{k}.bin", chunked=k == 1)
+            except BaseException as e:  # noqa: BLE001 — checked below
+                res[k] = e
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=up, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        concurrent_s = time.perf_counter() - t0
+        for k in (0, 1):
+            check(isinstance(res[k], dict), f"concurrent upload {k} "
+                  f"failed: {res[k]}")
+            kid = res[k]["fileId"]
+            check(kid == hashlib.sha256(two[k]).hexdigest(),
+                  f"concurrent upload {k} fileId != sha256")
+            st, _, doc = _http(http_port[1], "GET",
+                               f"/manifest?fileId={kid}", timeout=120)
+            check([(c["offset"], c["length"], c["digest"])
+                   for c in json.loads(doc)["chunks"]]
+                  == chunk_file_anchored_np(
+                      np.frombuffer(two[k], np.uint8), params),
+                  f"concurrent upload {k} chunk table != numpy oracle")
+        fsyncs = _metrics(http_port[1])["durability"]["fsyncs"]
+
+        # erasure coding: the EC body whole to node 1 at k=3, chunked
+        # and encoded on the card; every shard once, on its holder
+        e0 = _metrics(http_port[1])["frag"]
+        t0 = time.perf_counter()
+        ec_info = _upload(http_port[1], ec_body, "ec.bin", ec=EC_K)
+        ec_upload_s = time.perf_counter() - t0
+        e1 = _metrics(http_port[1])["frag"]
+        ec_launches = {k: e1["launches"][k] - e0["launches"][k]
+                       for k in e0["launches"]}
+        for k in ("strip_chunk_states", "repack_lanes",
+                  "bswap_transpose", "select_walk"):
+            check(ec_launches[k] > 0, f"kernel {k} never launched in "
+                  "node 1 during the EC upload")
+        enc = e1["ecEncode"]
+        check(enc["device"] == "cuda:0"
+              and enc["calls"] == e0["ecEncode"]["calls"] + 1,
+              f"node 1's EC encode ran on {enc['device']} "
+              f"({enc['calls']} calls)")
+        ec_fid = hashlib.sha256(ec_body).hexdigest()
+        check(ec_info["fileId"] == ec_fid, "EC fileId != sha256(body)")
+        st, _, doc = _http(http_port[1], "GET",
+                           f"/manifest?fileId={ec_fid}", timeout=120)
+        ecm = Manifest.from_json(doc)
+        check([(c.offset, c.length, c.digest) for c in ecm.chunks]
+              == ec_table, "EC chunk table != numpy oracle")
+        check(ecm.ec is not None and ecm.ec.k == EC_K
+              and len(ecm.ec.stripes) == len(ec_parity),
+              "EC manifest layout")
+        check(all(st_.p == hashlib.sha256(p.tobytes()).hexdigest()
+                  and st_.q == hashlib.sha256(q.tobytes()).hexdigest()
+                  for st_, (p, q) in zip(ecm.ec.stripes, ec_parity)),
+              "EC P/Q digests != sha256 of encode_pq_np")
+        check(ec_info["ecParityBytes"]
+              == sum(2 * st_.shard_len for st_ in ecm.ec.stripes),
+              "ecParityBytes")
+        shards = 0
+        for s_, (st_, grp) in enumerate(zip(
+                ecm.ec.stripes, ec_stripe_groups(ecm.chunks, EC_K))):
+            digests = [c.digest for c in grp] + [st_.p, st_.q]
+            for j, dg in enumerate(digests):
+                o = static_ec_shard_node(ec_fid, s_, j, ids)
+                p = d / "data" / f"node-{o}" / "chunks" / dg[:2] / dg
+                check(p.is_file() and hashlib.sha256(
+                    p.read_bytes()).hexdigest() == dg,
+                    f"EC shard {dg[:12]} missing or corrupt on its "
+                    f"holder {o}")
+                shards += 1
+
+        # node loss: SIGKILL an owner, read from a survivor that asks
+        # node 3 first for the chunks node 3 and node 4 own
+        procs[3].send_signal(signal.SIGKILL)
+        procs[3].wait(timeout=60)
+        t0 = time.perf_counter()
+        st, _, got = _http(http_port[5], "GET", f"/download?fileId={fid}")
+        degraded_s = time.perf_counter() - t0
+        check(st == 200 and got == body,
+              "download after SIGKILL of node 3 not identical")
+        del got
+
+        # a second node lost: every EC stripe has lost two shards; node
+        # 1 reads the EC file whole by decode
+        procs[4].send_signal(signal.SIGKILL)
+        procs[4].wait(timeout=60)
+        dec0 = _metrics(http_port[1]).get("ec_decodes", 0)
+        t0 = time.perf_counter()
+        st, _, got = _http(http_port[1], "GET",
+                           f"/download?fileId={ec_fid}")
+        ec_two_down_s = time.perf_counter() - t0
+        check(st == 200 and got == ec_body,
+              "EC download with nodes 3 and 4 killed not identical")
+        del got
+        ec_decodes = _metrics(http_port[1]).get("ec_decodes", 0) - dec0
+        check(ec_decodes > 0, "EC download with two nodes killed "
+              "decoded nothing")
     gib = len(body) / 2**30
     emit({"phase": "cluster", "nodes": CLUSTER_NODES, "rf": 2,
           "write_quorum": 2, "durability": "fsync", "bytes": len(body),
@@ -975,9 +1209,12 @@ def main() -> int:
     ec_table = A.chunk_file_anchored_np(ec_body, params)
     ec_body = ec_body.tobytes()
     ec_parity = ec_codec_phase(ec_body, ec_table, dev, np)
+    sim_sketch_phase(ec_body, ec_table, dev, np)
     launches["cluster"], launches["cluster_ec"] = cluster_phase(
         root, body, blocks, oracle, params, rng, np, ec_body, ec_table,
         ec_parity)
+    launches["cluster_sim"] = cluster_sim_phase(root, ec_body, ec_table,
+                                                params, np)
 
     # ---- the multi-device anchored path ----
     n_cards = torch.cuda.device_count()

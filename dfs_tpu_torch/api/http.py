@@ -3,7 +3,8 @@ for the routes of the default configuration:
 
     GET    /status               200 "OK"
     GET    /files                JSON file list
-    GET    /metrics              JSON counters and sections
+    GET    /metrics              JSON counters and sections (``sim``:
+                                 ``{"enabled": false}`` without the plane)
     GET    /manifest?fileId=     the manifest JSON
     POST   /upload?name=         201 JSON {fileId, ...}; Content-Length or
                                  chunked; 411 without either, 413 too big;
@@ -13,7 +14,8 @@ for the routes of the default configuration:
                                  Range gives 206 (416 past the end)
     DELETE /files?fileId=        200 / 404
     POST   /repair               {"repaired": N, "underReplicated": M}
-    POST   /scrub                {"scanned": N, "corrupt": M}
+    POST   /scrub                {"scanned": N, "corrupt": M,
+                                  "deltaMissingBase": K}
 
 Every other route answers 404: dfs_tpu's ``/metrics?format=prom``,
 ``/metrics/history``, ``/census``, ``/trace``, ``/events``, ``/chaos``,

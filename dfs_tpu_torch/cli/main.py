@@ -5,6 +5,7 @@ subcommands talk HTTP to one.
         --base-port 7101 --base-internal-port 7201 --data-root data
     python -m dfs_tpu_torch.cli.main --port 7101 upload f.bin
     python -m dfs_tpu_torch.cli.main --port 7101 upload --ec 3 f.bin
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 --sim ...   # deltas
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
 non-zero unless ``--device cpu`` asks for the plain versions. Subcommands:
@@ -21,7 +22,8 @@ from pathlib import Path
 
 from dfs_tpu_torch.cli.client import NodeClient
 from dfs_tpu_torch.config import (CDCParams, ClusterConfig, DurabilityConfig,
-                                  FragmenterConfig, IngestConfig, NodeConfig)
+                                  FragmenterConfig, IngestConfig, NodeConfig,
+                                  SimConfig)
 
 
 def _client(args) -> NodeClient:
@@ -62,7 +64,18 @@ def node_config(args) -> NodeConfig:
                             slice_inflight=args.replicate_inflight,
                             cas_io_threads=args.cas_io_threads),
         durability=DurabilityConfig(mode=args.durability),
-        device=None if args.device == "cuda" else args.device)
+        device=None if args.device == "cuda" else args.device,
+        sim=SimConfig(
+            enabled=args.sim,
+            sketch_size=args.sim_sketch_size,
+            bands=args.sim_bands,
+            shingle_bytes=args.sim_shingle_bytes,
+            max_candidates=args.sim_max_candidates,
+            min_chunk_bytes=args.sim_min_chunk_bytes,
+            min_savings_frac=args.sim_min_savings_frac,
+            max_delta_depth=args.sim_max_delta_depth,
+            devices=args.sim_devices,
+            rematerialize_reads=args.sim_rematerialize_reads))
 
 
 def cmd_serve(args) -> int:
@@ -243,6 +256,33 @@ def build_parser() -> argparse.ArgumentParser:
                        choices=["fsync", "none"],
                        help="fsync every chunk and the manifest before the "
                             "ack (default), or not")
+    serve.add_argument("--sim", action="store_true",
+                       help="enable the similarity plane: min-hash sketches "
+                            "of stored chunks on the node's device, a band "
+                            "index, and chunks stored as deltas against "
+                            "similar resident bases, transparent on read")
+    serve.add_argument("--sim-sketch-size", type=int, default=16,
+                       help="min-hash lanes per sketch")
+    serve.add_argument("--sim-bands", type=int, default=4,
+                       help="LSH bands per sketch (must divide the sketch "
+                            "size)")
+    serve.add_argument("--sim-shingle-bytes", type=int, default=8,
+                       help="bytes per rolling shingle")
+    serve.add_argument("--sim-max-candidates", type=int, default=8,
+                       help="base candidates tried per new chunk")
+    serve.add_argument("--sim-min-chunk-bytes", type=int, default=4096,
+                       help="chunks below this are never sketched")
+    serve.add_argument("--sim-min-savings-frac", type=float, default=0.5,
+                       help="store a delta only at or below this fraction "
+                            "of the raw size")
+    serve.add_argument("--sim-max-delta-depth", type=int, default=3,
+                       help="longest base chain a read may walk")
+    serve.add_argument("--sim-devices", type=int, default=0,
+                       help="device slots sketch batches are sharded over "
+                            "(0/1 = the node's device)")
+    serve.add_argument("--sim-rematerialize-reads", type=int, default=0,
+                       help="reads after which a delta is stored raw again "
+                            "(0 = never)")
     serve.set_defaults(fn=cmd_serve)
 
     sub.add_parser("status").set_defaults(fn=cmd_status)

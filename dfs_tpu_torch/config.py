@@ -8,9 +8,11 @@
 - :class:`FragmenterConfig` — how the chunk-and-hash chain runs.
 - :class:`IngestConfig` — the pipelined write path's bounds.
 - :class:`DurabilityConfig` — fsync before the ack, or not.
+- :class:`SimConfig` — the similarity plane (min-hash sketches, band
+  index, delta-encoded chunks), default off.
 - :class:`NodeConfig` — one node. It holds only the fields the port's
-  runtime honours; dfs_tpu's default-off planes (serve tier, index, tier,
-  sim, chaos, elastic ring, census history, journal) are absent, not
+  runtime honours; dfs_tpu's other default-off planes (serve tier, index,
+  tier, chaos, elastic ring, census history, journal) are absent, not
   accepted and ignored. ``device`` is the port's own: ``None`` means the
   CUDA card (raising without one), ``"cpu"`` the plain versions.
 """
@@ -178,6 +180,70 @@ class DurabilityConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SimConfig:
+    """Similarity-compression plane (:mod:`dfs_tpu_torch.sim`): batched
+    min-hash sketches over stored chunks, a banded similarity lookup, and
+    delta-encoded chunk storage in the CAS. A copy of dfs_tpu's.
+
+    Everything defaults off: ``SimConfig()`` builds no sketcher, no band
+    index and no delta tree, and ``ChunkStore`` writes raw chunk files
+    only. ``enabled=True`` builds the :class:`~dfs_tpu_torch.sim.SimPlane`:
+
+    - every locally stored chunk of at least ``min_chunk_bytes`` is
+      sketched (``sketch_size`` min-hash lanes over ``shingle_bytes``-byte
+      shingles) on the node's device, over ``devices`` slots when > 1;
+    - the sketch's ``bands`` band keys feed a crash-safe append-only band
+      log; a new chunk's bands look up at most ``max_candidates`` resident
+      bases;
+    - a chunk whose best candidate delta-encodes to at most
+      ``min_savings_frac`` of its raw size is stored as ``base-digest +
+      patch`` (read: resolve the base, apply, sha256-verify), chains
+      capped at ``max_delta_depth`` and re-materialized raw after
+      ``rematerialize_reads`` reads.
+    """
+
+    enabled: bool = False
+    sketch_size: int = 16           # min-hash lanes per sketch (uint32
+                                    # each); bands must divide it
+    bands: int = 4                  # LSH bands per sketch, each one
+                                    # lookup key
+    shingle_bytes: int = 8          # bytes per rolling shingle feature
+    max_candidates: int = 8         # resident base candidates consulted
+                                    # per new chunk
+    min_chunk_bytes: int = 4096     # smaller chunks are never sketched
+                                    # or delta-encoded
+    min_savings_frac: float = 0.5   # store a delta only if the patch is
+                                    # at most this fraction of the raw size
+    max_delta_depth: int = 3        # longest base chain a reconstruct
+                                    # may walk
+    devices: int = 0                # sketch batches over this many device
+                                    # slots (0/1 = the node's device)
+    rematerialize_reads: int = 0    # delta reads before the chunk is
+                                    # re-materialized raw; 0 = never
+
+    def __post_init__(self) -> None:
+        if self.sketch_size < 1:
+            raise ValueError("sketch_size must be >= 1")
+        if not 1 <= self.bands <= self.sketch_size \
+                or self.sketch_size % self.bands:
+            raise ValueError("bands must divide sketch_size")
+        if not 1 <= self.shingle_bytes <= 64:
+            raise ValueError("shingle_bytes must be within [1, 64]")
+        if self.max_candidates < 1:
+            raise ValueError("max_candidates must be >= 1")
+        if self.min_chunk_bytes < 0:
+            raise ValueError("min_chunk_bytes must be >= 0")
+        if not 0.0 < self.min_savings_frac <= 1.0:
+            raise ValueError("min_savings_frac must be within (0, 1]")
+        if self.max_delta_depth < 1:
+            raise ValueError("max_delta_depth must be >= 1")
+        if self.devices < 0:
+            raise ValueError("devices must be >= 0")
+        if self.rematerialize_reads < 0:
+            raise ValueError("rematerialize_reads must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class NodeConfig:
     """One node of a port cluster (module docstring)."""
 
@@ -200,6 +266,9 @@ class NodeConfig:
     durability: DurabilityConfig = dataclasses.field(
         default_factory=DurabilityConfig)
     device: str | None = None       # None = the CUDA card; "cpu" = plain
+    # similarity plane: the default SimConfig() builds no sketcher, no
+    # band index and no delta tree
+    sim: SimConfig = dataclasses.field(default_factory=SimConfig)
 
     @property
     def self_addr(self) -> PeerAddr:

@@ -18,8 +18,11 @@ named by their sha256) and ``<data_root>/node-<id>/manifests/<fileId>.json``
 and the other way round. An erasure-coded file's data shards and P/Q
 parity are plain chunks of that store, named by their digests, and its
 manifest carries the stripe layout (``ec``), so EC files cross as they
-are. Chunks stored as similarity deltas (``deltas/``) are outside this
-port's slice.
+are. Chunks stored as similarity deltas
+(``<data_root>/node-<id>/chunks/deltas/<d[:2]>/<digest>``, DSD1 blobs) and
+the band log (``<data_root>/node-<id>/sim/bands.log``) have one format in
+both packages: either package's ``ChunkStore`` reconstructs the other's
+deltas and honours their base pins, with or without a sim plane attached.
 """
 
 from __future__ import annotations

@@ -24,9 +24,15 @@ regenerates this node's lost EC shards by decode, moves handoff copies
 home and converges deletes and creates by anti-entropy; scrub re-hashes
 the local store.
 
+With ``NodeConfig.sim.enabled`` (``serve --sim``) the similarity plane
+(:mod:`dfs_tpu_torch.sim`) sketches every new stored chunk on the node's
+device and the CAS may store it as a delta against a similar resident
+base; a delta's base is pinned against ``delete_chunks``, relocation and
+GC, and scrub queues a missing base for repair.
+
 What dfs_tpu builds only when configured — the serving tier, the index,
-tiering, similarity, chaos, the elastic ring, the census history, the
-journal, tracing, deadlines, hedging — is not ported.
+tiering, chaos, the elastic ring, the census history, the journal,
+tracing, deadlines, hedging — is not ported.
 """
 
 from __future__ import annotations
@@ -193,6 +199,15 @@ class StorageNodeServer:
                                          frag=cfg.frag, device=cfg.device)
         self.store = NodeStore(cfg.data_root, cfg.node_id,
                                fsync=cfg.durability.fsync)
+        # the similarity plane: None unless SimConfig.enabled, so the
+        # default node's CAS paths stay as they are
+        self.sim = None
+        if cfg.sim.enabled:
+            from dfs_tpu_torch.sim import SimPlane
+
+            self.sim = SimPlane(cfg.sim, self.store.root / "sim",
+                                device=self._ec_device())
+            self.store.chunks.sim = self.sim
         self.counters = Counters()
         self.latency = LatencyRecorder()
         self.ingest_stalls = Stopwatches()
@@ -241,6 +256,9 @@ class StorageNodeServer:
         self.health.stop()
         self.client.close()
         self.cas.close()
+        if self.sim is not None:
+            # band-log close + dir fsync, off the loop
+            await asyncio.to_thread(self.sim.close)
         # peers keep pooled connections into this node open; close them
         # or wait_closed() waits on a peer that has not spoken lately
         for conn in list(self._inbound):
@@ -300,15 +318,14 @@ class StorageNodeServer:
 
             def store_all():
                 echoed = sha256_many_hex([b for _, b in pairs])
-                stored = dedup = nbytes = 0
-                for (claimed, data), actual in zip(pairs, echoed):
-                    if claimed == actual:
-                        if self.store.chunks.put(actual, data, verify=False):
-                            stored += 1
-                            nbytes += len(data)
-                        else:
-                            dedup += 1
-                return echoed, stored, dedup, nbytes
+                good = [(actual, data) for (claimed, data), actual
+                        in zip(pairs, echoed) if claimed == actual]
+                # one batch: with the sim plane its new chunks are
+                # sketched in one call on the node's device
+                done = self.store.chunks.put_batch(good, verify=False)
+                stored = sum(done)
+                nbytes = sum(len(b) for (_, b), ok in zip(good, done) if ok)
+                return echoed, stored, len(good) - stored, nbytes
 
             echoed, stored, dedup, nbytes = await asyncio.to_thread(store_all)
             if stored:
@@ -376,6 +393,10 @@ class StorageNodeServer:
                         refused.append(d)
                     elif self.store.chunks.delete(d):
                         removed.append(d)
+                    elif self.store.chunks.delta_pinned(d):
+                        # a delta base: resident deltas reconstruct
+                        # through it, so it is refused like an owned chunk
+                        refused.append(d)
                 return removed, refused
 
             removed, refused = await asyncio.to_thread(reclaim)
@@ -1453,7 +1474,30 @@ class StorageNodeServer:
         snap["durability"] = self.durability_stats()
         snap["retryBudget"] = self.client.retry_budget.stats()
         snap["ring"] = self.ring.stats()
+        snap["sim"] = self.sim_stats()
         return snap
+
+    def sim_stats(self) -> dict:
+        """``/metrics`` ``sim``: ``{"enabled": False}`` without the plane;
+        with it the SimConfig fields, the plane's counters and the
+        delta-stored chunk count."""
+        s = self.cfg.sim
+        if self.sim is None:
+            return {"enabled": False}
+        out = {"enabled": s.enabled,
+               "sketchSize": s.sketch_size,
+               "bands": s.bands,
+               "shingleBytes": s.shingle_bytes,
+               "maxCandidates": s.max_candidates,
+               "minChunkBytes": s.min_chunk_bytes,
+               "minSavingsFrac": s.min_savings_frac,
+               "maxDeltaDepth": s.max_delta_depth,
+               "devices": s.devices,
+               "rematerializeReads": s.rematerialize_reads}
+        out.update(self.sim.stats())
+        out["deltaChunks"] = self.store.chunks.delta_count()
+        out["device"] = str(self.sim.sketcher.device)
+        return out
 
     # ------------------------------------------------------------------ #
     # listing, delete, anti-entropy, repair, scrub
@@ -1718,27 +1762,63 @@ class StorageNodeServer:
 
     async def scrub_once(self) -> dict:
         """Re-hash every local chunk; delete the ones that no longer hash
-        to their digest and queue them for repair."""
-        scanned = corrupt = 0
+        to their digest and queue them for repair. A delta whose base
+        chain is broken queues the first unresolvable base instead; a
+        corrupt base takes its dependent deltas with it."""
+        scanned = corrupt = delta_missing_base = 0
         ch = self.store.chunks
         digests = await asyncio.to_thread(ch.digests)
         for i in range(0, len(digests), 64):
-            def read_and_hash(ds=digests[i:i + 64]) -> list[tuple[str, bool]]:
+            def read_and_hash(ds=digests[i:i + 64]) -> list[tuple[str, str]]:
+                # delta residency before the read tells an absent read
+                # apart: a delta get() dropped as corrupt looks like a raw
+                # chunk deleted mid-scrub otherwise
+                pre = {d: ch.delta_base(d) for d in ds} \
+                    if ch.delta_count() else {}
                 blobs = [(d, ch.get(d)) for d in ds]
                 present = [(d, b) for d, b in blobs if b is not None]
                 hexes = sha256_many_hex([b for _, b in present])
-                return [(d, h == d) for (d, _), h in zip(present, hexes)]
+                okmap = {d: h == d for (d, _), h in zip(present, hexes)}
+                out = []
+                for d, b in blobs:
+                    if b is not None:
+                        out.append((d, "ok" if okmap[d] else "corrupt"))
+                    elif pre.get(d):
+                        if ch.delta_base(d):
+                            cur = d     # the first unresolvable link
+                            while (nb := ch.delta_base(cur)) is not None:
+                                cur = nb
+                            out.append((d, f"base:{cur}"))
+                        else:
+                            out.append((d, "corrupt"))   # get() dropped it
+                return out
 
-            for d, ok in await asyncio.to_thread(read_and_hash):
+            for d, status in await asyncio.to_thread(read_and_hash):
                 scanned += 1
-                if ok:
+                if status == "ok":
+                    continue
+                if status.startswith("base:"):
+                    delta_missing_base += 1
+                    self.under_replicated.add(status[5:])
+                    self.log.warning("scrub: delta %s missing base %s — "
+                                     "queued for repair", d[:12],
+                                     status[5:17])
                     continue
                 corrupt += 1
-                ch.delete(d)
+                if not ch.delete(d) and ch.delta_pinned(d):
+                    # a corrupt pinned base: its dependents reconstruct
+                    # through the rotten bytes, so they go too (deepest
+                    # first, each delete releasing the next pin)
+                    for dep in ch.delta_dependents(d):
+                        if ch.delete(dep):
+                            self.under_replicated.add(dep)
+                    ch.delete(d)
                 self.under_replicated.add(d)
                 self.log.warning("scrub: corrupt chunk %s deleted", d[:12])
         self.counters.inc("scrubs")
         if corrupt:
             self.counters.inc("scrub_corrupt", corrupt)
-        return {"scanned": scanned, "corrupt": corrupt}
-
+        if delta_missing_base:
+            self.counters.inc("scrub_delta_missing_base", delta_missing_base)
+        return {"scanned": scanned, "corrupt": corrupt,
+                "deltaMissingBase": delta_missing_base}

@@ -26,12 +26,15 @@ path; the JAX steps' ``psum`` of the chunk count is a sum over the slots.
   the slots, kernel 3, plain candidates and selection, kernel 5.
 - **The EC step** (:func:`make_ec_step`): erasure stripes sharded over the
   slots, P+Q by ``ops.ec.pq_horner`` (plain torch, as dfs_tpu's was XLA).
+- **The sketch step** (:func:`make_sketch_step`): chunk rows sharded over
+  the slots, min-hash lanes by ``sim.sketch.sketch_rows`` (plain torch, as
+  dfs_tpu's was XLA).
 
 The parity checks hold the steps to the NumPy oracles on a toy geometry
 (:func:`anchored_sharded_parity_check`, :func:`aligned_sharded_parity_check`)
 and at production geometry (:func:`anchored_sharded_production_check`).
-The rolling (``make_sharded_step``, ``make_sharded_bitmap_step``) and
-sketch steps are not ported yet.
+The rolling steps (``make_sharded_step``, ``make_sharded_bitmap_step``)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from dfs_tpu_torch.ops.repack import repack_lanes
 from dfs_tpu_torch.ops.select import NO_ANCHOR
 from dfs_tpu_torch.ops.sha256_strip import strip_states
 from dfs_tpu_torch.parallel.mesh import DeviceMesh
+from dfs_tpu_torch.sim.sketch import lane_tensor, sketch_rows
 
 # ---------------------------------------------------------------------------
 # slots: placement, per-slot execution, gather
@@ -225,6 +229,59 @@ def shard_ec_inputs(mesh: DeviceMesh, stripes):
     """EC-step input [NS, k, w] u32 with the stripe axis split over the
     slots."""
     return _split(mesh, stripes)
+
+
+# ---------------------------------------------------------------------------
+# min-hash sketches, sharded: chunk rows are independent
+# ---------------------------------------------------------------------------
+
+def make_sketch_step(mesh: DeviceMesh, lanes_a, lanes_b, shingle_bytes: int):
+    """Multi-device min-hash sketch step of the similarity plane: chunk
+    rows shard over every slot with no exchange (a chunk's shingles never
+    cross its row); each slot runs :func:`sketch_rows` over its rows. The
+    lane constants are put on each slot's device once, here.
+
+    step(blocks — per-slot [G/n, W] u8, lens — per-slot [G/n] int) ->
+    sketches [G, n_lanes] u32"""
+    lanes = {d: (lane_tensor(lanes_a, d), lane_tensor(lanes_b, d))
+             for d in dict.fromkeys(mesh.flat)}
+    devs = mesh.flat
+
+    def local_step(slot, blocks, lens):
+        a, b = lanes[devs[slot]]
+        return sketch_rows(blocks, lens, a, b, shingle_bytes)
+
+    def step(blocks, lens):
+        return _gather(mesh, _run_slots(mesh, local_step,
+                                        list(zip(blocks, lens))), 0)
+
+    return step
+
+
+def shard_sketch_inputs(mesh: DeviceMesh, blocks, lens):
+    """Sketch-step inputs [G, W] u8 and [G] (host arrays or tensors, dtypes
+    kept) with the row axis split over the slots."""
+    return (_split(mesh, torch.as_tensor(blocks)),
+            _split(mesh, torch.as_tensor(lens)))
+
+
+def sketch_rows_fn(mesh: DeviceMesh, lanes_a, lanes_b, shingle_bytes: int):
+    """``fn(blocks [R, W] u8, lens [R]) -> [R, n_lanes] u32`` over the
+    mesh: the rows padded with empty rows to a multiple of the slots, then
+    :func:`make_sketch_step` (what ``SimSketcher`` runs at ``devices`` >
+    1)."""
+    step = make_sketch_step(mesh, lanes_a, lanes_b, shingle_bytes)
+
+    def fn(blocks, lens):
+        n = blocks.shape[0]
+        pad = -n % mesh.size
+        if pad:
+            blocks = torch.cat([blocks, blocks.new_zeros(
+                (pad, blocks.shape[1]))])
+            lens = torch.cat([lens, lens.new_zeros(pad)])
+        return step(*shard_sketch_inputs(mesh, blocks, lens))[:n]
+
+    return fn
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,13 @@ timestamped tombstones beside them (``manifests/<fileId>.tomb``, JSON
 This is byte for byte the layout ``dfs_tpu``'s store writes, so either
 package opens a data root the other wrote, tombstones included.
 
+With the similarity plane (:mod:`dfs_tpu_torch.sim`) attached, a chunk may
+be stored as a DSD1 delta against a resident similar base under
+``chunks/deltas/<d[:2]>/<digest>`` (dfs_tpu's tree) and is reconstructed
+and sha256-verified on read. A resident delta pins its base: ``delete``
+refuses it and GC keeps it. The delta tree is consulted only once it
+exists on disk, so a store without the plane writes no ``deltas/``.
+
 ``fsync=True`` makes every put crash-durable before it returns: the
 payload file is fsync'd before the link makes it visible and the directory
 after it; manifest saves and tombstone writes are fsync'd the same way,
@@ -16,6 +23,7 @@ and the manifest save is what acknowledges an upload.
 
 from __future__ import annotations
 
+import contextlib
 import errno
 import itertools
 import json
@@ -26,6 +34,10 @@ import time
 from pathlib import Path
 
 from dfs_tpu_torch.meta.manifest import Manifest
+# the delta codec is import-light (numpy + stdlib): safe at module level
+from dfs_tpu_torch.sim.delta import HEADER_BYTES as _DELTA_HEADER_BYTES
+from dfs_tpu_torch.sim.delta import apply_delta as _apply_delta
+from dfs_tpu_torch.sim.delta import parse_header as _parse_delta_header
 from dfs_tpu_torch.utils.hashing import is_hex_digest, sha256_hex
 
 _TMP_SWEEP_AGE_S = 3600.0
@@ -80,8 +92,12 @@ def _sweep_tmp_files(dirs, max_age_s: float = _TMP_SWEEP_AGE_S) -> int:
 
 
 class ChunkStore:
-    """Flat content-addressed blob store. ``count()`` and the byte gauge
-    are primed by one scan, then kept by put/delete."""
+    """Flat content-addressed blob store. ``count()`` is primed by one
+    scan, then kept by put/delete.
+
+    ``sim`` is the similarity seam (a :class:`dfs_tpu_torch.sim.SimPlane`
+    or None): when set, an eligible new chunk may be stored as a delta
+    against a resident similar base, and ``get`` reconstructs it."""
 
     def __init__(self, root: Path, fsync: bool = False) -> None:
         self.root = Path(root)
@@ -93,30 +109,177 @@ class ChunkStore:
         self._lock = threading.Lock()
         self._dirs: set[str] = set()
         self._tmp_seq = itertools.count()
+        self.sim = None
+        self._deltas_root = f"{self._root_str}/deltas"
+        # orders delete()'s pin check + unlink against _put_delta's link +
+        # pin registration: a racing delta write either sees its base
+        # survive or rolls itself back, never a broken chain
+        self._link_mu = threading.Lock()
+        self._delta_mu = threading.Lock()  # guards the two maps below
+        self._delta_base: dict[str, str] = {}   # delta digest -> base
+        self._delta_refs: dict[str, int] = {}   # base -> live dependents
+        self._have_deltas = os.path.isdir(self._deltas_root)
+        if self._have_deltas:
+            self._prime_delta_maps()
 
     def _path_str(self, digest: str) -> str:
         if not is_hex_digest(digest):
             raise ValueError(f"bad digest {digest!r}")
         return f"{self._root_str}/{digest[:2]}/{digest}"
 
+    # -- delta tree (similarity plane) ---------------------------------
+    #
+    # A delta-stored chunk lives at deltas/<d[:2]>/<digest> inside the
+    # store root; the raw scans skip it (digests() keeps 64-hex names only,
+    # and the 2-hex fan-out under deltas/ is one level deeper). The raw
+    # file always wins when both exist (a crash mid-re-materialize).
+
+    def _delta_path_str(self, digest: str) -> str:
+        if not is_hex_digest(digest):
+            raise ValueError(f"bad digest {digest!r}")
+        return f"{self._deltas_root}/{digest[:2]}/{digest}"
+
+    def _deltas_possible(self) -> bool:
+        """False short-circuits every delta path: a store without deltas
+        pays one uncontended lock and no extra stat."""
+        with self._delta_mu:
+            return self._have_deltas
+
+    def _prime_delta_maps(self) -> None:
+        """Rebuild the delta dependency maps from the on-disk headers (one
+        41-byte read per delta) at open: the delta files are the log of
+        the pins. A delta whose raw twin exists is a crash between
+        re-materialize and unlink: the raw copy wins, the unlink is
+        completed here."""
+        droot = Path(self._deltas_root)
+        for sub in sorted(droot.iterdir()) if droot.is_dir() else []:
+            if not sub.is_dir():
+                continue
+            for p in sub.iterdir():
+                d = p.name
+                if len(d) != 64 or not set(d) <= _HEX:
+                    continue
+                if os.path.isfile(self._path_str(d)):
+                    try:
+                        p.unlink()
+                    except OSError:
+                        pass      # the raw file serves either way
+                    continue
+                try:
+                    with open(p, "rb") as f:
+                        base_d, _ = _parse_delta_header(
+                            f.read(_DELTA_HEADER_BYTES))
+                except (OSError, ValueError):
+                    continue      # the read path drops a damaged delta
+                self._delta_base[d] = base_d
+                self._delta_refs[base_d] = \
+                    self._delta_refs.get(base_d, 0) + 1
+
+    def delta_base(self, digest: str) -> str | None:
+        """Base digest of a delta-stored chunk, None when raw/absent."""
+        with self._delta_mu:
+            return self._delta_base.get(digest)
+
+    def delta_pinned(self, digest: str) -> bool:
+        """True when resident deltas reconstruct through ``digest``:
+        delete() and GC must refuse it."""
+        with self._delta_mu:
+            return self._delta_refs.get(digest, 0) > 0
+
+    def delta_count(self) -> int:
+        with self._delta_mu:
+            return len(self._delta_base)
+
+    def delta_dependents(self, digest: str) -> list[str]:
+        """Resident deltas whose base chain passes through ``digest``,
+        deepest first, so deleting in order releases each pin before its
+        holder is attempted."""
+        with self._delta_mu:
+            children: dict[str, list[str]] = {}
+            for k, v in self._delta_base.items():
+                children.setdefault(v, []).append(k)
+        out: list[str] = []
+        frontier = [digest]
+        seen = {digest}
+        while frontier:
+            nxt = []
+            for b in frontier:
+                for k in children.get(b, ()):
+                    if k not in seen:
+                        seen.add(k)
+                        out.append(k)
+                        nxt.append(k)
+            frontier = nxt
+        out.reverse()
+        return out
+
+    def delta_depth(self, digest: str) -> int:
+        """Chain length above ``digest``: 0 = raw-resident, N = a delta N
+        hops from raw, -1 = absent or broken chain."""
+        depth = 0
+        cur = digest
+        for _ in range(64):
+            with self._delta_mu:
+                base = self._delta_base.get(cur)
+            if base is None:
+                return depth if os.path.isfile(self._path_str(cur)) else -1
+            depth += 1
+            cur = base
+        return -1
+
     def has(self, digest: str) -> bool:
-        return os.path.isfile(self._path_str(digest))
+        return os.path.isfile(self._path_str(digest)) \
+            or (self._deltas_possible() and self.delta_depth(digest) >= 0)
 
     def has_many(self, digests) -> list[bool]:
         return [self.has(d) for d in digests]
 
-    def put(self, digest: str, data: bytes, verify: bool = True) -> bool:
+    def put(self, digest: str, data: bytes, verify: bool = True,
+            sketch=None) -> bool:
         """Store a chunk; False if it already existed (a dedup hit). The
         visible write is an ``os.link`` of a temp file, which fails if the
         chunk appeared meanwhile, so of two racing writers exactly one
         sees True. With fsync on, the payload is fsync'd before the link
-        and the directory after it."""
+        and the directory after it.
+
+        With the similarity plane attached, an eligible new chunk may be
+        stored as a delta instead; ``sketch`` carries its min-hash from
+        the batched path (``put_batch``)."""
         p = self._path_str(digest)
         if os.path.isfile(p):
             return False
+        if self._deltas_possible():
+            with self._delta_mu:
+                if digest in self._delta_base:
+                    return False   # present as a delta: a dedup hit
         if verify and sha256_hex(data) != digest:
             raise ValueError(f"data does not match digest {digest[:12]}…")
-        parent = os.path.dirname(p)
+        if self.sim is not None:
+            enc = self.sim.encode_for_put(self, digest, data, sketch=sketch)
+            if enc is not None:
+                stored = self._put_delta(digest, enc[0], enc[1],
+                                         raw_len=len(data))
+                if stored is not None:
+                    return stored
+                # rolled back (the base vanished mid-write): store raw
+        return self._write_linked(os.path.dirname(p), p, data)
+
+    def put_batch(self, items, verify: bool = True) -> list[bool]:
+        """Batched puts. With the plane, the batch's new eligible chunks
+        are sketched in one ``sketch_for_batch`` call first; without it
+        this is the per-item loop."""
+        if self.sim is None:
+            return [self.put(d, b, verify=verify) for d, b in items]
+        sketches = self.sim.sketch_for_batch(self, items)
+        return [self.put(d, b, verify=verify, sketch=sketches.get(d))
+                for d, b in items]
+
+    def _write_linked(self, parent: str, dest: str, data: bytes,
+                      on_link=None) -> bool:
+        """tmp + O_EXCL + link (+ fsyncs) of ``data`` at ``dest``; False
+        when ``dest`` appeared meanwhile. ``on_link`` (a delta's pin
+        registration) runs right after the link, both under
+        ``_link_mu``."""
         if parent not in self._dirs:
             os.makedirs(parent, exist_ok=True)
             self._dirs.add(parent)
@@ -133,16 +296,20 @@ class ChunkStore:
                 if self._fsync:
                     f.flush()
                     os.fsync(f.fileno())
-            try:
-                os.link(tmp, p)
-            except FileExistsError:
-                return False
-            except OSError as e:
-                # filesystem without hard links: atomic rename instead
-                if e.errno not in (errno.EPERM, errno.EOPNOTSUPP,
-                                   errno.ENOTSUP, errno.EMLINK):
-                    raise
-                os.replace(tmp, p)
+            with self._link_mu if on_link is not None \
+                    else contextlib.nullcontext():
+                try:
+                    os.link(tmp, dest)
+                except FileExistsError:
+                    return False
+                except OSError as e:
+                    # filesystem without hard links: atomic rename instead
+                    if e.errno not in (errno.EPERM, errno.EOPNOTSUPP,
+                                       errno.ENOTSUP, errno.EMLINK):
+                        raise
+                    os.replace(tmp, dest)
+                if on_link is not None:
+                    on_link()
             if self._fsync:
                 _fsync_path(parent)
         finally:
@@ -157,34 +324,157 @@ class ChunkStore:
                 self._count += 1
         return True
 
-    def put_batch(self, items, verify: bool = True) -> list[bool]:
-        return [self.put(d, b, verify=verify) for d, b in items]
+    def _put_delta(self, digest: str, base_digest: str, blob: bytes,
+                   raw_len: int) -> bool | None:
+        """Store ``digest`` as a delta blob against ``base_digest``.
+        Returns True (stored), False (lost the link race: present), or
+        None: the base vanished between the encoder's read and the pin
+        registration, so the write was rolled back and the caller must
+        store raw. Once the pin is registered (under ``_link_mu``, which
+        delete() takes), no later delete can remove the base."""
+        def pin() -> None:
+            with self._delta_mu:
+                self._delta_base[digest] = base_digest
+                self._delta_refs[base_digest] = \
+                    self._delta_refs.get(base_digest, 0) + 1
+                self._have_deltas = True
+
+        parent = f"{self._deltas_root}/{digest[:2]}"
+        if not self._write_linked(parent, f"{parent}/{digest}", blob,
+                                  on_link=pin):
+            return False
+        if self.delta_depth(base_digest) < 0:
+            # the base was deleted before the pin above became visible
+            self._drop_delta(digest)
+            return None
+        if self.sim is not None:
+            self.sim.maybe_crash("sim.after_delta_write")
+            self.sim.note_delta_stored(raw_len, len(blob))
+        return True
+
+    def _drop_delta(self, digest: str) -> bool:
+        """Unlink a delta file and release its base pin (rollback,
+        corruption, re-materialize, or delete of a dead delta)."""
+        dp = self._delta_path_str(digest)
+        with self._link_mu:
+            with self._delta_mu:
+                base = self._delta_base.pop(digest, None)
+                if base is not None:
+                    n = self._delta_refs.get(base, 0) - 1
+                    if n > 0:
+                        self._delta_refs[base] = n
+                    else:
+                        self._delta_refs.pop(base, None)
+            try:
+                blob_len = os.path.getsize(dp)
+                os.unlink(dp)
+            except FileNotFoundError:
+                return False      # a racing drop: the maps are clean
+        with self._lock:
+            if self._count is not None:
+                self._count -= 1
+        if self.sim is not None:
+            self.sim.note_delta_dropped(blob_len)
+        return True
+
+    def _rematerialize(self, digest: str, data: bytes) -> None:
+        """Promote a hot delta back to a raw file: raw first, the delta
+        unlinked after; a crash between the two leaves both, raw wins on
+        read and ``_prime_delta_maps`` completes the unlink."""
+        p = self._path_str(digest)
+        if not os.path.isfile(p):      # raw write, past the sim seam
+            self._write_linked(os.path.dirname(p), p, data)
+        if self.sim is not None:
+            self.sim.maybe_crash("sim.after_rematerialize")
+        self._drop_delta(digest)
 
     def get(self, digest: str) -> bytes | None:
         try:
             with open(self._path_str(digest), "rb") as f:
                 return f.read()
         except FileNotFoundError:
+            if not self._deltas_possible():
+                return None
+            return self._get_delta(digest, 0)
+
+    def _get_delta(self, digest: str, depth: int) -> bytes | None:
+        """Read the delta blob, resolve its base (recursively: bases may
+        be deltas), apply, and verify sha256 == digest before serving.
+        Structural damage or a digest mismatch drops the delta like a
+        corrupt raw chunk; a missing base reads as absent (scrub queues
+        the base for repair)."""
+        if depth > 64:
             return None
+        try:
+            with open(self._delta_path_str(digest), "rb") as f:
+                blob = f.read()
+        except FileNotFoundError:
+            return None
+        try:
+            base_d, _ = _parse_delta_header(blob)
+        except ValueError:
+            self._drop_delta(digest)
+            return None
+        try:
+            with open(self._path_str(base_d), "rb") as f:
+                base = f.read()
+        except FileNotFoundError:
+            base = self._get_delta(base_d, depth + 1)
+        if base is None:
+            if self.sim is not None:
+                self.sim.note_missing_base()
+            return None
+        try:
+            out = _apply_delta(blob, base)
+        except ValueError:
+            self._drop_delta(digest)
+            return None
+        if sha256_hex(out) != digest:
+            self._drop_delta(digest)
+            return None
+        if depth == 0 and self.sim is not None \
+                and self.sim.note_delta_read(digest):
+            self._rematerialize(digest, out)
+        return out
 
     def delete(self, digest: str) -> bool:
-        try:
-            os.unlink(self._path_str(digest))
-        except FileNotFoundError:
-            return False
-        with self._lock:
-            if self._count is not None:
-                self._count -= 1
-        return True
+        """Remove a chunk (raw or delta). A base that resident deltas
+        reconstruct through is refused (False) until they die."""
+        p = self._path_str(digest)
+        with self._link_mu:
+            if self.delta_pinned(digest):
+                return False
+            try:
+                os.unlink(p)
+            except FileNotFoundError:
+                removed = False
+            else:
+                removed = True
+        if removed:
+            with self._lock:
+                if self._count is not None:
+                    self._count -= 1
+            return True
+        return self._deltas_possible() and self._drop_delta(digest)
 
     def digests(self) -> list[str]:
         out = []
         for sub in sorted(self.root.iterdir()) if self.root.is_dir() else []:
             if sub.is_dir():
-                # skips strays such as crash-leaked .tmp-* files
+                # skips strays such as crash-leaked .tmp-* files, and the
+                # deltas/ fan-out (2-hex names)
                 out.extend(sorted(p.name for p in sub.iterdir()
                                   if len(p.name) == 64
                                   and set(p.name) <= _HEX))
+        if self._deltas_possible():
+            seen = set(out)
+            droot = Path(self._deltas_root)
+            for sub in sorted(droot.iterdir()) if droot.is_dir() else []:
+                if sub.is_dir():
+                    out.extend(sorted(
+                        p.name for p in sub.iterdir()
+                        if len(p.name) == 64 and set(p.name) <= _HEX
+                        and p.name not in seen))
         return out
 
     def count(self) -> int:
@@ -201,12 +491,16 @@ class ChunkStore:
             return self._count
 
     def total_bytes(self) -> int:
+        """On-disk payload bytes: a delta-stored chunk counts its delta
+        file (footprint, not logical size)."""
         total = 0
         for d in self.digests():
-            try:
-                total += os.path.getsize(self._path_str(d))
-            except OSError:
-                pass      # deleted between the listing and the stat
+            for path in (self._path_str(d), self._delta_path_str(d)):
+                try:
+                    total += os.path.getsize(path)
+                    break
+                except OSError:
+                    continue      # delta-stored, or deleted mid-scan
         return total
 
     def fsync_count(self) -> int:
@@ -220,6 +514,11 @@ class ChunkStore:
         dirs = [sub for sub in
                 (self.root.iterdir() if self.root.is_dir() else [])
                 if sub.is_dir()]
+        if self._deltas_possible():
+            droot = Path(self._deltas_root)
+            dirs.extend(sub for sub in
+                        (droot.iterdir() if droot.is_dir() else [])
+                        if sub.is_dir())
         return _sweep_tmp_files(dirs, max_age_s)
 
 
@@ -357,23 +656,54 @@ class NodeStore:
         """Delete chunks no manifest references; returns their digests.
         ``min_age_s`` spares young chunks: uploads write the manifest
         last, so an in-flight upload's chunks look orphaned until it
-        commits."""
+        commits. A live delta's base chain is live too; dead deltas go
+        first, and the sweep repeats while it frees pins."""
         live: set[str] = set()
         for m in self.manifests.list():
             live.update(m.all_digests())
+        for d in list(live):
+            cur = d
+            for _ in range(64):
+                base = self.chunks.delta_base(cur)
+                if base is None:
+                    break
+                live.add(base)
+                cur = base
         cutoff = time.time() - min_age_s
-        deleted = []
+        dead = []
         for d in self.chunks.digests():
             if d in live:
                 continue
             if min_age_s > 0:
                 try:
-                    if os.stat(self.chunks._path_str(d)).st_mtime > cutoff:
-                        continue
+                    st = os.stat(self.chunks._path_str(d))
                 except FileNotFoundError:
+                    try:   # delta-stored: age-gate on the delta file
+                        st = os.stat(self.chunks._delta_path_str(d))
+                    except FileNotFoundError:
+                        continue
+                if st.st_mtime > cutoff:
                     continue
-            if self.chunks.delete(d):
-                deleted.append(d)
+            dead.append(d)
+        # dead deltas first: each delete releases its base's pin
+        dead.sort(key=lambda d: self.chunks.delta_base(d) is None)
+        sim = self.chunks.sim
+        if sim is not None and dead:
+            sim.maybe_crash("sim.before_base_gc")
+        deleted: list[str] = []
+        pending = dead
+        while pending:
+            # a chain of dead deltas releases one pin per sweep; stop when
+            # a sweep frees nothing (the rest are pinned by live deltas)
+            nxt = []
+            for d in pending:
+                if self.chunks.delete(d):
+                    deleted.append(d)
+                elif self.chunks.delta_pinned(d):
+                    nxt.append(d)
+            if len(nxt) == len(pending):
+                break
+            pending = nxt
         self.chunks.sweep_tmp()
         self.manifests.sweep_tmp()
         return deleted

@@ -404,3 +404,35 @@ def test_ec_upload_encodes_on_card(dev, tmp_path):
                 await n.stop()
 
     asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
+def test_sim_sketcher_on_card(dev):
+    """The min-hash sketcher on the card against the NumPy oracle: a batch
+    of every length class (chunks longer than the window take the oracle),
+    at shingle widths 1, 8 and 64, on one slot and on 4 slots of the card
+    (make_sketch_step)."""
+    from dfs_tpu_torch.config import SimConfig
+    from dfs_tpu_torch.parallel.mesh import make_mesh
+    from dfs_tpu_torch.parallel.sharded_cdc import sketch_rows_fn
+    from dfs_tpu_torch.sim.sketch import SimSketcher, SketchPlan, sketch_np
+
+    rng = np.random.default_rng(6)
+    sizes = [0, 1, 7, 8, 9, 100, 2048, 4095, 9800, 65535, 65536, 65537,
+             200_000] + [int(x) for x in rng.integers(2048, 65536, 200)]
+    datas = [corpus(n, seed=i).tobytes() for i, n in enumerate(sizes)]
+    for q in (1, 8, 64):
+        skt = SimSketcher(SimConfig(enabled=True, shingle_bytes=q),
+                          device=dev)
+        assert skt.device == dev
+        want = np.stack([sketch_np(d, 16, q, skt.lanes_a, skt.lanes_b)
+                         for d in datas])
+        assert np.array_equal(skt.sketch_many(datas), want)
+        fits = [d for d in datas if len(d) <= skt.window]
+        plan = SketchPlan([len(d) for d in fits], q)
+        packed = torch.from_numpy(plan.pack(fits)).to(dev)
+        mesh = make_mesh(4, device=[dev] * 4)
+        got = plan.sketch(packed, sketch_rows_fn(mesh, skt.lanes_a,
+                                                 skt.lanes_b, q))
+        got = got.view(torch.int32).cpu().numpy().view(np.uint32)
+        idx = [i for i, d in enumerate(datas) if len(d) <= skt.window]
+        assert np.array_equal(got, want[np.asarray(idx)[plan.order]])

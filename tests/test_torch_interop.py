@@ -220,3 +220,67 @@ def test_ring_fingerprint_and_owners_match(ids):
     for pinned in ([ids[0]], [ids[-1], ids[0]]):
         assert placement.handoff_order(pinned, sorted(ids)) \
             == ref_placement.handoff_order(pinned, sorted(ids))
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_data_root_with_deltas_opens_in_the_other_package(tmp_path, writer):
+    """A node store whose similarity plane wrote deltas (a chain of
+    generations, each a small edit of the last) opens in the other
+    package's NodeStore without a plane: the same digests, every chunk
+    reconstructed byte-identical, the base pins honoured, and GC of the
+    other package keeps a live delta's base chain."""
+    from dfs_tpu.config import SimConfig as RefSimConfig
+    from dfs_tpu.meta.manifest import ChunkRef as RefChunkRef
+    from dfs_tpu.meta.manifest import Manifest as RefManifest
+    from dfs_tpu.sim import SimPlane as RefSimPlane
+    from dfs_tpu.store.cas import NodeStore as RefNodeStore
+
+    from dfs_tpu_torch.config import SimConfig
+    from dfs_tpu_torch.meta.manifest import ChunkRef, Manifest
+    from dfs_tpu_torch.sim import SimPlane
+    from dfs_tpu_torch.store.cas import NodeStore
+
+    if writer == "reference":
+        w = RefNodeStore(tmp_path, node_id=1)
+        w.chunks.sim = RefSimPlane(RefSimConfig(enabled=True,
+                                                min_chunk_bytes=64),
+                                   w.root / "sim")
+        r_cls, mk, cref = NodeStore, Manifest, ChunkRef
+    else:
+        w = NodeStore(tmp_path, node_id=1)
+        w.chunks.sim = SimPlane(SimConfig(enabled=True, min_chunk_bytes=64),
+                                w.root / "sim", device="cpu")
+        r_cls, mk, cref = RefNodeStore, RefManifest, RefChunkRef
+    gens = [corpus(16_384, seed=40)]
+    for i in range(3):
+        g = bytearray(gens[-1])
+        g[1000 + 3000 * i:1004 + 3000 * i] = b"EDIT"
+        gens.append(bytes(g))
+    digests = [hashlib.sha256(g).hexdigest() for g in gens]
+    for d, g in zip(digests, gens):
+        assert w.chunks.put(d, g)
+    assert w.chunks.delta_count() >= 2
+    w.chunks.sim.close()
+    assert (w.root / "chunks" / "deltas").is_dir()
+    assert (w.root / "sim" / "bands.log").is_file()
+
+    r = r_cls(tmp_path, node_id=1)
+    assert sorted(r.chunks.digests()) == sorted(digests)
+    for d, g in zip(digests, gens):
+        assert r.chunks.get(d) == g and r.chunks.has(d)
+        assert r.chunks.delta_base(d) == w.chunks.delta_base(d)
+    base = digests[0]
+    assert r.chunks.delta_pinned(base) and r.chunks.delete(base) is False
+    # the newest generation alone stays referenced: GC keeps its chain
+    last = gens[-1]
+    r.manifests.save(mk(file_id=hashlib.sha256(last).hexdigest(),
+                        name="g", size=len(last), fragmenter="fixed",
+                        chunks=(cref(index=0, offset=0, length=len(last),
+                                     digest=digests[-1]),)))
+    chain = {digests[-1]}
+    cur = digests[-1]
+    while (nb := r.chunks.delta_base(cur)) is not None:
+        chain.add(nb)
+        cur = nb
+    assert sorted(r.gc(min_age_s=0.0)) == sorted(set(digests) - chain)
+    assert r.chunks.get(digests[-1]) == last

@@ -1,6 +1,7 @@
 """The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
 imports JAX or anything of dfs_tpu, a process that uses the port — the
-single-device and the sharded walk, and a node served over HTTP — never
+single-device and the sharded walk, and a node served over HTTP with the
+similarity plane — never
 loads either, and without CUDA the entry points raise instead of running
 on the CPU."""
 
@@ -69,7 +70,7 @@ with tempfile.TemporaryDirectory() as d:
     from pathlib import Path
     import dfs_tpu_torch.api.http, dfs_tpu_torch.cli.main  # noqa: F401
     from dfs_tpu_torch.cli.client import NodeClient
-    from dfs_tpu_torch.config import ClusterConfig, NodeConfig
+    from dfs_tpu_torch.config import ClusterConfig, NodeConfig, SimConfig
     from dfs_tpu_torch.node.runtime import StorageNodeServer
     socks = [socket.socket() for _ in range(2)]
     for s in socks:
@@ -80,14 +81,20 @@ with tempfile.TemporaryDirectory() as d:
     cluster = ClusterConfig.localhost(1, ports[0], ports[1], 1)
 
     async def serve():
-        srv = StorageNodeServer(NodeConfig(node_id=1, cluster=cluster,
-                                           data_root=Path(d) / "srv",
-                                           health_probe_s=0, device="cpu"))
+        # with the similarity plane: a near-duplicate stores a delta
+        srv = StorageNodeServer(NodeConfig(
+            node_id=1, cluster=cluster, data_root=Path(d) / "srv",
+            health_probe_s=0, device="cpu",
+            sim=SimConfig(enabled=True, min_chunk_bytes=1024)))
         await srv.start()
         try:
             c = NodeClient(port=ports[0], timeout_s=30)
             fid = (await asyncio.to_thread(c.upload, body, "b"))["fileId"]
             assert await asyncio.to_thread(c.download, fid) == body
+            near = body[:9000] + b"!" + body[9001:]
+            fid2 = (await asyncio.to_thread(c.upload, near, "n"))["fileId"]
+            assert await asyncio.to_thread(c.download, fid2) == near
+            assert srv.sim_stats()["deltasWritten"] >= 1
         finally:
             await srv.stop()
 
