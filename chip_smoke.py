@@ -44,6 +44,21 @@ drives the paths end to end and checks each against the NumPy oracle:
   of both generations opened through the port's ChunkStore on both of its
   owners (deltas reconstructed) and hashed; deltas written > 0 and their
   bytes below 10% of the raw bytes they replace (kernels 1-4 in node 1);
+- ``cluster_serve``: the serving tier as users run it: 5 ``serve``
+  processes (rf 2, write quorum 2, fsync on) with ``--cache-bytes 512 MiB
+  --readahead 2 --hedge-budget 50 --hedge-floor 0.04 --hedge-cap 0.3``,
+  node 5 also ``--download-slots 2 --queue-depth 6``. The 256 MiB body
+  streamed to node 1 (table against the oracle, kernels 1-4 in node 1);
+  node 3 reads it cold (readahead) and hot (cache), both identical, timed
+  beside the ``cluster`` phase's download; 32 concurrent ``Range: bytes=
+  0-33554431`` reads on node 1, two rounds, every body identical, cache
+  hits after the second; the shed curve on node 5 at 2, 8, 16 and 32
+  readers, each level a 32 MiB window node 5 has not read (no 503 at 8 or
+  fewer, at least one at 32, every 503 with Retry-After, every 206
+  identical); ``X-Dfs-Deadline: 0`` answered 503 at node 5 (its gate's
+  ``deadlineShed``) and node 1 (``deadline_drops``) with ``downloads``
+  unchanged; node 1 reads the file whole with node 3 SIGSTOPped, identical,
+  its hedge fired and won;
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -94,6 +109,13 @@ CONCURRENT_BYTES = 64 * 1024 * 1024
 # cluster_sim's generation 2: one 4-byte overwrite every 64 KiB
 SIM_EDIT_AT = 12_345
 SIM_EDIT_STRIDE = 64 * 1024
+# cluster_serve: dfs_tpu's serve bench workload (32 readers of a 32 MiB
+# range) and its shed settings (2 download slots, a queue of 6)
+SERVE_CACHE_BYTES = 512 * 1024 * 1024
+SERVE_READERS = 32
+SERVE_RANGE_BYTES = 32 * 1024 * 1024
+SERVE_SLOTS, SERVE_QUEUE = 2, 6
+SERVE_CURVE = (2, 8, 16, 32)
 
 # H100 SXM peaks at the full 700 W power limit: HBM bandwidth (NVIDIA data
 # sheet), and the INT32 rate every kernel here is held to — 132 SMs x 64
@@ -424,11 +446,14 @@ def ec_codec_phase(body: bytes, table: list, dev, np) -> list:
 
 
 @contextlib.contextmanager
-def serve_cluster(root: Path, prefix: str, extra: tuple = ()):
+def serve_cluster(root: Path, prefix: str, extra: tuple = (),
+                  per_node: dict | None = None,
+                  data_root: Path | None = None):
     """``CLUSTER_NODES`` ``python -m dfs_tpu_torch.cli.main serve``
-    processes on fresh ports and a fresh data root under ``root`` (rf 2,
-    write quorum 2, fsync on, no repair loop, plus ``extra`` flags), each
-    answering ``/status``. Yields their directory, HTTP ports, processes
+    processes on fresh ports and a fresh data root under ``root`` (or
+    ``data_root``, to restart on the same disk; rf 2, write quorum 2,
+    fsync on, no repair loop, plus ``extra`` flags and a node's
+    ``per_node[i]`` flags), each answering ``/status``. Yields their directory, HTTP ports, processes
     and start-up seconds; on failure the nodes' log tails go to stderr;
     every process is killed on the way out."""
     ids = list(range(1, CLUSTER_NODES + 1))
@@ -452,9 +477,11 @@ def serve_cluster(root: Path, prefix: str, extra: tuple = ()):
                 procs[i] = subprocess.Popen(
                     [sys.executable, "-m", "dfs_tpu_torch.cli.main", "serve",
                      "--node-id", str(i), "--cluster-config",
-                     str(d / "cluster.json"), "--data-root", str(d / "data"),
+                     str(d / "cluster.json"),
+                     "--data-root", str(data_root or d / "data"),
                      "--write-quorum", "2", "--durability", "fsync",
-                     "--repair-interval", "0", *extra],
+                     "--repair-interval", "0", *extra,
+                     *(per_node or {}).get(i, ())],
                     cwd=root, env=env, stdout=logs[-1],
                     stderr=subprocess.STDOUT)
             for i in ids:
@@ -913,7 +940,206 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
           "ec_decodes": ec_decodes, "encode": enc, "oracle_equal": True,
           "file_id_ok": True, "parity_digests_equal_oracle": True,
           "every_shard_on_its_holder": True, "launches": ec_launches})
-    return launches, ec_launches
+    return launches, ec_launches, download_s
+
+
+def _get_many(port: int, path: str, n: int, headers: dict) -> list:
+    """``n`` concurrent GETs released together by a barrier: (status,
+    headers, body) each."""
+    gate = threading.Barrier(n)
+    out: list = [None] * n
+
+    def one(k: int) -> None:
+        try:
+            gate.wait(timeout=60)
+            out[k] = _http(port, "GET", path, headers=headers, timeout=300)
+        except BaseException as e:  # noqa: BLE001 — checked by the caller
+            out[k] = e
+
+    threads = [threading.Thread(target=one, args=(k,)) for k in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return out
+
+
+def cluster_serve_phase(root: Path, body: bytes, blocks: list,
+                        oracle: list, cluster_download_s: float) -> dict:
+    """The ``cluster_serve`` phase (module docstring). Returns node 1's
+    kernel launches across the upload."""
+    from dfs_tpu_torch.meta.manifest import Manifest
+
+    fid = hashlib.sha256(body).hexdigest()
+    gib = len(body) / 2**30
+    tier = ("--cache-bytes", str(SERVE_CACHE_BYTES), "--readahead", "2",
+            "--hedge-budget", "50", "--hedge-floor", "0.04",
+            "--hedge-cap", "0.3")
+    shed_node = CLUSTER_NODES
+    t_phase = time.perf_counter()
+    with serve_cluster(root, ".chip_smoke_serve_", tier, per_node={
+            shed_node: ("--download-slots", str(SERVE_SLOTS),
+                        "--queue-depth", str(SERVE_QUEUE))}) as c:
+        port, procs = c.port, c.procs
+        # 1. the upload, chunked on the card in node 1
+        m0 = _metrics(port[1])["frag"]["launches"]
+        t0 = time.perf_counter()
+        info = _upload(port[1], iter(blocks), "serve.bin", chunked=True)
+        upload_s = time.perf_counter() - t0
+        m1 = _metrics(port[1])
+        launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+        counts = ("fired", "won", "denied")
+        upload_hedge = {k: m1["serve"]["hedge"][k] for k in counts}
+        for k in ("strip_chunk_states", "repack_lanes",
+                  "bswap_transpose", "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in "
+                  "node 1 during the cluster_serve upload")
+        check(info["fileId"] == fid, "cluster_serve fileId != sha256")
+        st, _, doc = _http(port[1], "GET", f"/manifest?fileId={fid}",
+                           timeout=120)
+        check([(x["offset"], x["length"], x["digest"])
+               for x in json.loads(doc)["chunks"]] == oracle,
+              "cluster_serve chunk table != numpy oracle")
+        # what every read of the file pays on its node's event loop
+        # before any chunk: the manifest load (json + ChunkRefs)
+        parse = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            Manifest.from_json(doc)
+            parse.append(time.perf_counter() - t0)
+
+        # 2. node 3 reads it cold (readahead 2), then hot (its cache)
+        dl = {}
+        for kind in ("cold", "hot"):
+            t0 = time.perf_counter()
+            st, _, got = _http(port[3], "GET", f"/download?fileId={fid}")
+            dl[kind] = time.perf_counter() - t0
+            check(st == 200 and got == body,
+                  f"{kind} download from node 3 not identical")
+            del got
+        s3 = _metrics(port[3])["serve"]
+        check(s3["cache"]["hits"] > 0, "node 3's hot read hit no cache")
+
+        # 3. hot Range reads on node 1: 32 readers of the first 32 MiB
+        rng_hdr = {"Range": f"bytes=0-{SERVE_RANGE_BYTES - 1}"}
+        want = body[:SERVE_RANGE_BYTES]
+        rounds = []
+        for r in range(2):
+            f0 = _metrics(port[1])["serve"]["flight"]["coalesced"]
+            t0 = time.perf_counter()
+            res = _get_many(port[1], f"/download?fileId={fid}",
+                            SERVE_READERS, rng_hdr)
+            secs = time.perf_counter() - t0
+            for x in res:
+                check(isinstance(x, tuple) and x[0] == 206 and x[2] == want,
+                      f"hot Range read round {r + 1} not identical: "
+                      f"{x if not isinstance(x, tuple) else x[0]}")
+            s1 = _metrics(port[1])["serve"]
+            rounds.append({"seconds": secs,
+                           "gib_s": SERVE_READERS * SERVE_RANGE_BYTES
+                           / 2**30 / secs,
+                           "coalesced": s1["flight"]["coalesced"] - f0,
+                           "cache_hits": s1["cache"]["hits"]})
+            del res
+        check(rounds[1]["cache_hits"] > 0,
+              "node 1's second round hit no cache")
+
+        # 4. the shed curve on node 5 (2 slots + a queue of 6). A Range
+        # read gives its slot back before its body is written, and one
+        # served from the cache never yields in between, so hot readers
+        # never overlap: each level reads a 32 MiB window node 5 has not
+        # read yet, and its readers wait on one origin fetch together
+        curve = []
+        for level, n in enumerate(SERVE_CURVE):
+            lo = level * SERVE_RANGE_BYTES
+            want = body[lo:lo + SERVE_RANGE_BYTES]
+            res = _get_many(port[shed_node], f"/download?fileId={fid}", n,
+                            {"Range": f"bytes={lo}-"
+                                      f"{lo + SERVE_RANGE_BYTES - 1}"})
+            ok = shed = 0
+            for x in res:
+                check(isinstance(x, tuple), f"shed curve request failed: "
+                      f"{x}")
+                if x[0] == 503:
+                    check("Retry-After" in x[1], "503 without Retry-After")
+                    shed += 1
+                else:
+                    check(x[0] == 206 and x[2] == want,
+                          f"shed curve answer {x[0]} not an identical 206")
+                    ok += 1
+            if n <= SERVE_SLOTS + SERVE_QUEUE:
+                check(shed == 0, f"{shed} of {n} shed at concurrency {n}")
+            curve.append({"concurrency": n, "range_start": lo, "ok": ok,
+                          "shed": shed})
+            del res
+        check(curve[-1]["shed"] > 0, "no 503 at concurrency "
+              f"{SERVE_CURVE[-1]}")
+
+        # 5. an expired deadline: 503 + Retry-After, nothing downloaded;
+        # at node 5 the gate sheds it, at node 1 (no gate) the read path
+        deadline = {}
+        for i in (shed_node, 1):
+            b0 = _metrics(port[i])
+            st, h, _ = _http(port[i], "GET", f"/download?fileId={fid}",
+                             headers={"X-Dfs-Deadline": "0"})
+            b1 = _metrics(port[i])
+            check(st == 503 and "Retry-After" in h,
+                  f"expired deadline at node {i} answered {st}")
+            check(b1.get("downloads", 0) == b0.get("downloads", 0),
+                  f"expired deadline at node {i} still downloaded")
+            adm0, adm1 = (x["serve"]["admission"] for x in (b0, b1))
+            deadline[i] = {
+                "status": st, "retry_after": h.get("Retry-After"),
+                "deadline_shed": adm1["download"]["deadlineShed"]
+                - adm0["download"]["deadlineShed"]
+                if "download" in adm1 else None,
+                "deadline_drops": b1.get("deadline_drops", 0)
+                - b0.get("deadline_drops", 0)}
+        check(deadline[shed_node]["deadline_shed"] == 1,
+              "node 5's gate did not count the deadline shed")
+        check(deadline[1]["deadline_drops"] >= 1,
+              "node 1 did not drop the expired read")
+
+        # 6. the hedge: node 3 stopped, node 1 reads the whole file
+        h0 = _metrics(port[1])["serve"]["hedge"]
+        procs[3].send_signal(signal.SIGSTOP)
+        try:
+            t0 = time.perf_counter()
+            st, _, got = _http(port[1], "GET", f"/download?fileId={fid}")
+            hedged_s = time.perf_counter() - t0
+        finally:
+            procs[3].send_signal(signal.SIGCONT)
+        check(st == 200 and got == body,
+              "download with node 3 stopped not identical")
+        del got
+        h1 = _metrics(port[1])["serve"]["hedge"]
+        hedge = {k: h1[k] - h0[k] for k in counts}
+        check(hedge["fired"] > 0 and hedge["won"] > 0,
+              f"node 1's hedge with node 3 stopped: {hedge}")
+    emit({"phase": "cluster_serve", "nodes": CLUSTER_NODES, "rf": 2,
+          "flags": " ".join(tier), f"node{shed_node}_flags":
+          f"--download-slots {SERVE_SLOTS} --queue-depth {SERVE_QUEUE}",
+          "bytes": len(body), "upload_s": upload_s,
+          "upload_gib_s": gib / upload_s, "oracle_equal": True,
+          "upload_hedge_node1": upload_hedge,
+          "manifest_bytes": len(doc),
+          "manifest_parse_s": statistics.median(parse),
+          "download_cold_s": dl["cold"], "download_cold_gib_s":
+          gib / dl["cold"], "download_hot_s": dl["hot"],
+          "download_hot_gib_s": gib / dl["hot"],
+          "cluster_download_s": cluster_download_s,
+          "node3_cache": {k: v for k, v in s3["cache"].items()
+                          if k != "temperature"},
+          "node3_hedge": {k: s3["hedge"][k] for k in counts},
+          "hot_range": {"readers": SERVE_READERS,
+                        "range_bytes": SERVE_RANGE_BYTES,
+                        "rounds": rounds},
+          "shed_curve": curve, "deadline": deadline,
+          "hedged_download_s": hedged_s,
+          "hedged_download_gib_s": gib / hedged_s, "hedge": hedge,
+          "launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
 
 
 def main() -> int:
@@ -1210,11 +1436,13 @@ def main() -> int:
     ec_body = ec_body.tobytes()
     ec_parity = ec_codec_phase(ec_body, ec_table, dev, np)
     sim_sketch_phase(ec_body, ec_table, dev, np)
-    launches["cluster"], launches["cluster_ec"] = cluster_phase(
-        root, body, blocks, oracle, params, rng, np, ec_body, ec_table,
-        ec_parity)
+    launches["cluster"], launches["cluster_ec"], cluster_download_s = \
+        cluster_phase(root, body, blocks, oracle, params, rng, np, ec_body,
+                      ec_table, ec_parity)
     launches["cluster_sim"] = cluster_sim_phase(root, ec_body, ec_table,
                                                 params, np)
+    launches["cluster_serve"] = cluster_serve_phase(
+        root, body, blocks, oracle, cluster_download_s)
 
     # ---- the multi-device anchored path ----
     n_cards = torch.cuda.device_count()

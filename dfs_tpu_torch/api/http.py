@@ -17,6 +17,15 @@ for the routes of the default configuration:
     POST   /scrub                {"scanned": N, "corrupt": M,
                                   "deltaMissingBase": K}
 
+The serving tier (``ServeConfig``, off by default) answers ``503`` with
+``Retry-After`` when an admission gate sheds an upload or a download, and
+when a request's end-to-end deadline dies before its head: an
+``X-Dfs-Deadline: <seconds>`` header on any route, or
+``default_deadline_s`` on the client routes (/download, /upload,
+/manifest, /files). A deadline that dies mid-stream truncates the body. A
+download's slot is held until its body drains; a client that hangs up
+while queued frees its place.
+
 Every other route answers 404: dfs_tpu's ``/metrics?format=prom``,
 ``/metrics/history``, ``/census``, ``/trace``, ``/events``, ``/chaos``,
 ``/tier``, ``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``,
@@ -28,10 +37,12 @@ from __future__ import annotations
 
 import asyncio
 import json
+import math
 import time
 from typing import TYPE_CHECKING
 from urllib.parse import parse_qs, unquote, urlsplit
 
+from dfs_tpu_torch.utils import deadline
 from dfs_tpu_torch.utils.hashing import is_hex_digest
 
 if TYPE_CHECKING:
@@ -40,11 +51,16 @@ if TYPE_CHECKING:
 _REASONS = {200: "OK", 201: "Created", 206: "Partial Content",
             400: "Bad Request", 404: "Not Found", 411: "Length Required",
             413: "Payload Too Large", 416: "Range Not Satisfiable",
-            500: "Internal Server Error", 507: "Insufficient Storage"}
+            500: "Internal Server Error", 503: "Service Unavailable",
+            507: "Insufficient Storage"}
 MAX_BODY = 4 * 1024 * 1024 * 1024
 # plain (Content-Length) uploads above this stream through the
 # bounded-memory ingest instead of materializing the body in node RAM
 STREAM_BODY_BYTES = 64 * 1024 * 1024
+# the routes ServeConfig.default_deadline_s applies to (the client data
+# plane); an explicit X-Dfs-Deadline header is honoured on any route
+_DEADLINE_DEFAULT_ROUTES = frozenset({"/download", "/upload", "/manifest",
+                                      "/files"})
 
 
 def _head(status: int, length: int, content_type: str,
@@ -84,6 +100,54 @@ def binary_head(status: int, length: int, filename: str) -> bytes:
     safe = "".join(c for c in filename if c >= " " and c != '"') or "download"
     return _head(status, length, "application/octet-stream",
                  {"Content-Disposition": f'attachment; filename="{safe}"'})
+
+
+def _retry_after(node: "StorageNodeServer", e, retry_after_s: float
+                 ) -> bytes:
+    node.counters.inc("http_shed")
+    return _resp(503, str(e).encode(), "text/plain; charset=utf-8",
+                 {"Retry-After": str(max(1, math.ceil(retry_after_s)))})
+
+
+def _shed(node: "StorageNodeServer", e) -> bytes:
+    """503 + Retry-After: an admission gate refused the request."""
+    return _retry_after(node, e, e.retry_after_s)
+
+
+def _deadline_503(node: "StorageNodeServer", e) -> bytes:
+    """503 + Retry-After for a deadline that died after admission: the
+    answer the gate gives an expired arrival, never a 500."""
+    return _retry_after(node, e, node.cfg.serve.retry_after_s)
+
+
+class _GatedBody:
+    """A streamed body holding a download slot for its whole life. A
+    class, not a wrapping generator: closing a never-started generator
+    skips its ``finally``, which would leak the slot."""
+
+    def __init__(self, gate, gen) -> None:
+        self._gate = gate
+        self._gen = gen
+        self._released = False
+
+    def __aiter__(self) -> "_GatedBody":
+        return self
+
+    async def __anext__(self):
+        try:
+            return await self._gen.__anext__()
+        except BaseException:       # StopAsyncIteration included
+            await self.aclose()
+            raise
+
+    async def aclose(self) -> None:
+        if self._released:
+            return
+        self._released = True
+        try:
+            await self._gen.aclose()
+        finally:
+            self._gate.release()
 
 
 def _parse_range(value: str) -> tuple[int | None, int | None] | None:
@@ -181,6 +245,7 @@ async def _serve_one(node: "StorageNodeServer",
     query = {k: v[0] for k, v in parse_qs(split.query).items()}
     content_length: int | None = None
     range_header: str | None = None
+    deadline_header: str | None = None
     chunked = False
     while True:
         line = (await reader.readline()).decode("latin-1")
@@ -198,11 +263,29 @@ async def _serve_one(node: "StorageNodeServer",
                     return plain(400, "Bad Content-Length")
             elif key == "range":
                 range_header = v.strip()
+            elif key == "x-dfs-deadline":
+                deadline_header = v.strip()   # malformed = no deadline
             elif key == "transfer-encoding":
                 chunked = "chunked" in v.strip().lower()
     node.counters.inc("http_requests")
-    return await _route(node, reader, method, path, query, content_length,
-                        range_header, chunked)
+    # the deadline is born here and rides the context to every hop
+    budget = deadline.parse_header(deadline_header)
+    if budget is None and path in _DEADLINE_DEFAULT_ROUTES \
+            and node.cfg.serve.default_deadline_s > 0:
+        budget = node.cfg.serve.default_deadline_s
+    dl_token = deadline.activate(budget) if budget is not None else None
+    streamed = False
+    try:
+        out = await _route(node, reader, method, path, query,
+                           content_length, range_header, chunked)
+        # a streamed body is iterated by the handler in this task after
+        # we return, and its per-batch checks must keep seeing the
+        # countdown: the context is left armed (it dies with the task)
+        streamed = isinstance(out, tuple)
+        return out
+    finally:
+        if dl_token is not None and not streamed:
+            deadline.restore(dl_token)
 
 
 def _file_id(query: dict) -> tuple[str | None, bytes | None]:
@@ -219,8 +302,10 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
                  method: str, path: str, query: dict,
                  content_length: int | None, range_header: str | None,
                  chunked: bool):
-    from dfs_tpu_torch.node.runtime import (DownloadError, NotFoundError,
+    from dfs_tpu_torch.node.runtime import (DeadlineExceeded, DownloadError,
+                                            NotFoundError,
                                             RangeNotSatisfiable)
+    from dfs_tpu_torch.serve import ClientDisconnected, ShedError
 
     if method == "GET" and path == "/status":
         return plain(200, "OK")
@@ -251,8 +336,16 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
                 return plain(411, "Length Required")
             if content_length > MAX_BODY:
                 return plain(413, "Payload Too Large")
-        return await _handle_upload(node, reader, query, chunked,
-                                    content_length, ec_k)
+        gate = node.serve.admission.upload
+        try:
+            await gate.acquire()     # shed before consuming the body
+        except ShedError as e:
+            return _shed(node, e)
+        try:
+            return await _handle_upload(node, reader, query, chunked,
+                                        content_length, ec_k)
+        finally:
+            gate.release()
     if method == "GET" and path == "/download":
         file_id, bad = _file_id(query)
         if bad is not None:
@@ -264,6 +357,17 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
                 return plain(400, "Bad Range")
             if rng[0] is not None and rng[1] is not None and rng[0] > rng[1]:
                 rng = None     # invalid range: ignored (RFC 9110 14.1.1)
+        gate = node.serve.admission.download
+        try:
+            # a GET has no body: the watcher's read returns b"" only when
+            # the client hangs up while queued
+            await gate.acquire(disconnected=lambda: reader.read(1))
+        except ShedError as e:
+            return _shed(node, e)
+        except ClientDisconnected:
+            node.counters.inc("http_client_gone")
+            return b""
+        streaming = None
         try:
             if rng is not None:
                 try:
@@ -280,11 +384,18 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
             # streamed: chunks go out as they verify; the first batch is
             # fetched before the head, so common failures still answer
             manifest, body_gen = await node.download_stream(file_id)
-            return binary_head(200, manifest.size, manifest.name), body_gen
+            # the slot is held until the body drains or is closed
+            streaming = _GatedBody(gate, body_gen)
+            return binary_head(200, manifest.size, manifest.name), streaming
         except NotFoundError:
             return plain(404, "File not found")
+        except DeadlineExceeded as e:
+            return _deadline_503(node, e)
         except DownloadError as e:
             return plain(500, str(e))
+        finally:
+            if streaming is None:
+                gate.release()
     if method == "POST" and path == "/scrub":
         return as_json(200, await node.scrub_once())
     if method == "POST" and path == "/repair":
@@ -309,7 +420,8 @@ async def _handle_upload(node: "StorageNodeServer",
     STREAM_BODY_BYTES feed the streaming ingest as they arrive (read off
     the socket in ~1 MiB pieces); smaller plain bodies, and every EC body
     (its stripes group chunks across the whole file), are read whole."""
-    from dfs_tpu_torch.node.runtime import UploadError
+    from dfs_tpu_torch.comm.rpc import DeadlineExpired
+    from dfs_tpu_torch.node.runtime import DeadlineExceeded, UploadError
 
     name = query.get("name", "")
     if chunked or (content_length > STREAM_BODY_BYTES and not ec_k):
@@ -325,6 +437,9 @@ async def _handle_upload(node: "StorageNodeServer",
         body = _chunked_body(reader) if chunked else _plain_body()
         try:
             manifest, stats = await node.upload_stream(body, name)
+        except (DeadlineExpired, DeadlineExceeded) as e:
+            # the budget died mid-placement: placed chunks age out
+            return _deadline_503(node, e)
         except UploadError as e:
             return plain(e.status, str(e))
         except ValueError as e:
@@ -333,6 +448,8 @@ async def _handle_upload(node: "StorageNodeServer",
         data = await reader.readexactly(content_length)
         try:
             manifest, stats = await node.upload(data, name, ec_k=ec_k)
+        except (DeadlineExpired, DeadlineExceeded) as e:
+            return _deadline_503(node, e)
         except UploadError as e:
             return plain(e.status, str(e))
     return as_json(201, {"fileId": manifest.file_id, "name": manifest.name,

@@ -6,6 +6,8 @@ subcommands talk HTTP to one.
     python -m dfs_tpu_torch.cli.main --port 7101 upload f.bin
     python -m dfs_tpu_torch.cli.main --port 7101 upload --ec 3 f.bin
     python -m dfs_tpu_torch.cli.main serve --node-id 1 --sim ...   # deltas
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 \
+        --cache-bytes 536870912 --readahead 2 --hedge-budget 50 ...
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
 non-zero unless ``--device cpu`` asks for the plain versions. Subcommands:
@@ -23,7 +25,7 @@ from pathlib import Path
 from dfs_tpu_torch.cli.client import NodeClient
 from dfs_tpu_torch.config import (CDCParams, ClusterConfig, DurabilityConfig,
                                   FragmenterConfig, IngestConfig, NodeConfig,
-                                  SimConfig)
+                                  ServeConfig, SimConfig)
 
 
 def _client(args) -> NodeClient:
@@ -58,6 +60,17 @@ def node_config(args) -> NodeConfig:
         retries=args.rpc_retries,
         health_probe_s=args.probe_interval,
         write_quorum=args.write_quorum,
+        serve=ServeConfig(cache_bytes=args.cache_bytes,
+                          readahead_batches=args.readahead,
+                          download_slots=args.download_slots,
+                          upload_slots=args.upload_slots,
+                          internal_slots=args.internal_slots,
+                          queue_depth=args.queue_depth,
+                          retry_after_s=args.retry_after,
+                          default_deadline_s=args.default_deadline,
+                          hedge_floor_s=args.hedge_floor,
+                          hedge_cap_s=args.hedge_cap,
+                          hedge_budget_per_s=args.hedge_budget),
         ingest=IngestConfig(window=args.ingest_window,
                             flush_bytes=args.ingest_flush_bytes,
                             credit_bytes=args.ingest_credit_bytes,
@@ -234,11 +247,40 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--write-quorum", type=int, default=2,
                        help="copies (the local one included) an upload "
                             "needs before it acknowledges")
+    serve.add_argument("--retry-after", type=float, default=1.0,
+                       help="Retry-After seconds advertised on 503 "
+                            "shed responses")
     serve.add_argument("--repair-interval", type=float, default=30.0,
                        help="seconds between repair cycles; 0 disables")
     serve.add_argument("--scrub-interval", type=float, default=3600.0,
                        help="seconds between local integrity sweeps; 0 "
                             "disables")
+    serve.add_argument("--cache-bytes", type=int, default=0,
+                       help="hot-chunk cache budget (serving tier); "
+                            "0 disables the cache + single-flight")
+    serve.add_argument("--readahead", type=int, default=0,
+                       help="streamed-download readahead depth (batches)")
+    serve.add_argument("--download-slots", type=int, default=0,
+                       help="concurrent download budget; 0 = unbounded")
+    serve.add_argument("--upload-slots", type=int, default=0,
+                       help="concurrent upload budget; 0 = unbounded")
+    serve.add_argument("--internal-slots", type=int, default=0,
+                       help="concurrent storage-plane bulk-op budget "
+                            "(store/get chunks); 0 = unbounded")
+    serve.add_argument("--queue-depth", type=int, default=64,
+                       help="waiters beyond the slots before 503 shedding")
+    serve.add_argument("--default-deadline", type=float, default=0.0,
+                       help="end-to-end deadline (seconds) stamped on "
+                            "HTTP requests without an X-Dfs-Deadline "
+                            "header; 0 = none")
+    serve.add_argument("--hedge-floor", type=float, default=0.02,
+                       help="minimum hedged-read delay (seconds) before "
+                            "a second replica is asked")
+    serve.add_argument("--hedge-cap", type=float, default=0.5,
+                       help="maximum hedged-read delay (seconds)")
+    serve.add_argument("--hedge-budget", type=float, default=0.0,
+                       help="hedge token-bucket refill per second; "
+                            "0 disables hedged reads (the default)")
     serve.add_argument("--ingest-window", type=int, default=2,
                        help="placement batches in flight while streaming")
     serve.add_argument("--ingest-flush-bytes", type=int,

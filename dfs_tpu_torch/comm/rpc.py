@@ -1,11 +1,19 @@
 """Async client of the internal storage plane (a port of dfs_tpu's
-``comm/rpc.py`` for the default configuration).
+``comm/rpc.py``).
 
 Per-peer pools of persistent :class:`FrameConnection`s, per-attempt
 connect and request timeouts, bounded retries with decorrelated-jitter
 backoff, and a per-peer retry budget. Placement-bearing ops carry the
 sender's ring epoch and map fingerprint (``repoch``/``rfp``), as dfs_tpu's
 client stamps them, so port and dfs_tpu nodes serve each other's frames.
+
+Every call is recorded per (peer, op) in :attr:`InternalClient.rpc_stats`
+(the hedge delay reads it). Under an end-to-end deadline
+(:mod:`dfs_tpu_torch.utils.deadline`) each attempt carries the remaining
+budget in the optional ``deadline`` header field; a call whose budget is
+gone is never sent, and a retry the budget cannot cover is not made
+(:class:`DeadlineExpired`). With ``coalesce_fetches`` concurrent
+``get_chunk`` calls of one digest to one peer share one transfer.
 
 Ops: ``store_chunks`` (with the receiver's hash echo) and its windowed
 form, ``has_chunks``, ``get_chunk(s)``, ``get_manifest``, ``announce``,
@@ -23,6 +31,9 @@ from dfs_tpu_torch.comm.wire import (Buffer, FrameConnection, WireError,
                                      buffers_nbytes, pack_chunks,
                                      unpack_chunks)
 from dfs_tpu_torch.config import PeerAddr
+from dfs_tpu_torch.obs import RpcStats
+from dfs_tpu_torch.serve.singleflight import SingleFlight
+from dfs_tpu_torch.utils import deadline
 from dfs_tpu_torch.utils.aio import gather_abort_siblings
 
 
@@ -38,6 +49,12 @@ class RpcUnreachable(RpcError):
 class RpcRemoteError(RpcError):
     """The peer answered with an application-level error (chunk not
     found, unknown op, ring mismatch); says nothing about liveness."""
+
+
+class DeadlineExpired(RpcError):
+    """The caller's end-to-end deadline ran out before (or between)
+    attempts: no frame is sent and no retry is paid. Not RpcUnreachable:
+    an expired budget says nothing about the peer's liveness."""
 
 
 # ops that carry the sender's ring epoch + fingerprint
@@ -103,14 +120,19 @@ class InternalClient:
 
     def __init__(self, connect_timeout_s: float = 2.0,
                  request_timeout_s: float = 10.0, retries: int = 3,
-                 ring=None) -> None:
+                 coalesce_fetches: bool = False, ring=None) -> None:
         self.connect_timeout_s = connect_timeout_s
         self.request_timeout_s = request_timeout_s
         self.retries = retries
         self._ring = ring
         self.retry_budget = RetryBudget()
+        # per-(peer, op) calls, latency, bytes, errors, retries
+        self.rpc_stats = RpcStats()
         self._backoff_rng = random.Random()
         self._pool: dict[tuple[str, int], list[FrameConnection]] = {}
+        # per-(peer, digest) single-flight of get_chunk (the serving
+        # tier's); None keeps one call per get_chunk
+        self._flight = SingleFlight() if coalesce_fetches else None
 
     def _checkout(self, peer: PeerAddr) -> FrameConnection | None:
         pool = self._pool.get((peer.host, peer.internal_port))
@@ -140,11 +162,14 @@ class InternalClient:
         return self.request_timeout_s + n_bytes / self._BULK_BYTES_PER_S
 
     async def _request(self, conn: FrameConnection, header: dict, body,
-                       timeout_s: float | None) -> tuple[dict, memoryview]:
+                       timeout_s: float | None,
+                       acct: dict) -> tuple[dict, memoryview]:
         t = self.request_timeout_s if timeout_s is None \
             else max(self.request_timeout_s, timeout_s)
-        await asyncio.wait_for(conn.send(header, body), timeout=t)
-        resp, rbody, _ = await asyncio.wait_for(conn.reply(), timeout=t)
+        acct["out"] += await asyncio.wait_for(conn.send(header, body),
+                                              timeout=t)
+        resp, rbody, nrecv = await asyncio.wait_for(conn.reply(), timeout=t)
+        acct["in"] += nrecv
         return resp, rbody
 
     async def _dial(self, peer: PeerAddr) -> FrameConnection:
@@ -153,14 +178,23 @@ class InternalClient:
             timeout=self.connect_timeout_s)
 
     async def _call_once(self, peer: PeerAddr, header: dict, body,
-                         timeout_s: float | None
+                         timeout_s: float | None, acct: dict
                          ) -> tuple[dict, memoryview]:
+        rem = deadline.remaining()
+        if rem is not None:
+            if rem <= 0:
+                # expired work never reaches the wire
+                raise DeadlineExpired(
+                    f"peer {peer.node_id}: deadline expired before send")
+            # the remaining budget, re-stamped on every attempt
+            header["deadline"] = round(rem, 4)
         conn = self._checkout(peer)
         reused = conn is not None
         if conn is None:
             conn = await self._dial(peer)
         try:
-            resp, rbody = await self._request(conn, header, body, timeout_s)
+            resp, rbody = await self._request(conn, header, body, timeout_s,
+                                              acct)
         except (ConnectionError, asyncio.IncompleteReadError, WireError):
             # a pooled connection the server closed while idle fails on
             # its first frame: retry ONCE on a fresh dial. A timeout does
@@ -171,7 +205,7 @@ class InternalClient:
             conn = await self._dial(peer)
             try:
                 resp, rbody = await self._request(conn, header, body,
-                                                  timeout_s)
+                                                  timeout_s, acct)
             except BaseException:
                 conn.close()
                 raise
@@ -195,21 +229,45 @@ class InternalClient:
         wire unjoined; the reply body is a read-only view of the reply
         frame. ``retries`` overrides the attempt count (1 for a peer the
         health monitor believes dead); ``timeout_s`` raises, never lowers,
-        the per-attempt budget."""
+        the per-attempt budget. Recorded in :attr:`rpc_stats` (frame
+        bytes summed over the attempts)."""
         if self._ring is not None and header.get("op") in _EPOCH_OPS \
                 and "repoch" not in header:
             header["repoch"] = self._ring.epoch
             header["rfp"] = self._ring.current.fingerprint
+        op = str(header.get("op"))
+        t0 = time.perf_counter()
+        acct = {"out": 0, "in": 0}
+        failed = True
+        try:
+            out = await self._call_retrying(peer, header, body, retries,
+                                            timeout_s, acct)
+            failed = False
+            return out
+        finally:
+            self.rpc_stats.record(peer.node_id, op,
+                                  time.perf_counter() - t0,
+                                  bytes_out=acct["out"],
+                                  bytes_in=acct["in"], error=failed)
+
+    async def _call_retrying(self, peer: PeerAddr, header: dict, body,
+                             retries: int | None, timeout_s: float | None,
+                             acct: dict) -> tuple[dict, memoryview]:
         attempts = retries if retries is not None else self.retries
+        op = str(header.get("op"))
         last: Exception | None = None
         prev_sleep = self._BACKOFF_BASE_S
         for attempt in range(attempts):
-            if attempt and not self.retry_budget.take(peer.node_id):
-                raise RpcUnreachable(
-                    f"peer {peer.node_id} retry budget exhausted after "
-                    f"{attempt} attempt(s): {type(last).__name__}: {last}")
+            if attempt:
+                if not self.retry_budget.take(peer.node_id):
+                    raise RpcUnreachable(
+                        f"peer {peer.node_id} retry budget exhausted "
+                        f"after {attempt} attempt(s): "
+                        f"{type(last).__name__}: {last}")
+                self.rpc_stats.retry(peer.node_id, op)
             try:
-                return await self._call_once(peer, header, body, timeout_s)
+                return await self._call_once(peer, header, body, timeout_s,
+                                             acct)
             except RpcError:
                 raise            # application error: retrying won't help
             except (OSError, asyncio.TimeoutError, RuntimeError) as e:
@@ -219,6 +277,15 @@ class InternalClient:
                         self._BACKOFF_CAP_S,
                         self._backoff_rng.uniform(self._BACKOFF_BASE_S,
                                                   3.0 * prev_sleep))
+                    rem = deadline.remaining()
+                    if rem is not None \
+                            and rem < prev_sleep + self.connect_timeout_s:
+                        # the budget cannot cover the backoff plus even a
+                        # connect: another attempt is waste
+                        raise DeadlineExpired(
+                            f"peer {peer.node_id} {op}: deadline cannot "
+                            f"cover another attempt ({rem:.3f}s left): "
+                            f"{type(e).__name__}: {e}") from e
                     await asyncio.sleep(prev_sleep)
         raise RpcUnreachable(
             f"peer {peer.node_id} unreachable after {attempts} attempts: "
@@ -286,8 +353,27 @@ class InternalClient:
                                "fresh": fresh})
 
     async def get_chunk(self, peer: PeerAddr, digest: str) -> memoryview:
-        _, body = await self.call(peer, {"op": "get_chunk",
-                                         "digest": digest})
+        """One chunk as a read-only view of the reply frame. With
+        ``coalesce_fetches``, concurrent calls for one (peer, digest)
+        share one transfer; a leader's failure reaches its waiters as an
+        RpcError (never its CancelledError) and clears the key."""
+        if self._flight is None:
+            _, body = await self.call(peer, {"op": "get_chunk",
+                                             "digest": digest})
+            return body
+        key = (peer.host, peer.internal_port, digest)
+        leader, fut = self._flight.claim(key)
+        if not leader:
+            return await self._flight.wait(fut)
+        try:
+            _, body = await self.call(peer, {"op": "get_chunk",
+                                             "digest": digest})
+        except BaseException as e:
+            exc = e if isinstance(e, RpcError) else RpcRemoteError(
+                f"coalesced fetch aborted: {type(e).__name__}: {e}")
+            self._flight.reject(key, exc)
+            raise
+        self._flight.resolve(key, body)
         return body
 
     async def get_chunks(self, peer: PeerAddr, digests: list[str],

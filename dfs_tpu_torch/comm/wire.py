@@ -11,8 +11,10 @@ frames. A frame is::
 The header is ``json.dumps(header, separators=(",", ":"))``. Chunk
 batches put (digest, length) pairs in the header and concatenate the raw
 bytes in the body. Receivers ignore header fields they do not know, so
-dfs_tpu's optional ``trace`` and ``deadline`` fields pass through a port
-node unread.
+dfs_tpu's optional ``trace`` field passes through a port node unread. The
+optional ``deadline`` field (the sender's remaining end-to-end budget in
+seconds) is honoured: a port node sends it under a deadline, and drops a
+frame whose budget ran out before its op reaches the CAS.
 
 Both directions are zero-copy as in dfs_tpu: a body may be a sequence of
 buffers written one by one to the transport (never joined), and the

@@ -10,9 +10,12 @@
 - :class:`DurabilityConfig` — fsync before the ack, or not.
 - :class:`SimConfig` — the similarity plane (min-hash sketches, band
   index, delta-encoded chunks), default off.
+- :class:`ServeConfig` — the serving tier (hot-chunk cache, single-flight,
+  admission gates, deadlines, hedged reads and writes, readahead), default
+  off.
 - :class:`NodeConfig` — one node. It holds only the fields the port's
-  runtime honours; dfs_tpu's other default-off planes (serve tier, index,
-  tier, chaos, elastic ring, census history, journal) are absent, not
+  runtime honours; dfs_tpu's other default-off planes (index, tier,
+  chaos, elastic ring, census history, journal, tracing) are absent, not
   accepted and ignored. ``device`` is the port's own: ``None`` means the
   CUDA card (raising without one), ``"cpu"`` the plain versions.
 """
@@ -244,6 +247,51 @@ class SimConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The serving tier (:mod:`dfs_tpu_torch.serve`), a copy of dfs_tpu's:
+    hot-chunk cache, single-flight coalescing, admission control,
+    end-to-end deadlines, hedged reads and writes, readahead.
+
+    Everything defaults off: a node built from ``ServeConfig()`` runs the
+    read, write and internal paths it runs without the tier; each knob
+    enables one component.
+    """
+
+    cache_bytes: int = 0        # hot-chunk cache budget; 0 = no cache
+                                # (and no single-flight read path: the
+                                # two ride one switch)
+    readahead_batches: int = 0  # streamed-download readahead depth K;
+                                # 0 = fetch batches one at a time
+    download_slots: int = 0     # concurrent GET /download budget; 0 = no
+                                # gate
+    upload_slots: int = 0       # concurrent POST /upload budget
+    internal_slots: int = 0     # concurrent storage-plane bulk ops
+    queue_depth: int = 64       # waiters beyond the slots before shedding
+    retry_after_s: float = 1.0  # advertised in a 503's Retry-After
+    default_deadline_s: float = 0.0  # deadline stamped on client routes
+                                # without an X-Dfs-Deadline header; 0 = none
+    hedge_floor_s: float = 0.02  # never hedge sooner than this
+    hedge_cap_s: float = 0.5    # hedge a replica slower than this even if
+                                # its history says it used to be slower
+    hedge_budget_per_s: float = 0.0  # hedge token-bucket refill per
+                                # second; the master switch, 0 = no hedging
+
+    def __post_init__(self) -> None:
+        if self.cache_bytes < 0:
+            raise ValueError("cache_bytes must be >= 0")
+        if self.readahead_batches < 0:
+            raise ValueError("readahead_batches must be >= 0")
+        if self.queue_depth < 0:
+            raise ValueError("queue_depth must be >= 0")
+        if self.default_deadline_s < 0:
+            raise ValueError("default_deadline_s must be >= 0")
+        if self.hedge_floor_s < 0 or self.hedge_cap_s < self.hedge_floor_s:
+            raise ValueError("need 0 <= hedge_floor_s <= hedge_cap_s")
+        if self.hedge_budget_per_s < 0:
+            raise ValueError("hedge_budget_per_s must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class NodeConfig:
     """One node of a port cluster (module docstring)."""
 
@@ -269,6 +317,9 @@ class NodeConfig:
     # similarity plane: the default SimConfig() builds no sketcher, no
     # band index and no delta tree
     sim: SimConfig = dataclasses.field(default_factory=SimConfig)
+    # serving tier: the default ServeConfig() builds no cache, no gate
+    # and no hedge policy
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
     @property
     def self_addr(self) -> PeerAddr:

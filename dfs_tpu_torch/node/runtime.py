@@ -30,14 +30,24 @@ device and the CAS may store it as a delta against a similar resident
 base; a delta's base is pinned against ``delete_chunks``, relocation and
 GC, and scrub queues a missing base for repair.
 
-What dfs_tpu builds only when configured — the serving tier, the index,
-tiering, chaos, the elastic ring, the census history, the journal,
-tracing, deadlines, hedging — is not ported.
+The serving tier (:mod:`dfs_tpu_torch.serve`, ``NodeConfig.serve``) is
+wired where dfs_tpu wires it: the hot-chunk cache and per-digest
+single-flight in front of the verified gather (``_fetch_verified``),
+readahead of streamed downloads, admission gates on the HTTP routes and on
+the bulk internal ops, end-to-end deadlines (``X-Dfs-Deadline``, the wire's
+``deadline`` field, dropped at dispatch and before a read), hedged reads
+(``_fetch_chunk``, the batched gather) and hedged replication stores. The
+default ``ServeConfig()`` builds no cache, gate or hedge policy and runs
+the paths as they are without the tier.
+
+What dfs_tpu builds only when configured — the index, tiering, chaos, the
+elastic ring, the census history, the journal, tracing — is not ported.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import errno
 import math
 import queue as _queue
@@ -50,7 +60,8 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from dfs_tpu_torch.api.http import make_http_handler
-from dfs_tpu_torch.comm.rpc import InternalClient, RpcError, RpcUnreachable
+from dfs_tpu_torch.comm.rpc import (DeadlineExpired, InternalClient,
+                                    RpcError, RpcUnreachable)
 from dfs_tpu_torch.comm.wire import (FrameServerProtocol, WireError,
                                      encode_frame, pack_chunks, unpack_chunks)
 from dfs_tpu_torch.config import NodeConfig
@@ -62,8 +73,10 @@ from dfs_tpu_torch.ops import ec as ec_ops
 from dfs_tpu_torch.node.health import HealthMonitor
 from dfs_tpu_torch.ring import RingMap
 from dfs_tpu_torch.ring.manager import RingManager
+from dfs_tpu_torch.serve import BatchPrefetcher, ServingTier
 from dfs_tpu_torch.store.aio import AsyncChunkStore
 from dfs_tpu_torch.store.cas import NodeStore
+from dfs_tpu_torch.utils import deadline
 from dfs_tpu_torch.utils.aio import gather_abort_siblings
 from dfs_tpu_torch.utils.hashing import (is_hex_digest, sha256_hex,
                                          sha256_many_hex, sha256_new)
@@ -74,6 +87,9 @@ from dfs_tpu_torch.utils.trace import LatencyRecorder, span
 _OPS = frozenset({"store_chunks", "has_chunks", "announce", "tombstones",
                   "list_manifests", "get_chunk", "get_chunks",
                   "get_manifest", "delete", "delete_chunks", "health"})
+# the bulk ops: the internal admission gate bounds these only, so a health
+# probe never queues behind transfers and makes a busy node look dead
+_HEAVY_OPS = frozenset({"store_chunks", "get_chunk", "get_chunks"})
 
 
 class UploadError(RuntimeError):
@@ -91,6 +107,12 @@ class NotFoundError(KeyError):
 
 class DownloadError(RuntimeError):
     pass
+
+
+class DeadlineExceeded(DownloadError):
+    """The caller's end-to-end deadline expired during a read: HTTP 503 +
+    Retry-After, never a 500 (the cluster is healthy, the budget is not),
+    and the fetch walks stop instead of touring every candidate."""
 
 
 class RangeNotSatisfiable(DownloadError):
@@ -217,9 +239,12 @@ class StorageNodeServer:
         self._STREAM_FLUSH_BYTES = cfg.ingest.flush_bytes
         self.client = InternalClient(cfg.connect_timeout_s,
                                      cfg.request_timeout_s, cfg.retries,
-                                     ring=self.ring)
+                                     coalesce_fetches=cfg.serve.cache_bytes
+                                     > 0, ring=self.ring)
         self.health = HealthMonitor(cfg.cluster, cfg.node_id, self.client,
                                     probe_interval_s=cfg.health_probe_s)
+        # the serving tier: with ServeConfig() every component is off
+        self.serve = ServingTier(cfg.serve)
         self._repair_lock = asyncio.Lock()
         self.under_replicated: set[str] = set()  # digests needing repair
         self._ec_encode_device: str | None = None  # where EC last encoded
@@ -284,11 +309,27 @@ class StorageNodeServer:
         of the op."""
         op = header.get("op")
         name = f"peer.{op}" if op in _OPS else "peer.other"
-        with span(name, self.latency):
-            try:
-                resp, rbody = await self._dispatch(header, body)
-            except Exception as e:  # noqa: BLE001 — answered to the peer
-                resp, rbody = {"ok": False, "error": str(e)}, b""
+        # the sender's remaining budget (the optional wire field) starts
+        # this hop's own countdown; absent = no deadline
+        budget = deadline.parse_wire(header.get("deadline"))
+        dl_token = deadline.activate(budget) if budget is not None \
+            else None
+        try:
+            with span(name, self.latency):
+                try:
+                    gate = self.serve.admission.internal
+                    if gate.enabled and op in _HEAVY_OPS:
+                        # a shed op reaches the peer as an error reply
+                        async with gate.slot():
+                            resp, rbody = await self._dispatch(header,
+                                                               body)
+                    else:
+                        resp, rbody = await self._dispatch(header, body)
+                except Exception as e:  # noqa: BLE001 — answered to the peer
+                    resp, rbody = {"ok": False, "error": str(e)}, b""
+        finally:
+            if dl_token is not None:
+                deadline.restore(dl_token)
         head, bufs, _ = encode_frame(resp, rbody)
         try:
             conn.send_encoded(head, bufs)
@@ -299,6 +340,11 @@ class StorageNodeServer:
 
     async def _dispatch(self, header: dict, body) -> tuple[dict, object]:
         op = header.get("op")
+        if deadline.expired():
+            # the caller's budget ran out while the frame queued or flew:
+            # dropped before any CAS job, hash pass or write
+            self.counters.inc("deadline_drops")
+            return {"ok": False, "error": "deadline expired"}, b""
         repoch, rfp = header.get("repoch"), header.get("rfp")
         ring = self.ring.current
         if isinstance(repoch, int) and not isinstance(repoch, bool) \
@@ -400,6 +446,7 @@ class StorageNodeServer:
                 return removed, refused
 
             removed, refused = await asyncio.to_thread(reclaim)
+            self.serve.drop_cached(removed)
             return {"ok": True, "removed": removed, "refused": refused}, b""
         if op == "health":
             return {"ok": True, "nodeId": self.cfg.node_id,
@@ -848,25 +895,53 @@ class StorageNodeServer:
                     slices = staged if not have else self._slice_payloads(
                         missing, self._REPLICA_SLICE_BYTES)
 
-                    def on_slice(part: list, echoed: list[str]) -> None:
-                        # a verified slice is durable on the peer even if
-                        # a later slice fails: credited at once
-                        sent = {d for d, _ in part}
-                        if sent & set(echoed) != sent:
-                            raise RpcError(
-                                f"hash echo mismatch from node {node_id}")
-                        for d, b in part:
-                            copies[d] += 1
-                            if (node_id, d) not in counted:
-                                counted.add((node_id, d))
-                                stats["transferredBytes"] += len(b)
+                    def make_on_slice(nid: int):
+                        def on_slice(part: list, echoed: list[str]) -> None:
+                            # a verified slice is durable on the peer even
+                            # if a later slice fails: credited at once
+                            sent = {d for d, _ in part}
+                            if sent & set(echoed) != sent:
+                                raise RpcError(
+                                    f"hash echo mismatch from node {nid}")
+                            for d, b in part:
+                                copies[d] += 1
+                                if nid != node_id:
+                                    # a hedge's backup copy sits off its
+                                    # owners: repair moves it home
+                                    self.under_replicated.add(d)
+                                if (nid, d) not in counted:
+                                    counted.add((nid, d))
+                                    stats["transferredBytes"] += len(b)
+                        return on_slice
 
-                    peak = await self.client.store_chunks_windowed(
-                        peer, file_id, slices,
-                        window=self.cfg.ingest.slice_inflight,
-                        on_slice=on_slice)
-                    self.ingest_stalls.peak("sliceInflight", peak)
+                    # hedged write: the first digest with a live holder
+                    # outside its owners names the backup train
+                    backup_id = None
+                    if self.serve.hedge is not None:
+                        for dg, _ in missing:
+                            primaries = set(primary_targets(dg))
+                            backup_id = next(
+                                (t for t in handoff_ring(dg)
+                                 if t != node_id and t != me
+                                 and t not in primaries
+                                 and self.health.is_alive(t)), None)
+                            if backup_id is not None:
+                                break
+                    if backup_id is None:
+                        peak = await self.client.store_chunks_windowed(
+                            peer, file_id, slices,
+                            window=self.cfg.ingest.slice_inflight,
+                            on_slice=make_on_slice(node_id))
+                        self.ingest_stalls.peak("sliceInflight", peak)
+                    else:
+                        await self._store_hedged(node_id, backup_id,
+                                                 file_id, slices,
+                                                 make_on_slice)
                 self.health.mark_alive(node_id)
+            except DeadlineExpired:
+                # the caller's budget died, not the peer: the upload
+                # aborts as a 503, not as a replication failure
+                raise
             except RpcError as e:
                 self.log.warning("replication to node %d failed: %s",
                                  node_id, e)
@@ -932,6 +1007,92 @@ class StorageNodeServer:
         stats["degraded"] = stats["degraded"] or bool(
             handoff or any(n < rf for n in copies.values()))
 
+    async def _store_hedged(self, primary_id: int, backup_id: int,
+                            file_id: str, slices: list,
+                            make_on_slice) -> None:
+        """Hedged replication store, as dfs_tpu's: the slice train goes to
+        the primary; if it outlives the hedge delay and the token bucket
+        allows, a second train of the same slices goes to ``backup_id``.
+        Every hash-echo-verified slice is a real copy wherever it landed,
+        so either train's success completes the call and a cancelled loser
+        keeps what it landed. Raises only when both trains fail (the
+        primary's error, so the caller's health handling targets it)."""
+        hedge = self.serve.hedge
+        window = self.cfg.ingest.slice_inflight
+
+        async def send_train(nid: int):
+            return await self.client.store_chunks_windowed(
+                self.cfg.cluster.peer(nid), file_id, slices,
+                window=window, on_slice=make_on_slice(nid))
+
+        task = asyncio.create_task(send_train(primary_id))
+        btask: asyncio.Task | None = None
+
+        async def reap_on_cancel() -> None:
+            # our caller was cancelled: the trains die with it
+            task.cancel()
+            if btask is not None:
+                btask.cancel()
+            await asyncio.gather(task, *([btask] if btask is not None
+                                         else []), return_exceptions=True)
+
+        delay = hedge.delay_s(
+            self.client.rpc_stats.recent_best_mean("store_chunks"))
+        try:
+            peak = await asyncio.wait_for(asyncio.shield(task), delay)
+            self.ingest_stalls.peak("sliceInflight", peak)
+            return
+        except asyncio.TimeoutError:
+            pass                        # the primary is still in flight
+        except asyncio.CancelledError:
+            await reap_on_cancel()
+            raise
+        if not hedge.take():
+            try:
+                peak = await task
+            except asyncio.CancelledError:
+                await reap_on_cancel()
+                raise
+            self.ingest_stalls.peak("sliceInflight", peak)
+            return
+        hedge.note_fired()
+        btask = asyncio.create_task(send_train(backup_id))
+        try:
+            done, _ = await asyncio.wait(
+                {task, btask}, return_when=asyncio.FIRST_COMPLETED)
+        except asyncio.CancelledError:
+            await reap_on_cancel()
+            raise
+        first, other = (task, btask) if task in done else (btask, task)
+        first_id, other_id = (primary_id, backup_id) if first is task \
+            else (backup_id, primary_id)
+        ferr = first.exception()
+        if ferr is None:
+            other.cancel()
+            with contextlib.suppress(asyncio.CancelledError, RpcError,
+                                     WireError):
+                await other     # reaped: the winner's train landed
+            if not other.cancelled() \
+                    and isinstance(other.exception(), RpcUnreachable):
+                self.health.mark_dead(other_id)
+            if first_id == backup_id:
+                hedge.note_won()
+            else:
+                self.ingest_stalls.peak("sliceInflight", first.result())
+            return
+        # the first train failed: the other side decides, no third train
+        if isinstance(ferr, RpcUnreachable):
+            self.health.mark_dead(first_id)
+        try:
+            await other
+        except asyncio.CancelledError:
+            await reap_on_cancel()
+            raise
+        except (RpcError, WireError) as e:
+            raise (ferr if first_id == primary_id else e) from None
+        if other_id == backup_id:
+            hedge.note_won()
+
     async def _finalize_upload(self, manifest: Manifest) -> None:
         """The ack: the manifest saved last (fsync'd, off the loop), then
         a best-effort announce to every peer. A fresh upload clears a
@@ -978,11 +1139,19 @@ class StorageNodeServer:
             (t for t in self.cfg.cluster.sorted_ids()
              if t != me and t not in candidates),
             key=lambda t: not self.health.is_alive(t))
+        if self.serve.hedge is not None:
+            # the same walk, but a primary that outlives the hedge delay
+            # races the next replica
+            return await self._fetch_chunk_hedged(digest, length,
+                                                  candidates)
         for target in candidates:
             try:
                 data = await self.client.get_chunk(
                     self.cfg.cluster.peer(target), digest)
                 self.health.mark_alive(target)
+            except DeadlineExpired as e:
+                # the budget died, not the replicas: stop the walk
+                raise DeadlineExceeded(str(e)) from e
             except RpcUnreachable:
                 self.health.mark_dead(target)
                 continue
@@ -995,6 +1164,193 @@ class StorageNodeServer:
             self.log.warning("corrupt chunk %s from node %d", digest[:12],
                              target)
         raise DownloadError(f"Could not retrieve chunk {digest[:12]}…")
+
+    async def _fetch_chunk_hedged(self, digest: str, length: int,
+                                  candidates: list[int]) -> bytes:
+        """The hedged walk of :meth:`_fetch_chunk`, as dfs_tpu's: a
+        replica that has not answered within the hedge delay races the
+        next candidate, the first VERIFIED answer wins and the loser is
+        cancelled; every hedge takes a token. A replica's outcome is
+        handled as in the serial walk."""
+        hedge = self.serve.hedge
+
+        async def attempt(nid: int) -> bytes | None:
+            """One replica's verified bytes, or None (miss, corrupt,
+            dead)."""
+            try:
+                data = await self.client.get_chunk(
+                    self.cfg.cluster.peer(nid), digest)
+                self.health.mark_alive(nid)
+            except DeadlineExpired as e:
+                raise DeadlineExceeded(str(e)) from e  # stop the walk
+            except RpcUnreachable:
+                self.health.mark_dead(nid)
+                return None
+            except RpcError:
+                self.counters.inc("remote_chunk_misses")
+                return None
+            if len(data) == length and sha256_hex(data) == digest:
+                return data
+            self.log.warning("corrupt chunk %s from node %d",
+                             digest[:12], nid)
+            return None
+
+        def accept(data: bytes) -> bytes:
+            self.counters.inc("chunks_fetched_remote")
+            return data
+
+        i = 0
+        while i < len(candidates):
+            nid = candidates[i]
+            backup_id = candidates[i + 1] if i + 1 < len(candidates) \
+                else None
+            if backup_id is None:
+                data = await attempt(nid)
+                if data is not None:
+                    return accept(data)
+                i += 1
+                continue
+            task = asyncio.create_task(attempt(nid))
+            btask: asyncio.Task | None = None
+            try:
+                # seeded by the BEST replica's windowed mean, not the
+                # primary's own
+                delay = hedge.delay_s(
+                    self.client.rpc_stats.recent_best_mean("get_chunk"))
+                try:
+                    data = await asyncio.wait_for(asyncio.shield(task),
+                                                  delay)
+                except asyncio.TimeoutError:
+                    data = None          # the hedge trigger
+                if task.done():
+                    # answered (or failed fast) within the delay
+                    if data is None:
+                        data = task.result()
+                    if data is not None:
+                        return accept(data)
+                    i += 1
+                    continue
+                if not hedge.take():
+                    # budget empty: wait the primary out
+                    data = await task
+                    if data is not None:
+                        return accept(data)
+                    i += 1
+                    continue
+                hedge.note_fired()
+                btask = asyncio.create_task(attempt(backup_id))
+                done, _ = await asyncio.wait(
+                    {task, btask}, return_when=asyncio.FIRST_COMPLETED)
+                first, other = (task, btask) if task in done \
+                    else (btask, task)
+                first_id, other_id = (nid, backup_id) if first is task \
+                    else (backup_id, nid)
+                data = first.result()
+                src = first_id
+                if data is None:
+                    # the first finisher missed: wait on the other
+                    data = await other
+                    src = other_id
+                else:
+                    other.cancel()       # the loser
+                    with contextlib.suppress(asyncio.CancelledError):
+                        await other
+            except (asyncio.CancelledError, DeadlineExceeded):
+                # our caller was cancelled or the deadline died mid-race:
+                # the racers die with it
+                task.cancel()
+                if btask is not None:
+                    btask.cancel()
+                await asyncio.gather(task, *([btask] if btask is not None
+                                             else []),
+                                     return_exceptions=True)
+                raise
+            if data is not None:
+                if src == backup_id:
+                    hedge.note_won()
+                return accept(data)
+            i += 2                       # both replicas consumed
+        raise DownloadError(f"Could not retrieve chunk {digest[:12]}…")
+
+    async def _hedged_get_chunks(self, primary_id: int, backup_id: int,
+                                 digests: list[str], expect: int
+                                 ) -> tuple[list, int]:
+        """Hedged batched fetch, as dfs_tpu's: ``get_chunks`` to the
+        primary; past the hedge delay, with a token, the same batch to the
+        backup; the first reply wins and the loser is cancelled. Returns
+        (pairs, winner id); raises only when both sides fail (the
+        primary's error)."""
+        hedge = self.serve.hedge
+
+        async def fetch_from(nid: int):
+            return await self.client.get_chunks(
+                self.cfg.cluster.peer(nid), digests,
+                retries=None if self.health.is_alive(nid) else 1,
+                expect_bytes=expect)
+
+        task = asyncio.create_task(fetch_from(primary_id))
+        btask: asyncio.Task | None = None
+
+        async def reap_on_cancel() -> None:
+            # our caller was cancelled: the racers die with it
+            task.cancel()
+            if btask is not None:
+                btask.cancel()
+            await asyncio.gather(task, *([btask] if btask is not None
+                                         else []), return_exceptions=True)
+
+        delay = hedge.delay_s(
+            self.client.rpc_stats.recent_best_mean("get_chunks"))
+        try:
+            return await asyncio.wait_for(asyncio.shield(task),
+                                          delay), primary_id
+        except asyncio.TimeoutError:
+            pass                        # the primary is still in flight
+        except asyncio.CancelledError:
+            await reap_on_cancel()
+            raise
+        if not hedge.take():
+            try:
+                return await task, primary_id
+            except asyncio.CancelledError:
+                await reap_on_cancel()
+                raise
+        hedge.note_fired()
+        btask = asyncio.create_task(fetch_from(backup_id))
+        try:
+            done, _ = await asyncio.wait(
+                {task, btask}, return_when=asyncio.FIRST_COMPLETED)
+        except asyncio.CancelledError:
+            await reap_on_cancel()
+            raise
+        first, other = (task, btask) if task in done else (btask, task)
+        first_id, other_id = (primary_id, backup_id) if first is task \
+            else (backup_id, primary_id)
+        ferr = first.exception()
+        if ferr is None:
+            other.cancel()
+            with contextlib.suppress(asyncio.CancelledError, RpcError,
+                                     WireError):
+                await other     # reaped: the winner's reply is the result
+            if not other.cancelled() \
+                    and isinstance(other.exception(), RpcUnreachable):
+                self.health.mark_dead(other_id)
+            if first_id == backup_id:
+                hedge.note_won()
+            return first.result(), first_id
+        # the first finisher failed: the other side decides, no third RPC
+        if isinstance(ferr, RpcUnreachable):
+            self.health.mark_dead(first_id)
+        try:
+            got = await other
+        except asyncio.CancelledError:
+            await reap_on_cancel()
+            raise
+        except (RpcError, WireError) as e:
+            raise (ferr if first_id == primary_id else e) from None
+        if other_id == backup_id:
+            hedge.note_won()
+        return got, other_id
 
     async def _gather_chunks(self, manifest: Manifest | None, chunks=None,
                              strict: bool = True,
@@ -1060,12 +1416,35 @@ class StorageNodeServer:
                 nonlocal batch, size
                 if not batch:
                     return
+                # hedge target of the batch: the most common next replica
+                # among its digests (what the backup lacks, the mop-up
+                # rounds fetch)
+                backup_id = None
+                if self.serve.hedge is not None:
+                    votes: dict[int, int] = {}
+                    for d in batch:
+                        for t in candidates_for(d):
+                            if t != node_id and t != me:
+                                votes[t] = votes.get(t, 0) + 1
+                                break
+                    if votes:
+                        backup_id = max(votes, key=votes.get)
+                src = node_id
                 try:
-                    got = await self.client.get_chunks(
-                        peer, batch,
-                        retries=None if self.health.is_alive(node_id) else 1,
-                        expect_bytes=sum(need[d] for d in batch))
-                    self.health.mark_alive(node_id)
+                    if backup_id is not None:
+                        got, src = await self._hedged_get_chunks(
+                            node_id, backup_id, list(batch),
+                            sum(need[d] for d in batch))
+                    else:
+                        got = await self.client.get_chunks(
+                            peer, batch,
+                            retries=None
+                            if self.health.is_alive(node_id) else 1,
+                            expect_bytes=sum(need[d] for d in batch))
+                    self.health.mark_alive(src)
+                except DeadlineExpired as e:
+                    # the budget died, not the peer: abort the gather
+                    raise DeadlineExceeded(str(e)) from e
                 except RpcUnreachable:
                     self.health.mark_dead(node_id)
                     got = []
@@ -1126,6 +1505,8 @@ class StorageNodeServer:
                         self.cfg.cluster.peer(nid), missing, retries=1)
                     for d in have:
                         claims.setdefault(d, nid)
+                except DeadlineExpired as e:
+                    raise DeadlineExceeded(str(e)) from e
                 except RpcError:
                     self.counters.inc("probe_failures")
 
@@ -1148,6 +1529,8 @@ class StorageNodeServer:
                 async with sem:
                     try:
                         out[d] = await self._fetch_chunk(d, need[d])
+                    except DeadlineExceeded:
+                        raise     # a dead budget ends the read
                     except DownloadError:
                         pass      # stays missing: raised or skipped below
 
@@ -1313,6 +1696,92 @@ class StorageNodeServer:
 
     async def _fetch_verified(self, manifest: Manifest, chunks: list,
                               strict: bool = True) -> dict:
+        """The serving tier's front of :meth:`_fetch_verified_direct`, as
+        dfs_tpu's. With the tier's cache (``cache_bytes > 0``) hot digests
+        come from the cache; cold ones are claimed per digest
+        (single-flight) and every digest this caller leads is fetched in
+        ONE batched direct gather, then cached and handed to the waiters.
+        A leader's failure rejects its claims without poisoning a retry;
+        a waiter whose flight failed fetches directly. Without the cache:
+        the direct path. An expired deadline is refused first."""
+        if deadline.expired():
+            # checked per batch: a mid-download expiry stops the rest
+            self.counters.inc("deadline_drops")
+            raise DeadlineExceeded("deadline expired")
+        serve = self.serve
+        if not serve.read_path_enabled:
+            return await self._fetch_verified_direct(manifest, chunks,
+                                                     strict)
+        length: dict[str, int] = {}
+        for c in chunks:
+            length.setdefault(c.digest, c.length)
+        out: dict = {}
+        waits: dict[str, asyncio.Future] = {}
+        mine: list[str] = []
+        for d in length:
+            b = serve.cache.get(d)
+            if b is not None:
+                out[d] = b
+                continue
+            leader, fut = serve.flight.claim(d)
+            if leader:
+                mine.append(d)
+            else:
+                waits[d] = fut
+        if mine:
+            refs = [ChunkRef(index=0, offset=0, length=length[d],
+                             digest=d) for d in mine]
+            try:
+                got = await self._fetch_verified_direct(
+                    manifest, refs, strict=False)
+            except BaseException as e:
+                # a cancelled leader (its client hung up) is a plain fetch
+                # failure to the waiters: their requests are alive
+                exc = e if isinstance(e, Exception) else DownloadError(
+                    "origin fetch cancelled")
+                for d in mine:
+                    serve.flight.reject(d, exc)
+                raise
+            for d in mine:
+                b = got.get(d)
+                if b is None:
+                    serve.flight.reject(d, DownloadError(
+                        f"Could not retrieve chunk {d[:12]}…"))
+                else:
+                    serve.cache.put(d, b)
+                    serve.flight.resolve(d, b)
+                    out[d] = b
+        failed_waits: list[str] = []
+        for d, fut in waits.items():
+            try:
+                out[d] = await serve.flight.wait(fut)
+            except DownloadError:
+                failed_waits.append(d)       # re-fetched just below
+            except asyncio.CancelledError:
+                if not fut.done():
+                    raise                    # WE were cancelled
+                failed_waits.append(d)       # the leader's flight died
+        if failed_waits:
+            # a rejected flight says nothing about this request: one
+            # batched direct attempt
+            refs = [ChunkRef(index=0, offset=0, length=length[d],
+                             digest=d) for d in failed_waits]
+            got = await self._fetch_verified_direct(
+                manifest, refs, strict=False)
+            for d in failed_waits:
+                b = got.get(d)
+                if b is not None:
+                    serve.cache.put(d, b)
+                    out[d] = b
+        missing = [d for d in length if d not in out]
+        if missing and strict:
+            raise DownloadError(
+                f"Could not retrieve chunk {missing[0][:12]}…")
+        return out
+
+    async def _fetch_verified_direct(self, manifest: Manifest,
+                                     chunks: list,
+                                     strict: bool = True) -> dict:
         """Gather chunks with the local copies digest-verified first: a
         rotten local copy is evicted, queued for repair and fetched from a
         replica instead."""
@@ -1326,6 +1795,7 @@ class StorageNodeServer:
                 good[d] = b
             else:
                 self.store.chunks.delete(d)
+                self.serve.drop_cached([d])
                 self.under_replicated.add(d)
                 self.log.warning("evicted corrupt local chunk %s on read",
                                  d[:12])
@@ -1385,29 +1855,46 @@ class StorageNodeServer:
 
         async def gen():
             nonlocal first
+            # readahead (ServeConfig.readahead_batches = K > 0): batches
+            # i+1..i+K fetch while batch i drains; memory stays K+1
+            # batches. Built here, not before the body starts: batch 0 is
+            # fetched above, and a body closed before its first iteration
+            # must own no fetch task (an unstarted generator's finally
+            # never runs)
+            pre: BatchPrefetcher | None = None
+            if self.serve.readahead_batches > 0 and len(batches) > 1:
+                pre = BatchPrefetcher(
+                    batches, lambda b: self._fetch_verified(manifest, b),
+                    self.serve.readahead_batches, start=1)
+                pre.prime()
             hasher = sha256_new()
             held = None
             total = 0
-            for i, batch in enumerate(batches):
-                if i:
-                    got = await self._fetch_verified(manifest, batch)
-                else:
-                    got, first = first, None
-                payloads = [got[c.digest] for c in batch]
-                await asyncio.to_thread(
-                    lambda ps=payloads: [hasher.update(p) for p in ps])
-                for b in payloads:
-                    if held is not None:
-                        total += len(held)
-                        yield held
-                    held = b
-            if hasher.hexdigest() != file_id:
-                raise DownloadError("File corrupted")
-            if held is not None:
-                total += len(held)
-                yield held
-            self.counters.inc("downloads")
-            self.counters.inc("download_bytes", total)
+            try:
+                for i, batch in enumerate(batches):
+                    if i:
+                        got = await (pre.get(i) if pre is not None else
+                                     self._fetch_verified(manifest, batch))
+                    else:
+                        got, first = first, None
+                    payloads = [got[c.digest] for c in batch]
+                    await asyncio.to_thread(
+                        lambda ps=payloads: [hasher.update(p) for p in ps])
+                    for b in payloads:
+                        if held is not None:
+                            total += len(held)
+                            yield held
+                        held = b
+                if hasher.hexdigest() != file_id:
+                    raise DownloadError("File corrupted")
+                if held is not None:
+                    total += len(held)
+                    yield held
+                self.counters.inc("downloads")
+                self.counters.inc("download_bytes", total)
+            finally:
+                if pre is not None:      # an abandoned body stops fetching
+                    await pre.close()
 
         return manifest, gen()
 
@@ -1475,6 +1962,12 @@ class StorageNodeServer:
         snap["retryBudget"] = self.client.retry_budget.stats()
         snap["ring"] = self.ring.stats()
         snap["sim"] = self.sim_stats()
+        snap["serve"] = self.serve.stats()
+        snap["rpcClient"] = {
+            f"{p}:{o}": {"count": r[0], "errors": r[1], "retries": r[2],
+                         "bytesOut": r[3], "bytesIn": r[4],
+                         "seconds": round(r[5], 6)}
+            for p, o, r in self.client.rpc_stats.rows()}
         return snap
 
     def sim_stats(self) -> dict:
@@ -1511,10 +2004,16 @@ class StorageNodeServer:
     def _forget_file(self, file_id: str, ts: float | None = None,
                      gc: bool = True) -> bool:
         """Tombstone a manifest and (``gc``) sweep the chunks no manifest
-        references any more. ``ts`` carries an origin deletion time."""
+        references any more. ``ts`` carries an origin deletion time. With
+        the cache on, the file's digests leave it too: it may hold chunks
+        this node only fetched from peers, which the GC cannot name."""
+        m = self.store.manifests.load(file_id) \
+            if self.serve.cache is not None else None
         found = self.store.manifests.delete(file_id, ts=ts)
         if gc:
-            self.store.gc()
+            self.serve.drop_cached(self.store.gc())
+        if m is not None:
+            self.serve.drop_cached(m.all_digests())
         return found
 
     async def delete(self, file_id: str) -> bool:
@@ -1572,7 +2071,7 @@ class StorageNodeServer:
                 known.add(fid)
                 applied += 1
         if applied:
-            await asyncio.to_thread(self.store.gc)
+            self.serve.drop_cached(await asyncio.to_thread(self.store.gc))
             self.log.info("anti-entropy: applied %d tombstones", applied)
         return applied
 
@@ -1751,11 +2250,13 @@ class StorageNodeServer:
 
         relocated = await asyncio.to_thread(relocate) if stray else []
         if relocated:
+            self.serve.drop_cached(relocated)
             self.counters.inc("relocated_chunks", len(relocated))
         # chunks of aborted streams (placed, never committed): the hour of
         # grace keeps in-flight uploads safe
         swept = await asyncio.to_thread(self.store.gc, 3600.0)
         if swept:
+            self.serve.drop_cached(swept)
             self.log.info("gc: swept %d aged orphan chunks", len(swept))
         self.counters.inc("repairs")
         return repaired
@@ -1811,8 +2312,10 @@ class StorageNodeServer:
                     # first, each delete releasing the next pin)
                     for dep in ch.delta_dependents(d):
                         if ch.delete(dep):
+                            self.serve.drop_cached([dep])
                             self.under_replicated.add(dep)
                     ch.delete(d)
+                self.serve.drop_cached([d])
                 self.under_replicated.add(d)
                 self.log.warning("scrub: corrupt chunk %s deleted", d[:12])
         self.counters.inc("scrubs")

@@ -436,3 +436,54 @@ def test_sim_sketcher_on_card(dev):
         got = got.view(torch.int32).cpu().numpy().view(np.uint32)
         idx = [i for i, d in enumerate(datas) if len(d) <= skt.window]
         assert np.array_equal(got, want[np.asarray(idx)[plan.order]])
+
+
+def test_serving_tier_cluster_on_card(dev, tmp_path):
+    """Two nodes chunking on the card with the serving tier on (cache,
+    readahead 2): an upload reads back byte-identical from both, the
+    second read of each from the cache."""
+    import asyncio
+    import socket
+
+    from dfs_tpu_torch.config import (CDCParams, ClusterConfig, NodeConfig,
+                                      PeerAddr, ServeConfig)
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+
+    socks = [socket.socket() for _ in range(4)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i + 1, host="127.0.0.1", port=ports[2 * i],
+                 internal_port=ports[2 * i + 1]) for i in range(2)),
+        replication_factor=2)
+    body = corpus(1_500_000, seed=8).tobytes()
+    serve = ServeConfig(cache_bytes=64 * 1024 * 1024, readahead_batches=2)
+
+    async def go():
+        nodes = {i: StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(min_size=64, avg_size=256, max_size=1024),
+            health_probe_s=0, device=str(dev), serve=serve))
+            for i in (1, 2)}
+        for n in nodes.values():
+            await n.start()
+        try:
+            for n in nodes.values():
+                n._FETCH_BATCH_BYTES = 256 * 1024     # readahead engages
+            m, _ = await nodes[1].upload(body, "serve.bin")
+            assert m.file_id == hashlib.sha256(body).hexdigest()
+            assert nodes[1].metrics()["frag"]["device"] == str(dev)
+            for n in nodes.values():
+                for _ in range(2):
+                    _, got = await n.download(m.file_id)
+                    assert bytes(got) == body
+                s = n.metrics()["serve"]
+                assert s["cache"]["hits"] > 0 and s["readaheadBatches"] == 2
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=120))

@@ -3,11 +3,15 @@ nodes of the port in one rf-2 cluster, on the CPU. They share the wire,
 the ring and the on-disk layout, so an upload through either kind gives
 the same fileId and chunk digests and either kind serves the other's
 files; the frame encoder and the ring fingerprint are held equal
-directly. With four port nodes, erasure-coded files cross both ways."""
+directly. With four port nodes, erasure-coded files cross both ways. An
+expired wire deadline is dropped by either kind, and the serving tier's
+cache and single-flight count the same on one read sequence."""
 
 import asyncio
 import hashlib
+import json
 import socket
+import urllib.request
 
 import numpy as np
 import pytest
@@ -284,3 +288,132 @@ def test_data_root_with_deltas_opens_in_the_other_package(tmp_path, writer):
         cur = nb
     assert sorted(r.gc(min_age_s=0.0)) == sorted(set(digests) - chain)
     assert r.chunks.get(digests[-1]) == last
+
+
+def test_expired_wire_deadline_is_dropped_both_ways(tmp_path):
+    """A frame whose ``deadline`` field says the budget is gone, sent by
+    dfs_tpu's RPC client to a port node and by the port's client to a
+    dfs_tpu node, is dropped at the receiver's dispatch and counted in
+    its ``deadline_drops``; a live budget is served."""
+    from dfs_tpu.comm.rpc import RpcRemoteError as RefRemoteError
+
+    from dfs_tpu_torch.comm.rpc import RpcRemoteError
+
+    ports = _free_ports(4)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(2)]
+    ref_cluster = RefCluster(peers=tuple(
+        RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+
+    async def go():
+        ref = RefServer(RefNodeConfig(
+            node_id=1, cluster=ref_cluster, data_root=tmp_path,
+            fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+            health_probe_s=0))
+        port = StorageNodeServer(NodeConfig(
+            node_id=2, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu"))
+        for n in (ref, port):
+            await n.start()
+        try:
+            for client, peer, node, err in (
+                    (ref.client, ref_cluster.peer(2), port,
+                     RefRemoteError),
+                    (port.client, cluster.peer(1), ref, RpcRemoteError)):
+                for budget in (0.0, -2.5):
+                    with pytest.raises(err, match="deadline expired"):
+                        await client.call(peer, {"op": "get_chunk",
+                                                 "digest": "0" * 64,
+                                                 "deadline": budget})
+                resp, _ = await client.call(peer, {"op": "health",
+                                                   "deadline": 30.0})
+                assert resp["ok"]
+                assert node.counters.snapshot()["deadline_drops"] == 2
+        finally:
+            for n in (ref, port):
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+def test_serve_counters_match_on_one_data_root(tmp_path):
+    """The same read sequence over HTTP on one data root, first by a
+    dfs_tpu node, then by a port node, each with the same
+    ServeConfig(cache_bytes=...) smaller than the file: equal /metrics
+    serve.cache and serve.flight counters."""
+    from dfs_tpu.config import ServeConfig as RefServeConfig
+
+    from dfs_tpu_torch.config import ServeConfig
+
+    body = corpus(60_000, seed=21)
+    budget = 24 * 1024
+
+    def cluster_of(kind):
+        p, q = _free_ports(2)
+        if kind == "ref":
+            return RefCluster(peers=(RefPeer(node_id=1, host="127.0.0.1",
+                                             port=p, internal_port=q),),
+                              replication_factor=1)
+        return ClusterConfig(peers=(PeerAddr(node_id=1, host="127.0.0.1",
+                                             port=p, internal_port=q),),
+                             replication_factor=1)
+
+    async def reads(node, port, fid):
+        c = (RefClient if isinstance(node, RefServer) else NodeClient)(
+            port=port, timeout_s=30)
+        assert await asyncio.to_thread(c.download, fid) == body
+        assert await asyncio.to_thread(c.download, fid) == body
+        def get(path, headers=None):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                         headers=headers or {})
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, r.read()
+
+        for lo, hi in ((0, 999), (30_000, 45_000), (0, 999)):
+            st, part = await asyncio.to_thread(
+                get, f"/download?fileId={fid}",
+                {"Range": f"bytes={lo}-{hi}"})
+            assert st == 206 and part == body[lo:hi + 1]
+        assert await asyncio.to_thread(c.download, fid) == body
+        return json.loads((await asyncio.to_thread(get, "/metrics"))[1])[
+            "serve"]
+
+    async def go():
+        rc = cluster_of("ref")
+        ref = RefServer(RefNodeConfig(
+            node_id=1, cluster=rc, data_root=tmp_path,
+            fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+            health_probe_s=0, serve=RefServeConfig(cache_bytes=budget)))
+        await ref.start()
+        try:
+            fid = (await asyncio.to_thread(
+                RefClient(port=rc.peers[0].port, timeout_s=30).upload,
+                body, "s.bin"))["fileId"]
+            want = await reads(ref, rc.peers[0].port, fid)
+        finally:
+            await ref.stop()
+        pc = cluster_of("port")
+        port = StorageNodeServer(NodeConfig(
+            node_id=1, cluster=pc, data_root=tmp_path,
+            cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu",
+            serve=ServeConfig(cache_bytes=budget)))
+        await port.start()
+        try:
+            got = await reads(port, pc.peers[0].port, fid)
+        finally:
+            await port.stop()
+        assert want["cache"]["evictions"] > 0 and want["cache"]["hits"] > 0
+
+        def counters(s):
+            cache = {k: v for k, v in s["cache"].items()
+                     if k != "temperature"}
+            hot = sorted((e["digest"], e["hits"], e["bytes"])
+                         for e in s["cache"]["temperature"])
+            return cache, hot, s["flight"]
+
+        assert counters(got) == counters(want)
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))

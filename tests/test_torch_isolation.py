@@ -1,7 +1,7 @@
 """The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
 imports JAX or anything of dfs_tpu, a process that uses the port — the
 single-device and the sharded walk, and a node served over HTTP with the
-similarity plane — never
+similarity plane and the serving tier — never
 loads either, and without CUDA the entry points raise instead of running
 on the CPU."""
 
@@ -69,8 +69,11 @@ with tempfile.TemporaryDirectory() as d:
     import asyncio, socket
     from pathlib import Path
     import dfs_tpu_torch.api.http, dfs_tpu_torch.cli.main  # noqa: F401
+    import dfs_tpu_torch.obs, dfs_tpu_torch.serve  # noqa: F401
+    from dfs_tpu_torch.utils import deadline
     from dfs_tpu_torch.cli.client import NodeClient
-    from dfs_tpu_torch.config import ClusterConfig, NodeConfig, SimConfig
+    from dfs_tpu_torch.config import (ClusterConfig, NodeConfig, ServeConfig,
+                                      SimConfig)
     from dfs_tpu_torch.node.runtime import StorageNodeServer
     socks = [socket.socket() for _ in range(2)]
     for s in socks:
@@ -85,7 +88,9 @@ with tempfile.TemporaryDirectory() as d:
         srv = StorageNodeServer(NodeConfig(
             node_id=1, cluster=cluster, data_root=Path(d) / "srv",
             health_probe_s=0, device="cpu",
-            sim=SimConfig(enabled=True, min_chunk_bytes=1024)))
+            sim=SimConfig(enabled=True, min_chunk_bytes=1024),
+            serve=ServeConfig(cache_bytes=1 << 20, readahead_batches=2,
+                              download_slots=2, hedge_budget_per_s=5.0)))
         await srv.start()
         try:
             c = NodeClient(port=ports[0], timeout_s=30)
@@ -95,6 +100,9 @@ with tempfile.TemporaryDirectory() as d:
             fid2 = (await asyncio.to_thread(c.upload, near, "n"))["fileId"]
             assert await asyncio.to_thread(c.download, fid2) == near
             assert srv.sim_stats()["deltasWritten"] >= 1
+            assert await asyncio.to_thread(c.download, fid) == body
+            assert srv.serve.cache.stats()["hits"] > 0
+            assert deadline.parse_header("1.5") == 1.5
         finally:
             await srv.stop()
 
