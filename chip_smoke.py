@@ -59,6 +59,24 @@ drives the paths end to end and checks each against the NumPy oracle:
   ``deadlineShed``) and node 1 (``deadline_drops``) with ``downloads``
   unchanged; node 1 reads the file whole with node 3 SIGSTOPped, identical,
   its hedge fired and won;
+- ``cluster_index_tier``: the dedup/index plane and tiering as users run
+  them: 5 ``serve --index --tier --tier-ec-k 3 --tier-min-idle 0
+  --tier-half-life 86400 --tier-hot-fraction 0.5`` processes (rf 2, write
+  quorum 2, fsync on; the index at its defaults). (a) The 64 MiB EC body
+  A streamed to node 1 (table against the oracle, kernels 1-4 in node 1);
+  (b) once every node holds its peers' filters at their own versions, A
+  again to node 2: 0 B moved, probe RPCs skipped, filter-trusted copies
+  verified before the ack (node 2's ``has_chunks`` calls printed); (c) a
+  fresh 64 MiB body C to node 2 (table against the oracle; its
+  ``probesSkipped`` grows by every peer placement); (d) C read twice from
+  node 3, then ``POST /tier`` on node 1 demotes A alone (cold k=3
+  manifest, P+Q encoded on ``cuda:0``, the stored bytes over the 5 data
+  roots fall); (e) A read from node 5 after SIGKILL of nodes 3 and 4;
+  (f) nodes 3 and 4 restarted with the same flags: each ``/scrub`` heals
+  nothing (the index reopened consistent with the CAS walk); (g) A read
+  from node 1 until it promotes, then read again (identical, stored bytes
+  back up). Every time on its own line, then node 1's and node 2's
+  ``index`` and ``tier`` sections;
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -116,6 +134,13 @@ SERVE_READERS = 32
 SERVE_RANGE_BYTES = 32 * 1024 * 1024
 SERVE_SLOTS, SERVE_QUEUE = 2, 6
 SERVE_CURVE = (2, 8, 16, 32)
+# cluster_index_tier: dfs_tpu's reference deployment with both planes on —
+# the index at its defaults; tiering at k = 3 (5 nodes fit k + 2) with
+# bench_tiering.py's idle floor and half-life, and a hot fraction that
+# keeps one of two 64 MiB files replicated
+TIER_FLAGS = ("--index", "--tier", "--tier-ec-k", "3", "--tier-min-idle",
+              "0", "--tier-half-life", "86400", "--tier-hot-fraction",
+              "0.5")
 
 # H100 SXM peaks at the full 700 W power limit: HBM bandwidth (NVIDIA data
 # sheet), and the INT32 rate every kernel here is held to — 132 SMs x 64
@@ -453,9 +478,12 @@ def serve_cluster(root: Path, prefix: str, extra: tuple = (),
     processes on fresh ports and a fresh data root under ``root`` (or
     ``data_root``, to restart on the same disk; rf 2, write quorum 2,
     fsync on, no repair loop, plus ``extra`` flags and a node's
-    ``per_node[i]`` flags), each answering ``/status``. Yields their directory, HTTP ports, processes
-    and start-up seconds; on failure the nodes' log tails go to stderr;
-    every process is killed on the way out."""
+    ``per_node[i]`` flags), each answering ``/status``. Yields their
+    directory, HTTP ports, processes, start-up seconds and
+    ``restart(*ids)`` (starts those nodes again together, with the same
+    flags, on the same disk, and returns the seconds until every one
+    answers ``/status``); on failure the nodes' log tails go to
+    stderr; every process is killed on the way out."""
     ids = list(range(1, CLUSTER_NODES + 1))
     ports = _free_ports(2 * CLUSTER_NODES)
     http_port = {i: ports[2 * (i - 1)] for i in ids}
@@ -470,35 +498,55 @@ def serve_cluster(root: Path, prefix: str, extra: tuple = (),
                        "internal_port": ports[2 * (i - 1) + 1]}
                       for i in ids]}))
         env = dict(os.environ, PYTHONPATH=str(root))
+
+        def spawn(i: int) -> None:
+            logs.append(open(d / f"node{i}.log", "ab"))
+            procs[i] = subprocess.Popen(
+                [sys.executable, "-m", "dfs_tpu_torch.cli.main", "serve",
+                 "--node-id", str(i), "--cluster-config",
+                 str(d / "cluster.json"),
+                 "--data-root", str(data_root or d / "data"),
+                 "--write-quorum", "2", "--durability", "fsync",
+                 "--repair-interval", "0", *extra,
+                 *(per_node or {}).get(i, ())],
+                cwd=root, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT)
+
+        def wait_up(i: int, t0: float) -> None:
+            while True:
+                check(procs[i].poll() is None,
+                      f"node {i} exited {procs[i].returncode}")
+                try:
+                    if _http(http_port[i], "GET", "/status",
+                             timeout=5)[0] == 200:
+                        return
+                except OSError:
+                    pass
+                check(time.perf_counter() - t0 < 300,
+                      f"node {i} did not answer /status")
+                time.sleep(0.5)
+
+        def restart(*which: int) -> float:
+            for i in which:
+                if procs[i].poll() is None:
+                    procs[i].kill()
+                procs[i].wait(timeout=60)
+            t0 = time.perf_counter()
+            for i in which:
+                spawn(i)
+            for i in which:
+                wait_up(i, t0)
+            return time.perf_counter() - t0
+
         try:
             t0 = time.perf_counter()
             for i in ids:
-                logs.append(open(d / f"node{i}.log", "wb"))
-                procs[i] = subprocess.Popen(
-                    [sys.executable, "-m", "dfs_tpu_torch.cli.main", "serve",
-                     "--node-id", str(i), "--cluster-config",
-                     str(d / "cluster.json"),
-                     "--data-root", str(data_root or d / "data"),
-                     "--write-quorum", "2", "--durability", "fsync",
-                     "--repair-interval", "0", *extra,
-                     *(per_node or {}).get(i, ())],
-                    cwd=root, env=env, stdout=logs[-1],
-                    stderr=subprocess.STDOUT)
+                spawn(i)
             for i in ids:
-                while True:
-                    check(procs[i].poll() is None,
-                          f"node {i} exited {procs[i].returncode}")
-                    try:
-                        if _http(http_port[i], "GET", "/status",
-                                 timeout=5)[0] == 200:
-                            break
-                    except OSError:
-                        pass
-                    check(time.perf_counter() - t0 < 300,
-                          f"node {i} did not answer /status")
-                    time.sleep(0.5)
+                wait_up(i, t0)
             yield types.SimpleNamespace(dir=d, port=http_port, procs=procs,
-                                        start_s=time.perf_counter() - t0)
+                                        start_s=time.perf_counter() - t0,
+                                        restart=restart)
         except BaseException:
             for i in ids:
                 log = d / f"node{i}.log"
@@ -1142,6 +1190,257 @@ def cluster_serve_phase(root: Path, body: bytes, blocks: list,
     return launches
 
 
+def _peers_synced(ports: dict) -> tuple[bool, dict]:
+    """True once every node's replica of every peer's filter is at that
+    peer's own (generation, version). Returns the verdict and each node's
+    ``index`` section."""
+    idx = {i: _metrics(p)["index"] for i, p in ports.items()}
+    for i, st in idx.items():
+        peers = st.get("peerFilters", {}).get("peers", {})
+        for j, own in idx.items():
+            if j == i:
+                continue
+            rep = peers.get(str(j))
+            if rep is None or rep["gen"] != own["filter"]["generation"] \
+                    or rep["version"] != own["filter"]["version"]:
+                return False, idx
+    return True, idx
+
+
+def _has_chunks_calls(m: dict) -> dict:
+    return {k: v["count"] for k, v in m["rpcClient"].items()
+            if k.endswith(":has_chunks")}
+
+
+def cluster_index_tier_phase(root: Path, body_a: bytes, table_a: list,
+                             params, np) -> dict:
+    """The ``cluster_index_tier`` phase (module docstring). Returns the
+    kernel launches of the uploads: node 1's across A and node 2's across
+    the re-upload of A and C."""
+    from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
+    from dfs_tpu_torch.ring import static_replica_set
+
+    ids = list(range(1, CLUSTER_NODES + 1))
+    body_c = np.random.default_rng(SEED + 2).integers(
+        0, 256, size=EC_BYTES, dtype=np.uint8)
+    table_c = chunk_file_anchored_np(body_c, params)
+    body_c = body_c.tobytes()
+    t_phase = time.perf_counter()        # set-up (body C, its oracle) done
+    fid_a = hashlib.sha256(body_a).hexdigest()
+    fid_c = hashlib.sha256(body_c).hexdigest()
+    blocks = {f: [b[i:i + BLOCK_BYTES] for i in range(0, len(b), BLOCK_BYTES)]
+              for f, b in ((fid_a, body_a), (fid_c, body_c))}
+    times: dict = {}
+
+    def timed(what: str, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        times[what] = time.perf_counter() - t0
+        emit({"phase": "cluster_index_tier:time", "what": what,
+              "seconds": times[what]})
+        return out
+
+    def table_of(port: int, fid: str) -> tuple[list, dict]:
+        st, _, doc = _http(port, "GET", f"/manifest?fileId={fid}",
+                           timeout=120)
+        check(st == 200, f"/manifest {fid[:12]} answered {st}")
+        doc = json.loads(doc)
+        return [(x["offset"], x["length"], x["digest"])
+                for x in doc["chunks"]], doc
+
+    def stored(d: Path) -> int:
+        return sum(_disk_bytes(d / "data" / f"node-{i}" / "chunks")
+                   for i in ids)
+
+    with serve_cluster(root, ".chip_smoke_tier_", TIER_FLAGS) as c:
+        d, port = c.dir, c.port
+        # (a) A streamed to node 1: table == oracle, K1-K4 in node 1
+        m0 = _metrics(port[1])["frag"]["launches"]
+        info_a = timed("upload_a_node1", lambda: _upload(
+            port[1], iter(blocks[fid_a]), "a.bin", chunked=True))
+        m1 = _metrics(port[1])
+        launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+        for k in ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+                  "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in node 1 "
+                  "during the upload of A")
+        check(info_a["fileId"] == fid_a, "A's fileId != sha256")
+        check(table_of(port[1], fid_a)[0] == table_a,
+              "A's chunk table != numpy oracle")
+
+        # (b) the filters replicate; A again, to node 2, moves 0 B
+        t0 = time.perf_counter()
+        while True:
+            ok, idx = _peers_synced(port)
+            if ok:
+                break
+            check(time.perf_counter() - t0 < 30,
+                  "peer filters not replicated within 30 s")
+            time.sleep(0.25)
+        times["filter_sync_wait"] = time.perf_counter() - t0
+        emit({"phase": "cluster_index_tier:time", "what":
+              "filter_sync_wait", "seconds": times["filter_sync_wait"]})
+        n2a = _metrics(port[2])
+        info_a2 = timed("reupload_a_node2", lambda: _upload(
+            port[2], iter(blocks[fid_a]), "a-again.bin", chunked=True))
+        n2b = _metrics(port[2])
+        ix_a, ix_b = n2a["index"], n2b["index"]
+        probes_before, probes_after = (_has_chunks_calls(n2a),
+                                       _has_chunks_calls(n2b))
+        probe_calls = {k: v - probes_before.get(k, 0)
+                       for k, v in probes_after.items()}
+        trusted = ix_b["filterTrusted"] - ix_a["filterTrusted"]
+        check(info_a2["transferredBytes"] == 0,
+              f"re-upload of A moved {info_a2['transferredBytes']} B")
+        check(info_a2["minCopies"] >= 2, "re-upload of A below 2 copies")
+        check(ix_b["probeRpcsSkipped"] > ix_a["probeRpcsSkipped"],
+              "re-upload of A skipped no probe RPC")
+        check(trusted > 0, "re-upload of A trusted no filter positive")
+        check(ix_b["filterFp"] == ix_a["filterFp"]
+              and not n2b.get("index_verify_failures"),
+              "a trusted copy of A failed its verification")
+        # the verification round: one has_chunks per peer credited
+        check(sum(probe_calls.values()) <= CLUSTER_NODES - 1,
+              f"re-upload of A probed more than the verify round: "
+              f"{probe_calls}")
+
+        # (c) C, fresh, to node 2: every (peer, digest) placement was
+        # answered by a filter (ruled out, or trusted and verified)
+        info_c = timed("upload_c_node2", lambda: _upload(
+            port[2], iter(blocks[fid_c]), "c.bin", chunked=True))
+        n2c = _metrics(port[2])
+        launches2 = {k: n2c["frag"]["launches"][k] - n2a["frag"]["launches"][k]
+                     for k in m0}
+        check(info_c["fileId"] == fid_c, "C's fileId != sha256")
+        check(table_of(port[2], fid_c)[0] == table_c,
+              "C's chunk table != numpy oracle")
+        pairs = sum(1 for dg in {dg for _, _, dg in table_c}
+                    for o in static_replica_set(dg, ids, 2) if o != 2)
+        skipped_c = n2c["index"]["probesSkipped"] \
+            - ix_b["probesSkipped"]
+        fp_c = n2c["index"]["filterFp"] - ix_b["filterFp"]
+        check(skipped_c == pairs, f"C: probesSkipped grew by {skipped_c}, "
+              f"want the {pairs} placements the filters answered")
+
+        # (d) C read twice from node 3, then a scan on node 1 demotes A
+        for r in range(2):
+            st, _, got = timed(f"read_c_node3_{r + 1}", lambda: _http(
+                port[3], "GET", f"/download?fileId={fid_c}"))
+            check(st == 200 and got == body_c, "C from node 3 not identical")
+        del got
+        bytes_hot = stored(d)
+        st, _, out = timed("tier_scan_node1", lambda: _http(
+            port[1], "POST", "/tier", body=b""))
+        check(st == 200, f"POST /tier answered {st}: {out[:300]}")
+        scan = json.loads(out)
+        check(scan["demoted"] == 1 and scan["cold"] == 1,
+              f"scan did not demote exactly A: {scan}")
+        _, doc_a = table_of(port[1], fid_a)
+        check(doc_a.get("tier") == "cold" and doc_a.get("ec", {}).get("k")
+              == 3, "A's manifest is not cold k=3 EC")
+        check(table_of(port[1], fid_c)[1].get("tier") is None,
+              "C was demoted")
+        m1d = _metrics(port[1])
+        enc = m1d["frag"]["ecEncode"]
+        check(enc["device"] == "cuda:0" and enc["calls"] >= 1,
+              f"demotion encoded on {enc['device']}")
+        bytes_cold = stored(d)
+        check(bytes_cold < bytes_hot, f"stored bytes {bytes_hot} -> "
+              f"{bytes_cold} did not fall")
+
+        # (e) nodes 3 and 4 SIGKILLed: A from node 5, by decode
+        for i in (3, 4):
+            c.procs[i].send_signal(signal.SIGKILL)
+            c.procs[i].wait(timeout=60)
+        st, _, got = timed("cold_read_a_node5_two_down", lambda: _http(
+            port[5], "GET", f"/download?fileId={fid_a}"))
+        check(st == 200 and got == body_a,
+              "A from node 5 with nodes 3, 4 down not identical")
+        del got
+        decodes5 = _metrics(port[5]).get("ec_decodes", 0)
+
+        # (f) nodes 3 and 4 back with the same flags: the LSI reopened
+        # after SIGKILL agrees with the CAS walk
+        scrubs = {}
+        timed("restart_nodes_3_4", lambda: c.restart(3, 4))
+        for i in (3, 4):
+            st, _, out = _http(port[i], "POST", "/scrub", body=b"")
+            check(st == 200, f"/scrub on node {i} answered {st}")
+            scrubs[i] = json.loads(out)
+            check(scrubs[i]["healedMissing"] == 0
+                  and scrubs[i]["healedPhantom"] == 0,
+                  f"node {i}'s index disagreed with its CAS: {scrubs[i]}")
+            check(_metrics(port[i])["index"]["lsi"]["rebuilds"] == 0,
+                  f"node {i} rebuilt its index at boot")
+
+        # (g) A read from node 1 until it promotes. The promotion check
+        # runs before a read feeds the ledger, so with
+        # --tier-promote-reads 2 the third read (after node 5's read above
+        # heated node 1's shards) starts it; a later read only if the
+        # promotion did not come
+        reads = 0
+        while True:
+            st, _, got = timed(f"read_a_node1_{reads + 1}", lambda: _http(
+                port[1], "GET", f"/download?fileId={fid_a}"))
+            reads += 1
+            check(st == 200 and got == body_a, "A from node 1 not identical")
+            del got
+            if reads < 3:
+                continue
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 60 \
+                    and _metrics(port[1])["tier"]["promotedFiles"] == 0:
+                time.sleep(0.1)
+            if _metrics(port[1])["tier"]["promotedFiles"] == 1:
+                break
+            check(reads < 5, "A never promoted")
+        times["promotion_after_read"] = time.perf_counter() - t0
+        emit({"phase": "cluster_index_tier:time",
+              "what": "promotion_after_read",
+              "seconds": times["promotion_after_read"], "reads": reads})
+        check(table_of(port[1], fid_a)[1].get("tier") is None,
+              "A promoted but its manifest is still cold")
+        st, _, got = timed("read_a_node1_promoted", lambda: _http(
+            port[1], "GET", f"/download?fileId={fid_a}"))
+        check(st == 200 and got == body_a, "promoted A not identical")
+        del got
+        check(table_of(port[1], fid_a)[1].get("ec") is None,
+              "promoted A still carries its EC layout")
+        bytes_promoted = stored(d)
+        check(bytes_promoted > bytes_cold, f"stored bytes after promotion "
+              f"{bytes_promoted} not above {bytes_cold}")
+        final = {i: _metrics(port[i]) for i in (1, 2)}
+    for i in (1, 2):
+        emit({"phase": "cluster_index_tier:node", "node": i,
+              "index": final[i]["index"], "tier": final[i]["tier"]})
+    both = {k: launches[k] + launches2[k] for k in launches}
+    emit({"phase": "cluster_index_tier", "nodes": CLUSTER_NODES, "rf": 2,
+          "write_quorum": 2, "durability": "fsync", "flags": TIER_FLAGS,
+          "bytes_a": len(body_a), "bytes_c": len(body_c),
+          "chunks_a": len(table_a), "chunks_c": len(table_c),
+          "times_s": times,
+          "upload_a_gib_s": len(body_a) / 2**30 / times["upload_a_node1"],
+          "reupload_a": {"transferred": info_a2["transferredBytes"],
+                         "dedup_skipped": info_a2["dedupSkippedBytes"],
+                         "filter_trusted": trusted,
+                         "probe_rpcs_skipped": ix_b["probeRpcsSkipped"]
+                         - ix_a["probeRpcsSkipped"],
+                         "has_chunks_calls": probe_calls,
+                         "has_chunks_calls_total": probes_after},
+          "upload_c": {"transferred": info_c["transferredBytes"],
+                       "peer_placements": pairs,
+                       "probes_skipped": skipped_c, "filter_fp": fp_c},
+          "scan": scan, "ec_encode": enc,
+          "stored_bytes": {"hot": bytes_hot, "cold": bytes_cold,
+                           "promoted": bytes_promoted},
+          "ec_decodes_node5": decodes5, "scrub_after_restart": scrubs,
+          "promote_reads_taken": reads,
+          "launches_node1_a": launches, "launches_node2_a_c": launches2,
+          "oracle_equal": True, "identical_reads": True,
+          "seconds": time.perf_counter() - t_phase})
+    return both
+
+
 def main() -> int:
     import torch
 
@@ -1443,6 +1742,8 @@ def main() -> int:
                                                 params, np)
     launches["cluster_serve"] = cluster_serve_phase(
         root, body, blocks, oracle, cluster_download_s)
+    launches["cluster_index_tier"] = cluster_index_tier_phase(
+        root, ec_body, ec_table, params, np)
 
     # ---- the multi-device anchored path ----
     n_cards = torch.cuda.device_count()

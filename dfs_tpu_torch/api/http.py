@@ -3,8 +3,10 @@ for the routes of the default configuration:
 
     GET    /status               200 "OK"
     GET    /files                JSON file list
-    GET    /metrics              JSON counters and sections (``sim``:
-                                 ``{"enabled": false}`` without the plane)
+    GET    /metrics              JSON counters and sections (``sim``,
+                                 ``tier``: ``{"enabled": false}`` without
+                                 the plane; ``index``: the IndexConfig
+                                 echo with ``"enabled": false``)
     GET    /manifest?fileId=     the manifest JSON
     POST   /upload?name=         201 JSON {fileId, ...}; Content-Length or
                                  chunked; 411 without either, 413 too big;
@@ -15,7 +17,13 @@ for the routes of the default configuration:
     DELETE /files?fileId=        200 / 404
     POST   /repair               {"repaired": N, "underReplicated": M}
     POST   /scrub                {"scanned": N, "corrupt": M,
-                                  "deltaMissingBase": K}
+                                  "deltaMissingBase": K} (+ healedMissing,
+                                 healedPhantom with the index plane)
+    GET    /tier                 the ``/metrics`` ``tier`` section
+    POST   /tier                 one demotion scan now: {scanned, cold,
+                                 demoted, finished, skipped}; 503 +
+                                 Retry-After while a scan runs; both 404
+                                 "Tiering disabled" without the plane
 
 The serving tier (``ServeConfig``, off by default) answers ``503`` with
 ``Retry-After`` when an admission gate sheds an upload or a download, and
@@ -28,8 +36,8 @@ while queued frees its place.
 
 Every other route answers 404: dfs_tpu's ``/metrics?format=prom``,
 ``/metrics/history``, ``/census``, ``/trace``, ``/events``, ``/chaos``,
-``/tier``, ``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``,
-``/commit``, ``/missing`` and ``/upload_resume`` are not ported yet.
+``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``, ``/commit``,
+``/missing`` and ``/upload_resume`` are not ported yet.
 Query strings are URL-decoded; a malformed fileId is a 400.
 """
 
@@ -398,6 +406,16 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
                 gate.release()
     if method == "POST" and path == "/scrub":
         return as_json(200, await node.scrub_once())
+    if path == "/tier" and method in ("GET", "POST"):
+        # tiering is a boot decision: 404 without the plane
+        if node.tier is None:
+            return plain(404, "Tiering disabled (boot with --tier)")
+        if method == "GET":
+            return as_json(200, node.tier_stats())
+        try:
+            return as_json(200, await node.tier_scan_once())
+        except ShedError as e:
+            return _shed(node, e)
     if method == "POST" and path == "/repair":
         repaired = await node.repair_once()
         return as_json(200, {"repaired": repaired,

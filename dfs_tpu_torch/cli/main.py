@@ -8,6 +8,8 @@ subcommands talk HTTP to one.
     python -m dfs_tpu_torch.cli.main serve --node-id 1 --sim ...   # deltas
     python -m dfs_tpu_torch.cli.main serve --node-id 1 \
         --cache-bytes 536870912 --readahead 2 --hedge-budget 50 ...
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 --index \\
+        --tier --tier-ec-k 3 ...                    # index + tiering
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
 non-zero unless ``--device cpu`` asks for the plain versions. Subcommands:
@@ -24,8 +26,9 @@ from pathlib import Path
 
 from dfs_tpu_torch.cli.client import NodeClient
 from dfs_tpu_torch.config import (CDCParams, ClusterConfig, DurabilityConfig,
-                                  FragmenterConfig, IngestConfig, NodeConfig,
-                                  ServeConfig, SimConfig)
+                                  FragmenterConfig, IndexConfig, IngestConfig,
+                                  NodeConfig, ServeConfig, SimConfig,
+                                  TierConfig)
 
 
 def _client(args) -> NodeClient:
@@ -88,7 +91,26 @@ def node_config(args) -> NodeConfig:
             min_savings_frac=args.sim_min_savings_frac,
             max_delta_depth=args.sim_max_delta_depth,
             devices=args.sim_devices,
-            rematerialize_reads=args.sim_rematerialize_reads))
+            rematerialize_reads=args.sim_rematerialize_reads),
+        index=IndexConfig(
+            enabled=args.index,
+            memtable_entries=args.index_memtable_entries,
+            compact_runs=args.index_compact_runs,
+            filter_bits_per_key=args.index_filter_bits,
+            filter_sync_s=args.index_filter_sync,
+            background_compact=args.index_background_compact,
+            echo_cache_entries=args.index_echo_cache),
+        tier=TierConfig(
+            enabled=args.tier,
+            hot_fraction=args.tier_hot_fraction,
+            min_idle_s=args.tier_min_idle,
+            scan_interval_s=args.tier_scan_interval,
+            ec_k=args.tier_ec_k,
+            demote_credit_bytes=args.tier_demote_credit_bytes,
+            half_life_s=args.tier_half_life,
+            promote_reads=args.tier_promote_reads,
+            redemote_cooldown_s=args.tier_redemote_cooldown,
+            ledger_entries=args.tier_ledger_entries))
 
 
 def cmd_serve(args) -> int:
@@ -325,6 +347,66 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--sim-rematerialize-reads", type=int, default=0,
                        help="reads after which a delta is stored raw again "
                             "(0 = never)")
+    serve.add_argument("--index", action="store_true",
+                       help="enable the dedup/index plane: persistent "
+                            "log-structured digest index + peer-existence "
+                            "filters; without it local existence stays one "
+                            "stat per digest and placement probes every "
+                            "digest over RPC")
+    serve.add_argument("--index-memtable-entries", type=int, default=65536,
+                       help="in-memory index entries before a flush to a "
+                            "sorted on-disk run")
+    serve.add_argument("--index-compact-runs", type=int, default=4,
+                       help="sorted runs before a full compaction folds "
+                            "them into one")
+    serve.add_argument("--index-filter-bits", type=int, default=10,
+                       help="peer-existence filter bloom bits per key; "
+                            "0 = no filters (local index only)")
+    serve.add_argument("--index-filter-sync", type=float, default=5.0,
+                       help="peer-filter gossip cadence (s); 0 = no "
+                            "background filter exchange")
+    serve.add_argument("--index-background-compact", action="store_true",
+                       help="run full index compactions on a dedicated "
+                            "thread instead of the CAS workers")
+    serve.add_argument("--index-echo-cache", type=int, default=0,
+                       help="per-peer echo-confirmed existence cache "
+                            "entries (0 = off): a digest whose hash echo "
+                            "was confirmed this ring epoch skips even the "
+                            "trust-verification probe on re-upload")
+    serve.add_argument("--tier", action="store_true",
+                       help="enable the hot/cold tiering plane: "
+                            "temperature-driven demotion of cold files from "
+                            "full replication to EC stripes (encoded on the "
+                            "node's device), with transparent reads and "
+                            "read-driven promotion")
+    serve.add_argument("--tier-hot-fraction", type=float, default=0.1,
+                       help="fraction of referenced bytes kept fully "
+                            "replicated (the hot byte budget)")
+    serve.add_argument("--tier-min-idle", type=float, default=300.0,
+                       help="seconds a file must go unread before it may "
+                            "be demoted, however cold it ranks")
+    serve.add_argument("--tier-scan-interval", type=float, default=0.0,
+                       help="demotion scan cadence (s); 0 = manual scans "
+                            "only (POST /tier)")
+    serve.add_argument("--tier-ec-k", type=int, default=4,
+                       help="data chunks per parity stripe for demoted "
+                            "files (needs k+2 ring members)")
+    serve.add_argument("--tier-demote-credit-bytes", type=int,
+                       default=8 * 1024 * 1024,
+                       help="demotion/promotion byte budget per second "
+                            "(0 = unmetered)")
+    serve.add_argument("--tier-half-life", type=float, default=3600.0,
+                       help="read-heat half-life (s): each read adds 1.0 "
+                            "and the sum halves every half-life")
+    serve.add_argument("--tier-promote-reads", type=float, default=2.0,
+                       help="decayed heat at which a cold file "
+                            "re-materializes replicated")
+    serve.add_argument("--tier-redemote-cooldown", type=float, default=0.0,
+                       help="seconds a freshly-promoted file sits out "
+                            "demotion scans (0 = off)")
+    serve.add_argument("--tier-ledger-entries", type=int, default=65536,
+                       help="bounded temperature-ledger size (stalest "
+                            "digests evict first)")
     serve.set_defaults(fn=cmd_serve)
 
     sub.add_parser("status").set_defaults(fn=cmd_status)

@@ -17,7 +17,9 @@ gone is never sent, and a retry the budget cannot cover is not made
 
 Ops: ``store_chunks`` (with the receiver's hash echo) and its windowed
 form, ``has_chunks``, ``get_chunk(s)``, ``get_manifest``, ``announce``,
-``delete``, ``tombstones``, ``list_manifests``, ``health``.
+``delete``, ``tombstones``, ``list_manifests``, ``health``, and the
+dedup/index plane's filter exchange ``get_filter``, ``get_filters`` and
+``filter_delta`` (the frames dfs_tpu's nodes send).
 """
 
 from __future__ import annotations
@@ -386,6 +388,45 @@ class InternalClient:
             peer, {"op": "get_chunks", "digests": digests},
             retries=retries, timeout_s=self._bulk_timeout(expect_bytes))
         return unpack_chunks(resp.get("chunks", []), body)
+
+    async def get_filter(self, peer: PeerAddr,
+                         retries: int | None = None
+                         ) -> tuple[dict | None, memoryview]:
+        """Full peer-existence filter snapshot: (meta, filter-bytes view),
+        meta None when the peer runs no filter plane. The view is of the
+        reply frame; a caller that keeps the filter copies it."""
+        resp, body = await self.call(peer, {"op": "get_filter"},
+                                     retries=retries)
+        meta = resp.get("filter")
+        return (meta if isinstance(meta, dict) else None), body
+
+    async def get_filters(self, peer: PeerAddr,
+                          retries: int | None = None
+                          ) -> list[tuple[dict, memoryview]]:
+        """Every filter the peer holds — its own first, then its replicas
+        of the other nodes' — as (meta, filter-bytes view) pairs; each
+        meta carries nodeId/gen/version/capacity/bitsPerKey/ageS/length
+        and the blobs ride concatenated in table order. Empty on a peer
+        without the filter plane."""
+        resp, body = await self.call(peer, {"op": "get_filters"},
+                                     retries=retries)
+        out: list[tuple[dict, memoryview]] = []
+        off = 0
+        for meta in resp.get("filters", []):
+            ln = int(meta.get("length", 0))
+            out.append((meta, body[off:off + ln]))
+            off += ln
+        return out
+
+    async def filter_delta(self, peer: PeerAddr, gen: int, since: int,
+                           retries: int | None = None) -> dict:
+        """Incremental filter update from (generation, version): ``adds``
+        (the digests since ``since``) or ``resync: true`` when the replica
+        must refetch the full filter."""
+        resp, _ = await self.call(
+            peer, {"op": "filter_delta", "gen": gen, "since": since},
+            retries=retries)
+        return resp
 
     async def get_manifest(self, peer: PeerAddr, file_id: str
                            ) -> tuple[str | None, float | None]:

@@ -13,10 +13,14 @@
 - :class:`ServeConfig` — the serving tier (hot-chunk cache, single-flight,
   admission gates, deadlines, hedged reads and writes, readahead), default
   off.
+- :class:`IndexConfig` — the dedup/index plane (digest LSI, peer-existence
+  filters), default off.
+- :class:`TierConfig` — the hot/cold tiering plane (temperature ledger,
+  demotion to EC, promotion), default off.
 - :class:`NodeConfig` — one node. It holds only the fields the port's
-  runtime honours; dfs_tpu's other default-off planes (index, tier,
-  chaos, elastic ring, census history, journal, tracing) are absent, not
-  accepted and ignored. ``device`` is the port's own: ``None`` means the
+  runtime honours; dfs_tpu's other default-off planes (chaos, elastic
+  ring, census history, journal, tracing) are absent, not accepted and
+  ignored. ``device`` is the port's own: ``None`` means the
   CUDA card (raising without one), ``"cpu"`` the plain versions.
 """
 
@@ -292,6 +296,138 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class IndexConfig:
+    """Dedup/index plane (:mod:`dfs_tpu_torch.index`), a copy of
+    dfs_tpu's: persistent log-structured digest index + delta-gossiped
+    peer-existence filters.
+
+    Everything defaults off: ``IndexConfig()`` builds no index and no
+    filters — ``ChunkStore.has`` stays one stat syscall, placement
+    probes every digest over RPC, and the node runs the code paths it
+    runs without the plane. ``enabled=True`` builds the
+    :class:`~dfs_tpu_torch.index.IndexPlane`:
+
+    - local existence answers come from the log-structured index (one
+      memtable hit or one fenced ``pread``), with the stat call kept
+      as the negative-confirmation backstop;
+    - each node maintains a blocked-bloom filter over its own digest
+      set (``filter_bits_per_key`` sizes it; 0 = index only, no
+      filter exchange), replicated to peers via ``get_filter`` /
+      ``filter_delta`` every ``filter_sync_s`` seconds;
+    - placement consults the peer filters first and only RPCs what
+      the filters cannot rule out, with filter-credited copies
+      verified by one pre-ack ``has_chunks`` round.
+    """
+
+    enabled: bool = False
+    memtable_entries: int = 65536   # bounded in-memory index entries
+                                    # before a flush to a sorted run
+    compact_runs: int = 4           # sorted runs before a full
+                                    # compaction folds them into one
+    filter_bits_per_key: int = 10   # peer-filter bloom density;
+                                    # 0 = no filters (index only)
+    filter_sync_s: float = 5.0      # filter gossip cadence (s);
+                                    # 0 = no background exchange
+    background_compact: bool = False  # run full compactions on a
+                                    # dedicated thread instead of the
+                                    # CAS worker that tripped them;
+                                    # False = historical inline merge
+    echo_cache_entries: int = 0     # per-peer LRU of digests whose
+                                    # hash-echo was confirmed this
+                                    # session (skips even the pre-ack
+                                    # verify round on re-upload);
+                                    # 0 = no cache (verify every time)
+
+    def __post_init__(self) -> None:
+        if self.memtable_entries < 256:
+            raise ValueError("memtable_entries must be >= 256")
+        if self.compact_runs < 1:
+            raise ValueError("compact_runs must be >= 1")
+        if self.filter_bits_per_key < 0:
+            raise ValueError("filter_bits_per_key must be >= 0")
+        if self.filter_sync_s < 0:
+            raise ValueError("filter_sync_s must be >= 0")
+        if self.echo_cache_entries < 0:
+            raise ValueError("echo_cache_entries must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class TierConfig:
+    """Hot/cold tiering plane (:mod:`dfs_tpu_torch.tier`), a copy of
+    dfs_tpu's: temperature-driven demotion of cold files from full
+    replication to wide EC stripes, with transparent promotion on
+    re-heat.
+
+    Everything defaults off: ``TierConfig()`` builds no ledger, no
+    worker and no admission class — reads and repair run the code paths
+    they run without the plane. ``enabled=True`` builds the
+    :class:`~dfs_tpu_torch.tier.TierPlane`:
+
+    - every served chunk feeds a bounded per-digest temperature ledger
+      (last access + read count decayed with ``half_life_s``);
+    - classification is by BYTE-BUDGET percentile, not fixed age: the
+      hottest files up to ``hot_fraction`` of referenced bytes stay
+      replicated, the rest are demotion candidates once idle longer
+      than ``min_idle_s``;
+    - the demotion worker (every ``scan_interval_s``; 0 = manual
+      ``POST /tier`` scans only) EC-encodes cold files at ``ec_k``+2,
+      (P+Q on the node's device), flips the manifest/index tier bit,
+      then deletes surplus
+      replicas — throttled by ``demote_credit_bytes``/s so demotion
+      never starves user traffic;
+    - a cold read reconstructs transparently (the existing EC decode
+      path) and re-materializes a replicated copy once its decayed
+      read count crosses ``promote_reads``.
+    """
+
+    enabled: bool = False
+    hot_fraction: float = 0.1       # fraction of referenced bytes kept
+                                    # replicated (the hot set); the
+                                    # rest is cold-eligible
+    min_idle_s: float = 300.0       # never demote a file read more
+                                    # recently than this (absolute
+                                    # floor under the percentile)
+    scan_interval_s: float = 0.0    # demotion scan cadence (s);
+                                    # 0 = manual scans only (POST /tier)
+    ec_k: int = 4                   # data shards per cold EC stripe
+                                    # (parity is always P+Q = 2)
+    demote_credit_bytes: int = 8 * 1024 * 1024  # demotion byte budget
+                                    # per second (ByteRate);
+                                    # 0 = unthrottled
+    half_life_s: float = 3600.0     # read-count decay half-life (s)
+    promote_reads: float = 2.0      # decayed reads at which a cold
+                                    # file re-materializes replicated
+    ledger_entries: int = 65536     # bounded temperature-ledger size
+                                    # (LRU beyond it)
+    redemote_cooldown_s: float = 0.0  # after a promotion, the file is
+                                    # NOT demotion-eligible again for
+                                    # this long — hysteresis so a file
+                                    # flapping around promote_reads
+                                    # doesn't churn encode/decode
+                                    # cycles; 0 = eligible immediately
+
+    def __post_init__(self) -> None:
+        if not 0.0 <= self.hot_fraction <= 1.0:
+            raise ValueError("hot_fraction must be within [0, 1]")
+        if self.min_idle_s < 0:
+            raise ValueError("min_idle_s must be >= 0")
+        if self.scan_interval_s < 0:
+            raise ValueError("scan_interval_s must be >= 0")
+        if not 1 <= self.ec_k <= 255:
+            raise ValueError("ec_k must be within [1, 255]")
+        if self.demote_credit_bytes < 0:
+            raise ValueError("demote_credit_bytes must be >= 0")
+        if self.half_life_s <= 0:
+            raise ValueError("half_life_s must be > 0")
+        if self.promote_reads < 0:
+            raise ValueError("promote_reads must be >= 0")
+        if self.ledger_entries < 256:
+            raise ValueError("ledger_entries must be >= 256")
+        if self.redemote_cooldown_s < 0:
+            raise ValueError("redemote_cooldown_s must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class NodeConfig:
     """One node of a port cluster (module docstring)."""
 
@@ -320,6 +456,13 @@ class NodeConfig:
     # serving tier: the default ServeConfig() builds no cache, no gate
     # and no hedge policy
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    # dedup/index plane: the default IndexConfig() builds no index and no
+    # filters — local existence stays one stat, placement probes every
+    # digest over RPC
+    index: IndexConfig = dataclasses.field(default_factory=IndexConfig)
+    # hot/cold tiering plane: the default TierConfig() builds no ledger
+    # and no worker
+    tier: TierConfig = dataclasses.field(default_factory=TierConfig)
 
     @property
     def self_addr(self) -> PeerAddr:

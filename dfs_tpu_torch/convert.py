@@ -23,6 +23,13 @@ are. Chunks stored as similarity deltas
 the band log (``<data_root>/node-<id>/sim/bands.log``) have one format in
 both packages: either package's ``ChunkStore`` reconstructs the other's
 deltas and honours their base pins, with or without a sim plane attached.
+The digest index (``<data_root>/node-<id>/index/``: the WAL files with
+their per-record CRC, the sorted run files with their fences and blooms,
+and the ``CURRENT`` manifest) and the tiering plane's temperature ledger
+(``<data_root>/node-<id>/tier/ledger.json``) also have one format in both
+packages: either package's ``serve --index --tier`` opens the other's, and
+a cold file (``tier: "cold"`` in its manifest, EC parity in the store)
+reads back and promotes on either kind of node.
 """
 
 from __future__ import annotations

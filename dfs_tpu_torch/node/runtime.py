@@ -40,8 +40,29 @@ the bulk internal ops, end-to-end deadlines (``X-Dfs-Deadline``, the wire's
 default ``ServeConfig()`` builds no cache, gate or hedge policy and runs
 the paths as they are without the tier.
 
-What dfs_tpu builds only when configured — the index, tiering, chaos, the
-elastic ring, the census history, the journal, tracing — is not ported.
+With ``NodeConfig.index.enabled`` (``serve --index``) the dedup/index
+plane (:mod:`dfs_tpu_torch.index`) is wired where dfs_tpu wires it: the
+digest LSI behind the CAS's ``has`` and its put/delete feed, opened (or
+rebuilt from the CAS walk) before the listeners; the peer-existence
+filters gossiped every ``filter_sync_s`` (``get_filter`` /
+``filter_delta`` / ``get_filters``); placement that skips what a peer's
+filter rules out or vouches for, every filter-credited copy confirmed by
+one ``has_chunks`` round per peer before the manifest acks; repair's
+filter-trimmed probe; and scrub healing the index against the CAS walk in
+both directions. The port has no event journal, so ``lsi.on_event`` stays
+unset.
+
+With ``NodeConfig.tier.enabled`` (``serve --tier``) the tiering plane
+(:mod:`dfs_tpu_torch.tier`) keeps a temperature ledger fed by every read
+(the verified gather and the ``get_chunk(s)`` ops), and a scan
+(``POST /tier`` or every ``scan_interval_s``) demotes the cold tail to
+P+Q EC stripes encoded on the node's device, flips the manifest and the
+index tier bit, and reclaims the surplus replicas through
+``delete_chunks``; a cold file read past ``promote_reads`` is
+re-materialized replicated in the background and its parity reclaimed.
+
+What dfs_tpu builds only when configured — chaos, the elastic ring, the
+census history, the journal, tracing — is not ported.
 """
 
 from __future__ import annotations
@@ -61,7 +82,8 @@ import numpy as np
 
 from dfs_tpu_torch.api.http import make_http_handler
 from dfs_tpu_torch.comm.rpc import (DeadlineExpired, InternalClient,
-                                    RpcError, RpcUnreachable)
+                                    RpcError, RpcRemoteError,
+                                    RpcUnreachable)
 from dfs_tpu_torch.comm.wire import (FrameServerProtocol, WireError,
                                      encode_frame, pack_chunks, unpack_chunks)
 from dfs_tpu_torch.config import NodeConfig
@@ -77,7 +99,7 @@ from dfs_tpu_torch.serve import BatchPrefetcher, ServingTier
 from dfs_tpu_torch.store.aio import AsyncChunkStore
 from dfs_tpu_torch.store.cas import NodeStore
 from dfs_tpu_torch.utils import deadline
-from dfs_tpu_torch.utils.aio import gather_abort_siblings
+from dfs_tpu_torch.utils.aio import create_logged_task, gather_abort_siblings
 from dfs_tpu_torch.utils.hashing import (is_hex_digest, sha256_hex,
                                          sha256_many_hex, sha256_new)
 from dfs_tpu_torch.utils.logging import Counters, Stopwatches, get_logger
@@ -86,7 +108,8 @@ from dfs_tpu_torch.utils.trace import LatencyRecorder, span
 # the internal-plane ops this node serves; any other answers "unknown op"
 _OPS = frozenset({"store_chunks", "has_chunks", "announce", "tombstones",
                   "list_manifests", "get_chunk", "get_chunks",
-                  "get_manifest", "delete", "delete_chunks", "health"})
+                  "get_manifest", "delete", "delete_chunks", "health",
+                  "get_filter", "filter_delta", "get_filters"})
 # the bulk ops: the internal admission gate bounds these only, so a health
 # probe never queues behind transfers and makes a busy node look dead
 _HEAVY_OPS = frozenset({"store_chunks", "get_chunk", "get_chunks"})
@@ -206,6 +229,25 @@ class ByteBudget:
             self._cv.notify_all()
 
 
+class _TrustLedger:
+    """Filter-credited replica copies awaiting pre-ack verification, as
+    dfs_tpu's. When placement trusts a peer-filter positive (skipping the
+    ``has_chunks`` probe and the transfer), the copy it credits is a bloom
+    "maybe": every trusted (peer, digest, length) lands here, and
+    :meth:`StorageNodeServer._verify_trusted` confirms the ledger with one
+    ``has_chunks`` round per peer before the manifest write acks the
+    upload — a false positive delays an ack, never weakens one."""
+
+    def __init__(self) -> None:
+        self.by_peer: dict[int, dict[str, int]] = {}
+
+    def credit(self, peer: int, digest: str, length: int) -> None:
+        self.by_peer.setdefault(peer, {})[digest] = length
+
+    def __bool__(self) -> bool:
+        return bool(self.by_peer)
+
+
 class StorageNodeServer:
     # per-RPC payload cap of replication slices, and the batch size of
     # streamed reads and repair fetches (class-level so tests can scale)
@@ -230,6 +272,19 @@ class StorageNodeServer:
             self.sim = SimPlane(cfg.sim, self.store.root / "sim",
                                 device=self._ec_device())
             self.store.chunks.sim = self.sim
+        # the dedup/index plane: None unless IndexConfig.enabled, so the
+        # default node's existence checks stay one stat per digest. Opened
+        # in start(), before the listeners. No event journal in the port:
+        # lsi.on_event stays unset.
+        self.index = None
+        self._filter_sync_task: asyncio.Task | None = None
+        if cfg.index.enabled:
+            from dfs_tpu_torch.index import IndexPlane
+
+            self.index = IndexPlane(cfg.index, self.store.root)
+            # the ChunkStore seam: every put/delete feeds the LSI from the
+            # CAS worker threads; has() answers from it first
+            self.store.chunks.index = self.index
         self.counters = Counters()
         self.latency = LatencyRecorder()
         self.ingest_stalls = Stopwatches()
@@ -245,6 +300,20 @@ class StorageNodeServer:
                                     probe_interval_s=cfg.health_probe_s)
         # the serving tier: with ServeConfig() every component is off
         self.serve = ServingTier(cfg.serve)
+        # the hot/cold tiering plane: None unless TierConfig.enabled, so
+        # the default node never touches a ledger and never scans
+        self.tier = None
+        self._tier_task: asyncio.Task | None = None
+        self._tier_promoting: set[str] = set()   # file ids mid-promotion
+        # cold files whose surplus replicas are confirmed reclaimed, keyed
+        # to the ring epoch of the confirmation
+        self._tier_surplus_done: dict[str, int] = {}
+        # strong refs of background promotions (the loop keeps weak ones)
+        self._tier_tasks: set[asyncio.Task] = set()
+        if cfg.tier.enabled:
+            from dfs_tpu_torch.tier import TierPlane
+
+            self.tier = TierPlane(cfg.tier, self.store.root / "tier")
         self._repair_lock = asyncio.Lock()
         self.under_replicated: set[str] = set()  # digests needing repair
         self._ec_encode_device: str | None = None  # where EC last encoded
@@ -258,6 +327,17 @@ class StorageNodeServer:
 
     async def start(self) -> None:
         addr = self.cfg.self_addr
+        if self.index is not None:
+            # opened (or rebuilt from the CAS walk) before the boot sweep
+            # and the listeners: the sweep's orphan GC feeds deletes
+            # through the ChunkStore seam, and deletes noted into an
+            # unopened index would be overwritten by the WAL replay
+            info = await asyncio.to_thread(self.index.open_or_rebuild,
+                                           self.store.chunks.digests)
+            if info["rebuilt"]:
+                self.log.warning("digest index rebuilt from CAS walk "
+                                 "(%d entries): %s", info["entries"],
+                                 info["reason"])
         # crash recovery before anything can be in flight
         swept = await asyncio.to_thread(self.store.boot_sweep)
         if swept["tmps"] or swept["orphans"]:
@@ -273,17 +353,42 @@ class StorageNodeServer:
             make_http_handler(self), addr.host, addr.port)
         if self.cfg.health_probe_s > 0:
             self.health.start()
+        if self.tier is not None and self.cfg.tier.scan_interval_s > 0:
+            # the demotion worker (scan_interval_s == 0: POST /tier only)
+            self._tier_task = create_logged_task(
+                self._tier_loop(), self.log, "tier-scan")
+        if self.index is not None \
+                and self.index.local_filter is not None \
+                and self.cfg.index.filter_sync_s > 0 and self._peers():
+            # peer-existence filter gossip on the configured cadence
+            self._filter_sync_task = create_logged_task(
+                self._filter_sync_loop(), self.log, "filter-sync")
         self.log.info("node %d up: http=%d internal=%d fragmenter=%s on %s",
                       self.cfg.node_id, addr.port, addr.internal_port,
                       self.fragmenter.name, self.frag_stats()["device"])
 
     async def stop(self) -> None:
+        for task in (self._filter_sync_task, self._tier_task,
+                     *self._tier_tasks):
+            if task is not None:
+                task.cancel()
+        self._filter_sync_task = self._tier_task = None
+        if self.tier is not None:
+            # parting ledger snapshot, best-effort: losing it only
+            # under-counts heat
+            with contextlib.suppress(OSError):
+                await asyncio.to_thread(self.tier.snapshot_ledger)
         self.health.stop()
         self.client.close()
         self.cas.close()
         if self.sim is not None:
             # band-log close + dir fsync, off the loop
             await asyncio.to_thread(self.sim.close)
+        if self.index is not None:
+            # WAL buffer flush + run fds closed, off the loop; CAS jobs
+            # racing the close lose only buffered put records (the safe
+            # direction)
+            await asyncio.to_thread(self.index.close)
         # peers keep pooled connections into this node open; close them
         # or wait_closed() waits on a peer that has not spoken lately
         for conn in list(self._inbound):
@@ -296,6 +401,87 @@ class StorageNodeServer:
     def _peers(self) -> list:
         return [p for p in self.cfg.cluster.peers
                 if p.node_id != self.cfg.node_id]
+
+    # ------------------------------------------------------------------ #
+    # dedup/index plane: filter gossip
+    # ------------------------------------------------------------------ #
+
+    async def _filter_sync_loop(self) -> None:
+        """Replicate every peer's existence filter every
+        ``IndexConfig.filter_sync_s``; the first round runs at once."""
+        interval = self.cfg.index.filter_sync_s
+        while True:
+            try:
+                await self._filter_sync_once()
+            except Exception as e:  # noqa: BLE001 — the next tick retries
+                self.log.warning("filter sync failed: %s", e)
+            await asyncio.sleep(interval)
+
+    async def _filter_sync_once(self) -> int:
+        """One gossip round: per peer a ``filter_delta`` from the replica's
+        (generation, version) cursor, or a full ``get_filter`` when there
+        is no replica yet, the generation moved or the delta is unusable
+        (never a poisoned replica). Returns the peers synced."""
+        plane = self.index
+        if plane is None or plane.local_filter is None:
+            return 0
+        synced = 0
+        for peer in self._peers():
+            st = plane.peer_filters.state(peer.node_id)
+            try:
+                if st is None:
+                    ok = await self._filter_fetch_full(peer)
+                else:
+                    resp = await self.client.filter_delta(
+                        peer, st["gen"], st["version"], retries=1)
+                    gen, version = resp.get("gen"), resp.get("version")
+                    ok = (not resp.get("resync")
+                          and isinstance(gen, int)
+                          and isinstance(version, int)
+                          and plane.peer_filters.apply_delta(
+                              peer.node_id, gen, version,
+                              resp.get("adds")))
+                    if not ok:
+                        ok = await self._filter_fetch_full(peer)
+                if ok:
+                    synced += 1
+            except RpcRemoteError:
+                # a live peer without the filter plane: nothing to sync,
+                # its probes simply stay untrimmed
+                continue
+            except RpcError:
+                self.counters.inc("filter_sync_failures")
+        return synced
+
+    async def _filter_fetch_full(self, peer) -> bool:
+        """Full filter resync from one peer; False when the peer runs no
+        filter plane or sent garbage."""
+        meta, body = await self.client.get_filter(peer, retries=1)
+        if meta is None:
+            return False
+        try:
+            # a copy: the replica outlives the reply frame
+            self.index.peer_filters.apply_full(peer.node_id, meta,
+                                               bytes(body))
+        except (KeyError, TypeError, ValueError):
+            self.counters.inc("filter_sync_failures")
+            return False
+        return True
+
+    def index_stats(self) -> dict:
+        """``/metrics`` ``index``: the IndexConfig fields, and the live
+        plane (LSI gauges, filter bytes, probe-skip counters) with it."""
+        c = self.cfg.index
+        out = {"enabled": c.enabled,
+               "memtableEntries": c.memtable_entries,
+               "compactRuns": c.compact_runs,
+               "filterBitsPerKey": c.filter_bits_per_key,
+               "filterSyncS": c.filter_sync_s,
+               "backgroundCompact": c.background_compact,
+               "echoCacheEntries": c.echo_cache_entries}
+        if self.index is not None:
+            out.update(self.index.stats())
+        return out
 
     # ------------------------------------------------------------------ #
     # internal storage plane (server side)
@@ -385,6 +571,46 @@ class StorageNodeServer:
             mask = await self.cas.has_many(digests)
             return {"ok": True,
                     "have": [d for d, h in zip(digests, mask) if h]}, b""
+        if op == "get_filter":
+            # the full filter snapshot; filter null = no filter plane
+            if self.index is None or self.index.local_filter is None:
+                return {"ok": True, "filter": None}, b""
+            meta, fbody = self.index.local_filter.snapshot()
+            return {"ok": True, "filter": meta}, fbody
+        if op == "filter_delta":
+            # the digests added since (gen, since), or resync; a malformed
+            # cursor answers resync, never an error
+            if self.index is None or self.index.local_filter is None:
+                return {"ok": True, "resync": True, "gen": -1,
+                        "version": 0}, b""
+            gen, since = header.get("gen"), header.get("since")
+            if not isinstance(gen, int) or not isinstance(since, int) \
+                    or isinstance(gen, bool) or isinstance(since, bool):
+                return {"ok": True, "resync": True, "gen": -1,
+                        "version": 0}, b""
+            return {"ok": True,
+                    **self.index.local_filter.delta(gen, since)}, b""
+        if op == "get_filters":
+            # this node's own filter and every replica it gossips: the
+            # meta table in the header (blob lengths included), the blobs
+            # concatenated in table order as the body
+            metas: list[dict] = []
+            blobs: list[bytes] = []
+            if self.index is not None \
+                    and self.index.local_filter is not None:
+                fmeta, blob = self.index.local_filter.snapshot()
+                metas.append({"nodeId": self.cfg.node_id,
+                              "gen": fmeta["gen"],
+                              "version": fmeta["version"],
+                              "capacity": fmeta["capacity"],
+                              "bitsPerKey": fmeta["bitsPerKey"],
+                              "ageS": 0.0, "length": len(blob)})
+                blobs.append(blob)
+                for _pid, pmeta, pblob in \
+                        self.index.peer_filters.replicas():
+                    metas.append({**pmeta, "length": len(pblob)})
+                    blobs.append(pblob)
+            return {"ok": True, "filters": metas}, blobs
         if op == "announce":
             m = Manifest.from_json(header["manifest"])
             if header.get("fresh"):
@@ -404,11 +630,19 @@ class StorageNodeServer:
         if op == "list_manifests":
             return {"ok": True, "ids": self.store.manifests.ids()}, b""
         if op == "get_chunk":
+            if self.tier is not None:
+                # a holder serving a peer's read is read demand too:
+                # without this only the coordinator's ledger heats
+                self.tier.ledger.note_read(header["digest"])
             data = await self.cas.get(header["digest"])
             if data is None:
                 return {"ok": False, "error": "chunk not found"}, b""
             return {"ok": True}, data
         if op == "get_chunks":
+            if self.tier is not None:
+                for d in header.get("digests", []):
+                    if isinstance(d, str):
+                        self.tier.ledger.note_read(d)
             have = await self.cas.get_many(header.get("digests", []))
             table, bufs = pack_chunks(have)
             return {"ok": True, "chunks": table}, bufs
@@ -531,8 +765,13 @@ class StorageNodeServer:
             stats["ecParityBytes"] = sum(len(b) for _, b in parity)
             placement = ec_placement_map(manifest, self.ring.current)
             rf = 1
+        ledger = self._new_trust_ledger()
         await self._place_batch(file_id, batch, stats, rf=rf,
-                                placement=placement)
+                                placement=placement, ledger=ledger)
+        if ledger:
+            # filter-credited copies confirmed before the ack
+            await self._verify_trusted(file_id, ledger, stats, rf=rf,
+                                       placement=placement)
         await self._finalize_upload(manifest)
         self.counters.inc("upload_bytes", len(data))
         return manifest, stats
@@ -674,9 +913,11 @@ class StorageNodeServer:
             inflight.popleft()
             self._merge_upload_stats(stats, bstats)
 
+        ledger = self._new_trust_ledger()
+
         async def submit(b: list[tuple[str, bytes]]) -> None:
             if window == 1:
-                await self._place_batch("", b, stats)
+                await self._place_batch("", b, stats, ledger=ledger)
                 return
             while len(inflight) >= window:
                 t0 = time.perf_counter()
@@ -693,7 +934,8 @@ class StorageNodeServer:
                 self.ingest_stalls.add("placementS",
                                        time.perf_counter() - t0)
             bstats = self._new_upload_stats()
-            task = asyncio.create_task(self._place_batch("", b, bstats))
+            task = asyncio.create_task(
+                self._place_batch("", b, bstats, ledger=ledger))
             # a failed placement wakes the consume loop even while it is
             # parked on outq behind a slow client
             task.add_done_callback(lambda t: outq.put_nowait(("placed", t)))
@@ -756,6 +998,10 @@ class StorageNodeServer:
                             chunks=manifest.chunks)
         stats["bytes"] = total
         stats["uniqueChunks"] = len(seen)
+        if ledger:
+            # every filter-credited copy of every batch, confirmed in one
+            # has_chunks round per peer before the manifest acks
+            await self._verify_trusted(file_id, ledger, stats)
         await self._finalize_upload(manifest)
         self.counters.inc("upload_bytes", total)
         return manifest, stats
@@ -806,7 +1052,8 @@ class StorageNodeServer:
     async def _place_batch(self, file_id: str, batch: list, stats: dict,
                            rf: int | None = None,
                            placement: Mapping[str, tuple[int, ...]]
-                           | None = None) -> None:
+                           | None = None,
+                           ledger: _TrustLedger | None = None) -> None:
         """Place one batch of unique (digest, payload) chunks: local puts
         for the chunks this node owns, concurrent replication to the other
         owners (a ``has_chunks`` probe first, then the missing payloads in
@@ -816,9 +1063,18 @@ class StorageNodeServer:
         ``rf`` overrides the cluster's replication factor (EC shards are
         placed once) and ``placement`` pins digests to explicit holders
         (the EC stripe placement); a pinned digest hands off along
-        ``ring.handoff_order(pinned)``, the order the read side walks."""
+        ``ring.handoff_order(pinned)``, the order the read side walks.
+
+        With the index plane, each peer's pass consults that peer's
+        existence filter first: digests the filter rules out skip the
+        probe and transfer directly; positives are credited as trusted
+        copies when ``ledger`` is given (probe and transfer skipped; the
+        caller runs :meth:`_verify_trusted` before acking), else probed."""
         ring = self.ring.current
         ids = ring.member_ids()
+        if self.index is not None and self.index.echo_cache is not None:
+            # an epoch change since the last batch clears the cache
+            self.index.echo_cache.note_epoch(ring.epoch)
         if rf is None:
             rf = self.cfg.cluster.replication_factor
         placement = placement or {}
@@ -868,32 +1124,104 @@ class StorageNodeServer:
             peer = self.cfg.cluster.peer(node_id)
             # a peer believed dead gets one fast attempt
             retries = None if self.health.is_alive(node_id) else 1
-            digests = [d for d, _ in wanted]
-            try:
-                # the probe flies while the slices are staged in a thread
-                probe = asyncio.create_task(self.client.call(
-                    peer, {"op": "has_chunks", "digests": digests},
-                    retries=retries))
-                try:
-                    staged = await asyncio.to_thread(
-                        self._slice_payloads, wanted,
-                        self._REPLICA_SLICE_BYTES)
-                    resp, _ = await probe
-                except BaseException:
-                    probe.cancel()
-                    raise
-                have = set(resp.get("have", []))
+            # the peer's filter splits its list into ruled out (transfer
+            # without a probe), trusted (under a ledger: probe and
+            # transfer skipped, verified before the ack) and to probe. A
+            # dead peer's filter is never trusted; no replica of its
+            # filter = the path without the index.
+            plane = self.index
+            cache = plane.echo_cache if plane is not None else None
+            trusted: set[str] = set()
+            # echo-cache credit first: a digest this peer hash-echoed this
+            # session under this epoch needs no ledger entry at all
+            remaining = wanted
+            if cache is not None and retries is None:
+                echoed_skip = 0
+                remaining = []
                 for d, b in wanted:
-                    if d in have:
+                    if cache.confirmed(node_id, d):
+                        echoed_skip += 1
                         copies[d] += 1
                         if (node_id, d) not in counted:
                             counted.add((node_id, d))
                             stats["dedupSkippedBytes"] += len(b)
+                    else:
+                        remaining.append((d, b))
+                if echoed_skip:
+                    plane.echo_trusted += echoed_skip
+                    plane.probes_skipped += echoed_skip
+            filtered = False
+            to_probe = remaining
+            if plane is not None and plane.local_filter is not None \
+                    and retries is None \
+                    and plane.peer_filters.state(node_id) is not None:
+                filtered = True
+                ruled_out = 0
+                to_probe = []
+                for d, b in remaining:
+                    verdict = plane.peer_filters.contains(node_id, d)
+                    if verdict is False:
+                        ruled_out += 1       # straight to transfer
+                    elif ledger is not None:
+                        trusted.add(d)
+                        copies[d] += 1
+                        ledger.credit(node_id, d, len(b))
+                        if (node_id, d) not in counted:
+                            counted.add((node_id, d))
+                            stats["dedupSkippedBytes"] += len(b)
+                    else:
+                        to_probe.append((d, b))
+                plane.probes_skipped += ruled_out + len(trusted)
+                plane.trusted += len(trusted)
+                if not to_probe and remaining:
+                    plane.probe_rpcs_skipped += 1
+            digests = [d for d, _ in to_probe]
+            try:
+                staged = None
+                have: set[str] = set()
+                if to_probe and not filtered:
+                    # the probe flies while the slices are staged in a
+                    # thread
+                    probe = asyncio.create_task(self.client.call(
+                        peer, {"op": "has_chunks", "digests": digests},
+                        retries=retries))
+                    try:
+                        staged = await asyncio.to_thread(
+                            self._slice_payloads, remaining,
+                            self._REPLICA_SLICE_BYTES)
+                        resp, _ = await probe
+                    except BaseException:
+                        probe.cancel()
+                        raise
+                    have = set(resp.get("have", []))
+                elif to_probe:
+                    # the filter-trimmed probe: only what the filter could
+                    # not rule out goes over the wire
+                    resp, _ = await self.client.call(
+                        peer, {"op": "has_chunks", "digests": digests},
+                        retries=retries)
+                    have = set(resp.get("have", []))
+                    for d in digests:
+                        if d not in have:
+                            # the filter said maybe, the peer says no: an
+                            # observed false positive, overridden so a
+                            # retry stops trusting it
+                            plane.peer_filters.note_fp(node_id, d)
+                missing = [(d, b) for d, b in remaining
+                           if d not in have and d not in trusted]
+                for d, b in remaining:
+                    if d in have:
+                        copies[d] += 1
+                        if cache is not None:
+                            cache.confirm(node_id, d)
+                        if (node_id, d) not in counted:
+                            counted.add((node_id, d))
+                            stats["dedupSkippedBytes"] += len(b)
                             self.counters.inc("dedup_remote_hits")
-                missing = [(d, b) for d, b in wanted if d not in have]
                 if missing:
-                    slices = staged if not have else self._slice_payloads(
-                        missing, self._REPLICA_SLICE_BYTES)
+                    slices = staged if staged is not None and not have \
+                        else self._slice_payloads(
+                            missing, self._REPLICA_SLICE_BYTES)
 
                     def make_on_slice(nid: int):
                         def on_slice(part: list, echoed: list[str]) -> None:
@@ -905,6 +1233,8 @@ class StorageNodeServer:
                                     f"hash echo mismatch from node {nid}")
                             for d, b in part:
                                 copies[d] += 1
+                                if cache is not None:
+                                    cache.confirm(nid, d)
                                 if nid != node_id:
                                     # a hedge's backup copy sits off its
                                     # owners: repair moves it home
@@ -948,6 +1278,9 @@ class StorageNodeServer:
                 self.counters.inc("replication_failures")
                 if isinstance(e, RpcUnreachable):
                     self.health.mark_dead(node_id)
+                    if cache is not None:
+                        # the confirmations were about that process
+                        cache.drop(node_id)
 
         async def place(jobs) -> None:
             try:
@@ -1092,6 +1425,75 @@ class StorageNodeServer:
             raise (ferr if first_id == primary_id else e) from None
         if other_id == backup_id:
             hedge.note_won()
+
+    def _new_trust_ledger(self) -> _TrustLedger | None:
+        """A trust ledger when the filter plane is on, else None (a probe
+        per batch per peer)."""
+        if self.index is not None and self.index.local_filter is not None:
+            return _TrustLedger()
+        return None
+
+    async def _verify_trusted(self, file_id: str, ledger: _TrustLedger,
+                              stats: dict, rf: int | None = None,
+                              placement: Mapping[str, tuple[int, ...]]
+                              | None = None) -> None:
+        """Confirm every filter-credited copy with one real ``has_chunks``
+        round per peer, after the last batch and before the manifest write
+        that acks, as dfs_tpu does. An unconfirmed copy (a bloom false
+        positive, or a peer that died between trust and verify) is healed
+        before the ack: its bytes are re-read (local store first, then any
+        replica) and re-placed through the batch path without a ledger.
+        Bytes held nowhere reachable fail the upload."""
+        plane = self.index
+        assert plane is not None
+        unconfirmed: dict[str, int] = {}
+        with span("upload.verify_trusted", self.latency):
+            for node_id, entries in sorted(ledger.by_peer.items()):
+                peer = self.cfg.cluster.peer(node_id)
+                digests = sorted(entries)
+                try:
+                    resp, _ = await self.client.call(
+                        peer, {"op": "has_chunks", "digests": digests})
+                    self.health.mark_alive(node_id)
+                except RpcError as e:
+                    # a sick peer, not a filter mistake: no FP override
+                    if isinstance(e, RpcUnreachable):
+                        self.health.mark_dead(node_id)
+                        if plane.echo_cache is not None:
+                            plane.echo_cache.drop(node_id)
+                    self.counters.inc("index_verify_failures")
+                    for d in digests:
+                        stats["dedupSkippedBytes"] -= entries[d]
+                        unconfirmed.setdefault(d, entries[d])
+                    continue
+                have = set(resp.get("have", []))
+                for d in digests:
+                    if d not in have:
+                        plane.peer_filters.note_fp(node_id, d)
+                        stats["dedupSkippedBytes"] -= entries[d]
+                        unconfirmed.setdefault(d, entries[d])
+                    elif plane.echo_cache is not None:
+                        plane.echo_cache.confirm(node_id, d)
+        if not unconfirmed:
+            return
+        self.counters.inc("filter_fp_replaced", len(unconfirmed))
+        items: list[tuple[str, bytes]] = []
+        local = dict(await self.cas.get_many(sorted(unconfirmed)))
+        for d, ln in sorted(unconfirmed.items()):
+            b = local.get(d)
+            if b is None:
+                try:
+                    b = await self._fetch_chunk(d, ln)
+                except DeadlineExceeded:
+                    raise
+                except DownloadError:
+                    raise UploadError(
+                        f"filter-credited chunk {d[:12]}… held nowhere "
+                        "reachable — retry the upload (the filter "
+                        "override now forces a real transfer)")
+            items.append((d, b))
+        await self._place_batch(file_id, items, stats, rf=rf,
+                                placement=placement)
 
     async def _finalize_upload(self, manifest: Manifest) -> None:
         """The ack: the manifest saved last (fsync'd, off the loop), then
@@ -1708,6 +2110,11 @@ class StorageNodeServer:
             # checked per batch: a mid-download expiry stops the rest
             self.counters.inc("deadline_drops")
             raise DeadlineExceeded("deadline expired")
+        if self.tier is not None:
+            # the temperature feed: every requested digest is one read,
+            # before the cache split (cache hits heat the ledger too)
+            for c in chunks:
+                self.tier.ledger.note_read(c.digest)
         serve = self.serve
         if not serve.read_path_enabled:
             return await self._fetch_verified_direct(manifest, chunks,
@@ -1837,8 +2244,10 @@ class StorageNodeServer:
         checked incrementally with the final chunk held back: a corrupt
         assembly is truncated before its last byte. The first batch is
         fetched before returning, so a missing chunk fails before any
-        byte is sent."""
+        byte is sent. A cold file read hot enough is promoted in the
+        background; this read decodes through the EC path."""
         manifest = await self._resolve_manifest(file_id)
+        self._tier_maybe_promote(manifest)
         batches: list[list] = []
         cur: list = []
         size = 0
@@ -1961,6 +2370,8 @@ class StorageNodeServer:
         snap["durability"] = self.durability_stats()
         snap["retryBudget"] = self.client.retry_budget.stats()
         snap["ring"] = self.ring.stats()
+        snap["index"] = self.index_stats()
+        snap["tier"] = self.tier_stats()
         snap["sim"] = self.sim_stats()
         snap["serve"] = self.serve.stats()
         snap["rpcClient"] = {
@@ -2205,11 +2616,36 @@ class StorageNodeServer:
         # digest -> owners that CONFIRMED their copy this cycle: a stray
         # local copy is deleted only once all its owners confirmed
         confirmed: dict[str, set[int]] = {}
+        plane = self.index
         for node_id, wanted in need.items():
             peer = self.cfg.cluster.peer(node_id)
             digests = sorted({d for d, _ in wanted})
+            # the peer's filter trims the probe: what it rules out is
+            # pushed unprobed (the push's hash echo confirms it); positives
+            # are always probed, since relocation deletes strays on
+            # confirmations and a bloom "maybe" must never stand for one
+            probe_digests = digests
+            filter_known = (plane is not None
+                            and plane.local_filter is not None
+                            and plane.peer_filters.state(node_id)
+                            is not None)
+            if filter_known:
+                probe_digests = [
+                    d for d in digests
+                    if plane.peer_filters.contains(node_id, d)
+                    is not False]
+                plane.probes_skipped += len(digests) - len(probe_digests)
             try:
-                have = await self.client.has_chunks(peer, digests)
+                have: set[str] = set()
+                if probe_digests:
+                    have = await self.client.has_chunks(peer,
+                                                        probe_digests)
+                    if filter_known:
+                        for d in probe_digests:
+                            if d not in have:
+                                plane.peer_filters.note_fp(node_id, d)
+                elif digests:
+                    plane.probe_rpcs_skipped += 1
                 verified |= have
                 for d in have:
                     confirmed.setdefault(d, set()).add(node_id)
@@ -2323,5 +2759,372 @@ class StorageNodeServer:
             self.counters.inc("scrub_corrupt", corrupt)
         if delta_missing_base:
             self.counters.inc("scrub_delta_missing_base", delta_missing_base)
-        return {"scanned": scanned, "corrupt": corrupt,
-                "deltaMissingBase": delta_missing_base}
+        out = {"scanned": scanned, "corrupt": corrupt,
+               "deltaMissingBase": delta_missing_base}
+        if self.index is not None:
+            out.update(await asyncio.to_thread(self._scrub_index_heal,
+                                               digests))
+        return out
+
+    def _scrub_index_heal(self, cas_digests: list[str]) -> dict:
+        """Heal the digest index against the CAS walk the scrub just paid
+        for, in both directions: digests on disk the index never heard of
+        (a lost WAL tail) become present; digests the index calls present
+        that the walk cannot find (a missed delete record) are expunged —
+        the dangerous direction, since a stale "present" makes
+        ``has_chunks`` vouch for bytes that do not exist. The disk side is
+        re-listed, so a chunk stored mid-scrub is never expunged. Worker
+        thread."""
+        on_disk = set(self.store.chunks.digests())
+        on_disk.update(cas_digests)
+        in_index = {d.hex() for d in self.index.lsi.present_digests()}
+        missing = on_disk - in_index
+        phantom = in_index - on_disk
+        for d in missing:
+            self.index.note_put(d)
+        for d in phantom:
+            self.index.note_delete(d)
+        if missing or phantom:
+            self.counters.inc("index_healed_missing", len(missing))
+            self.counters.inc("index_healed_phantom", len(phantom))
+            self.log.warning("scrub: index healed (%d missing, %d phantom)",
+                             len(missing), len(phantom))
+        return {"healedMissing": len(missing),
+                "healedPhantom": len(phantom)}
+
+    # ------------------------------------------------------------------ #
+    # hot/cold tiering plane
+    # ------------------------------------------------------------------ #
+
+    async def _tier_loop(self) -> None:
+        """Periodic demotion scan (``tier.scan_interval_s > 0``).
+        Background work: no request deadline, and a scan already in
+        flight sheds the next tick instead of stacking."""
+        from dfs_tpu_torch.serve import ShedError
+
+        deadline.clear()
+        while True:
+            await asyncio.sleep(self.cfg.tier.scan_interval_s)
+            try:
+                await self.tier_scan_once()
+            except ShedError:
+                continue          # a POST /tier holds the single slot
+            except (RpcError, OSError, DownloadError) as e:
+                self.tier.errors += 1
+                self.log.warning("tier scan failed: %s", e)
+
+    async def tier_scan_once(self) -> dict:
+        """One demotion scan (``POST /tier``, the worker loop): classify
+        every replicated file by temperature, demote the cold tail to EC,
+        and finish earlier demotions whose surplus reclaim was
+        interrupted. Raises ShedError when a scan is already running (HTTP
+        503 + Retry-After)."""
+        from dfs_tpu_torch.tier import classify
+
+        plane = self.tier
+        cfg = self.cfg.tier
+        deadline.clear()          # background work: no request budget
+        async with plane.gate.slot():
+            out = {"scanned": 0, "cold": 0, "demoted": 0,
+                   "finished": 0, "skipped": None}
+            # (the static ring never migrates: dfs_tpu's "migrating" skip
+            # cannot arise)
+            if cfg.ec_k + 2 > len(self.ring.current.member_ids()):
+                out["skipped"] = "ring too small for ec stripes"
+                return out
+            now = time.time()
+            manifests = await asyncio.to_thread(self.store.manifests.list)
+            entries: list[dict] = []
+            by_id: dict[str, Manifest] = {}
+            cold_done: list[Manifest] = []
+            for m in manifests:
+                if m.tier == "cold":
+                    cold_done.append(m)
+                    continue
+                if m.ec is not None:
+                    continue      # a user-chosen EC layout is not ours
+                heat, last = plane.ledger.file_temperature(
+                    (c.digest for c in m.chunks), now=now)
+                entries.append({"fileId": m.file_id, "bytes": m.size,
+                                "heat": heat, "lastAccess": last})
+                by_id[m.file_id] = m
+            # the budget base counts the already-cold bytes too: the hot
+            # set is a fraction of the corpus, not of what is left
+            cold = classify(entries, cfg.hot_fraction, cfg.min_idle_s,
+                            now=now,
+                            total_bytes=(sum(e["bytes"] for e in entries)
+                                         + sum(m.size for m in cold_done)))
+            out["scanned"] = len(entries)
+            out["cold"] = len(cold)
+            for fid in sorted(cold):
+                if fid in self._tier_promoting:
+                    continue      # a racing promotion wins: it has reads
+                if plane.in_redemote_cooldown(fid, now=now):
+                    out["cooldown"] = out.get("cooldown", 0) + 1
+                    continue
+                try:
+                    if await self._demote_file(by_id[fid]):
+                        out["demoted"] += 1
+                except (RpcError, OSError, DownloadError,
+                        UploadError) as e:
+                    # one unreachable replica set must not starve the scan
+                    plane.errors += 1
+                    self.log.warning("tier demote %s failed: %s",
+                                     fid[:12], e)
+            # finish pass: idempotent, skipped once confirmed clean at this
+            # ring epoch
+            for m in cold_done:
+                if self._tier_surplus_done.get(m.file_id) \
+                        == self.ring.epoch:
+                    continue
+                try:
+                    await self._tier_delete_surplus(m)
+                    out["finished"] += 1
+                except (RpcError, OSError) as e:
+                    plane.errors += 1
+                    self.log.warning("tier finish %s failed: %s",
+                                     m.file_id[:12], e)
+            plane.scans += 1
+            plane.last_scan_at = now
+            plane.note_progress()
+            await asyncio.to_thread(plane.snapshot_ledger)
+            return out
+
+    async def _demote_file(self, m: Manifest) -> bool:
+        """Demote one cold replicated file to EC: gather its bytes, encode
+        P+Q on the node's device (:meth:`_ec_extend_from`), place data and
+        parity at their stripe holders, commit the cold manifest (the
+        durable tier flip), flip the index tier bits, then reclaim the
+        surplus replicas. Parity before the flip and the flip before the
+        deletes, so a crash anywhere leaves the file readable. (dfs_tpu's
+        chaos crash points ``demote.after_parity_write`` and
+        ``demote.after_tier_flip`` have no seam here: chaos is not
+        ported.)"""
+        import dataclasses as _dc
+
+        plane = self.tier
+        plane.note_credit_stall(await plane.credits.acquire(m.size))
+        data = await self._gather_chunks(m)
+        cold_m, parity = await asyncio.to_thread(
+            self._ec_extend_from, _dc.replace(m, tier="cold"), data,
+            self.cfg.tier.ec_k)
+        seen: set[str] = set()
+        batch: list[tuple[str, bytes]] = []
+        for c in m.chunks:
+            if c.digest not in seen:
+                seen.add(c.digest)
+                batch.append((c.digest, data[c.digest]))
+        for d, b in parity:
+            if d not in seen:     # k=1 makes Q == P
+                seen.add(d)
+                batch.append((d, b))
+        stats = self._new_upload_stats()
+        placement = ec_placement_map(cold_m, self.ring.current)
+        await self._place_batch(m.file_id, batch, stats, rf=1,
+                                placement=placement)
+        # the commit: a tombstone landing mid-demotion wins
+        if not await asyncio.to_thread(self.store.manifests.save, cold_m):
+            return False
+        if self.index is not None:
+            def flip() -> None:
+                for d in sorted({c.digest for c in m.chunks}):
+                    self.index.note_tier(d, True)
+            await asyncio.to_thread(flip)
+        await self._announce_all(cold_m)
+        pbytes = sum(len(b) for _, b in parity)
+        plane.demoted_files += 1
+        plane.demoted_bytes += m.size
+        plane.parity_bytes += pbytes
+        plane.note_progress()
+        self.counters.inc("tier_demotions")
+        await self._tier_delete_surplus(cold_m)
+        return True
+
+    async def _tier_delete_surplus(self, m: Manifest) -> tuple[int, int]:
+        """Reclaim the replica copies the cold layout no longer expects:
+        locally by the same re-derivation peers use (a digest shared with
+        a hot manifest keeps its replicas), remotely through
+        ``delete_chunks``, where each peer refuses what it still owns by
+        its own manifests. A refusal (a peer that missed the cold
+        announce) re-announces and leaves the file for the next scan's
+        finish pass. Returns (removed, refused) across the cluster."""
+        digests = sorted({c.digest for c in m.chunks})
+        length = {c.digest: c.length for c in m.chunks}
+        plane = self.tier
+
+        def local_reclaim() -> list[str]:
+            expected = self._expected_digests_here(set(digests))
+            return [d for d in digests
+                    if d not in expected and self.store.chunks.delete(d)]
+
+        removed_local = await asyncio.to_thread(local_reclaim)
+        self.serve.drop_cached(removed_local)
+        removed = len(removed_local)
+        refused = 0
+        plane.reclaimed_bytes += sum(length[d] for d in removed_local)
+
+        async def one(peer) -> tuple[list[str], int]:
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "delete_chunks", "digests": digests},
+                    retries=1)
+                return (resp.get("removed") or [],
+                        len(resp.get("refused") or []))
+            except RpcError:
+                return [], len(digests)   # retried by the finish pass
+
+        for got, ref in await asyncio.gather(
+                *(one(p) for p in self._peers())):
+            removed += len(got)
+            refused += ref
+            plane.reclaimed_bytes += sum(length.get(d, 0) for d in got)
+        if refused:
+            await self._announce_all(m)
+            self._tier_surplus_done.pop(m.file_id, None)
+        else:
+            self._tier_surplus_done[m.file_id] = self.ring.epoch
+        plane.note_progress()
+        return removed, refused
+
+    def _tier_maybe_promote(self, manifest: Manifest) -> None:
+        """Read-path promotion check: a cold file whose decayed heat
+        crossed ``promote_reads`` is re-materialized replicated in the
+        background; the triggering read is served by the EC decode."""
+        if self.tier is None or manifest.tier != "cold":
+            return
+        if manifest.file_id in self._tier_promoting:
+            return
+        heat, _ = self.tier.ledger.file_temperature(
+            c.digest for c in manifest.chunks)
+        if heat < self.cfg.tier.promote_reads:
+            return
+        self._tier_promoting.add(manifest.file_id)
+        task = create_logged_task(self._promote_file(manifest), self.log,
+                                  "tier-promote")
+        self._tier_tasks.add(task)
+        task.add_done_callback(self._tier_tasks.discard)
+
+    async def _promote_file(self, m: Manifest) -> None:
+        """Re-materialize a hot-again cold file at full replication:
+        gather (the EC decode fills a dead holder), place at the ring's rf
+        owners, commit the hot manifest, flip the index tier bits back,
+        then reclaim the orphaned parity through ``delete_chunks`` —
+        demotion's order mirrored."""
+        import dataclasses as _dc
+
+        plane = self.tier
+        deadline.clear()          # not the triggering request's budget
+        try:
+            plane.note_credit_stall(await plane.credits.acquire(m.size))
+            data = await self._gather_chunks(m)
+            hot_m = _dc.replace(m, ec=None, tier=None)
+            seen: set[str] = set()
+            batch: list[tuple[str, bytes]] = []
+            for c in m.chunks:
+                if c.digest not in seen:
+                    seen.add(c.digest)
+                    batch.append((c.digest, data[c.digest]))
+            stats = self._new_upload_stats()
+            await self._place_batch(m.file_id, batch, stats)
+            if not await asyncio.to_thread(self.store.manifests.save,
+                                           hot_m):
+                return            # tombstoned meanwhile
+            if self.index is not None:
+                def flip() -> None:
+                    for d in sorted(seen):
+                        self.index.note_tier(d, False)
+                await asyncio.to_thread(flip)
+            await self._announce_all(hot_m)
+            self._tier_surplus_done.pop(m.file_id, None)
+            await self._tier_reclaim_parity(m)
+            plane.promoted_files += 1
+            plane.promoted_bytes += m.size
+            plane.note_promoted(m.file_id)
+            plane.note_progress()
+            self.counters.inc("tier_promotions")
+        except (RpcError, OSError, DownloadError, UploadError) as e:
+            # the file stays cold; a later read re-triggers
+            plane.errors += 1
+            self.log.warning("tier promote %s failed: %s",
+                             m.file_id[:12], e)
+        finally:
+            self._tier_promoting.discard(m.file_id)
+
+    async def _tier_reclaim_parity(self, m: Manifest) -> tuple[int, int]:
+        """Delete the parity a promotion orphaned, with surplus reclaim's
+        discipline: a peer whose manifests still expect it refuses."""
+        if m.ec is None:
+            return 0, 0
+        parity = sorted({d for st in m.ec.stripes for d in (st.p, st.q)})
+
+        def local() -> int:
+            expected = self._expected_digests_here(set(parity))
+            return sum(1 for d in parity
+                       if d not in expected
+                       and self.store.chunks.delete(d))
+
+        removed = await asyncio.to_thread(local)
+        self.serve.drop_cached(parity)
+        refused = 0
+
+        async def one(peer) -> tuple[int, int]:
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "delete_chunks", "digests": parity},
+                    retries=1)
+                return (len(resp.get("removed") or []),
+                        len(resp.get("refused") or []))
+            except RpcError:
+                return 0, len(parity)     # the aged GC is the backstop
+
+        for got, ref in await asyncio.gather(
+                *(one(p) for p in self._peers())):
+            removed += got
+            refused += ref
+        return removed, refused
+
+    async def _announce_all(self, manifest: Manifest) -> None:
+        """Best-effort announce to every peer, without ``fresh``: a tier
+        flip bounces off tombstones, never resurrects a deleted file."""
+        mj = manifest.to_json()
+
+        async def announce(peer) -> None:
+            try:
+                await self.client.announce(peer, mj)
+            except RpcError as e:
+                self.log.warning("announce to node %d failed: %s",
+                                 peer.node_id, e)
+                self.counters.inc("announce_failures")
+
+        await asyncio.gather(*(announce(p) for p in self._peers()))
+
+    def tier_stats(self) -> dict:
+        """``/metrics`` ``tier``: ``{"enabled": False}`` without the
+        plane; with it the TierConfig fields and the plane's counters."""
+        t = self.cfg.tier
+        plane = self.tier
+        if plane is None:
+            return {"enabled": False}
+        return {"enabled": t.enabled,
+                "hotFraction": t.hot_fraction,
+                "minIdleS": t.min_idle_s,
+                "scanIntervalS": t.scan_interval_s,
+                "ecK": t.ec_k,
+                "demoteCreditBytes": t.demote_credit_bytes,
+                "halfLifeS": t.half_life_s,
+                "promoteReads": t.promote_reads,
+                "redemoteCooldownS": t.redemote_cooldown_s,
+                "ledgerEntries": t.ledger_entries,
+                "ledgerSize": len(plane.ledger),
+                "scans": plane.scans,
+                "demotedFiles": plane.demoted_files,
+                "demotedBytes": plane.demoted_bytes,
+                "parityBytes": plane.parity_bytes,
+                "reclaimedBytes": plane.reclaimed_bytes,
+                "promotedFiles": plane.promoted_files,
+                "promotedBytes": plane.promoted_bytes,
+                "errors": plane.errors,
+                "creditStallS": round(plane.credit_stall_s, 3),
+                "sinceProgressS": round(
+                    time.monotonic() - plane.last_progress_at, 3),
+                "admission": plane.gate.stats()}

@@ -15,6 +15,13 @@ and sha256-verified on read. A resident delta pins its base: ``delete``
 refuses it and GC keeps it. The delta tree is consulted only once it
 exists on disk, so a store without the plane writes no ``deltas/``.
 
+With the dedup/index plane (:mod:`dfs_tpu_torch.index`) attached, every
+put and delete feeds the digest index from the calling thread (the CAS
+workers), and ``has`` answers a positive from it without a stat. A put is
+recorded after its link is visible and a delete before its unlink, both
+under the ordering mutex, so the index may lag the disk (a false negative
+the stat backstop heals) but never claims bytes that are not there.
+
 ``fsync=True`` makes every put crash-durable before it returns: the
 payload file is fsync'd before the link makes it visible and the directory
 after it; manifest saves and tombstone writes are fsync'd the same way,
@@ -97,7 +104,10 @@ class ChunkStore:
 
     ``sim`` is the similarity seam (a :class:`dfs_tpu_torch.sim.SimPlane`
     or None): when set, an eligible new chunk may be stored as a delta
-    against a resident similar base, and ``get`` reconstructs it."""
+    against a resident similar base, and ``get`` reconstructs it.
+
+    ``index`` is the dedup/index seam (a
+    :class:`dfs_tpu_torch.index.IndexPlane` or None), as dfs_tpu's."""
 
     def __init__(self, root: Path, fsync: bool = False) -> None:
         self.root = Path(root)
@@ -110,11 +120,15 @@ class ChunkStore:
         self._dirs: set[str] = set()
         self._tmp_seq = itertools.count()
         self.sim = None
+        # the dedup/index seam: None keeps every path without the index
+        self.index = None
         self._deltas_root = f"{self._root_str}/deltas"
-        # orders delete()'s pin check + unlink against _put_delta's link +
-        # pin registration: a racing delta write either sees its base
-        # survive or rolls itself back, never a broken chain
-        self._link_mu = threading.Lock()
+        # orders the visible link/unlink against its index record (a put
+        # racing a delete of the same digest must not leave a stale
+        # "present"), and delete()'s pin check + unlink against
+        # _put_delta's link + pin registration: a racing delta write
+        # either sees its base survive or rolls itself back
+        self._index_mu = threading.Lock()
         self._delta_mu = threading.Lock()  # guards the two maps below
         self._delta_base: dict[str, str] = {}   # delta digest -> base
         self._delta_refs: dict[str, int] = {}   # base -> live dependents
@@ -228,8 +242,27 @@ class ChunkStore:
         return -1
 
     def has(self, digest: str) -> bool:
-        return os.path.isfile(self._path_str(digest)) \
-            or (self._deltas_possible() and self.delta_depth(digest) >= 0)
+        """Local existence. With the index plane attached a positive index
+        answer is final (puts are recorded after the link, deletes before
+        the unlink); a negative falls through to the stat, and a stat that
+        contradicts the index re-records the digest (under the ordering
+        mutex a racing delete takes), so a crash-lost record costs one
+        stat, not one per probe forever."""
+        if self.index is None:
+            return os.path.isfile(self._path_str(digest)) \
+                or (self._deltas_possible()
+                    and self.delta_depth(digest) >= 0)
+        if self.index.lookup(digest):
+            return True
+        with self._index_mu:
+            present = os.path.isfile(self._path_str(digest)) \
+                or (self._deltas_possible()
+                    and self.delta_depth(digest) >= 0)
+            if present:
+                self.index.note_put(digest, defer_flush=True)
+        if present:
+            self.index.maybe_flush()       # outside the ordering mutex
+        return present
 
     def has_many(self, digests) -> list[bool]:
         return [self.has(d) for d in digests]
@@ -247,6 +280,13 @@ class ChunkStore:
         the batched path (``put_batch``)."""
         p = self._path_str(digest)
         if os.path.isfile(p):
+            if self.index is not None and not self.index.lookup(digest):
+                # a dedup hit on a chunk the index forgot (a crash-lost
+                # WAL buffer): healed here too, as in has()
+                with self._index_mu:
+                    if os.path.isfile(p):
+                        self.index.note_put(digest, defer_flush=True)
+                self.index.maybe_flush()
             return False
         if self._deltas_possible():
             with self._delta_mu:
@@ -262,7 +302,7 @@ class ChunkStore:
                 if stored is not None:
                     return stored
                 # rolled back (the base vanished mid-write): store raw
-        return self._write_linked(os.path.dirname(p), p, data)
+        return self._write_linked(os.path.dirname(p), p, data, digest)
 
     def put_batch(self, items, verify: bool = True) -> list[bool]:
         """Batched puts. With the plane, the batch's new eligible chunks
@@ -275,11 +315,13 @@ class ChunkStore:
                 for d, b in items]
 
     def _write_linked(self, parent: str, dest: str, data: bytes,
-                      on_link=None) -> bool:
+                      digest: str, on_link=None) -> bool:
         """tmp + O_EXCL + link (+ fsyncs) of ``data`` at ``dest``; False
         when ``dest`` appeared meanwhile. ``on_link`` (a delta's pin
-        registration) runs right after the link, both under
-        ``_link_mu``."""
+        registration) and the index record of ``digest`` run right after
+        the link, all under ``_index_mu``; the index's flush check runs
+        after the mutex drops."""
+        index = self.index
         if parent not in self._dirs:
             os.makedirs(parent, exist_ok=True)
             self._dirs.add(parent)
@@ -296,8 +338,8 @@ class ChunkStore:
                 if self._fsync:
                     f.flush()
                     os.fsync(f.fileno())
-            with self._link_mu if on_link is not None \
-                    else contextlib.nullcontext():
+            with self._index_mu if on_link is not None \
+                    or index is not None else contextlib.nullcontext():
                 try:
                     os.link(tmp, dest)
                 except FileExistsError:
@@ -310,6 +352,10 @@ class ChunkStore:
                     os.replace(tmp, dest)
                 if on_link is not None:
                     on_link()
+                if index is not None:
+                    # after the link is visible: a crash between the two
+                    # leaves a false negative, which has()'s stat covers
+                    index.note_put(digest, defer_flush=True)
             if self._fsync:
                 _fsync_path(parent)
         finally:
@@ -322,6 +368,8 @@ class ChunkStore:
                 self._fsyncs += 1
             if self._count is not None:
                 self._count += 1
+        if index is not None:
+            index.maybe_flush()        # outside the ordering mutex
         return True
 
     def _put_delta(self, digest: str, base_digest: str, blob: bytes,
@@ -330,7 +378,7 @@ class ChunkStore:
         Returns True (stored), False (lost the link race: present), or
         None: the base vanished between the encoder's read and the pin
         registration, so the write was rolled back and the caller must
-        store raw. Once the pin is registered (under ``_link_mu``, which
+        store raw. Once the pin is registered (under ``_index_mu``, which
         delete() takes), no later delete can remove the base."""
         def pin() -> None:
             with self._delta_mu:
@@ -341,7 +389,7 @@ class ChunkStore:
 
         parent = f"{self._deltas_root}/{digest[:2]}"
         if not self._write_linked(parent, f"{parent}/{digest}", blob,
-                                  on_link=pin):
+                                  digest, on_link=pin):
             return False
         if self.delta_depth(base_digest) < 0:
             # the base was deleted before the pin above became visible
@@ -354,9 +402,11 @@ class ChunkStore:
 
     def _drop_delta(self, digest: str) -> bool:
         """Unlink a delta file and release its base pin (rollback,
-        corruption, re-materialize, or delete of a dead delta)."""
+        corruption, re-materialize, or delete of a dead delta). The index
+        delete record is skipped while the digest is still raw-resident
+        (re-materialize leaves the chunk present)."""
         dp = self._delta_path_str(digest)
-        with self._link_mu:
+        with self._index_mu:
             with self._delta_mu:
                 base = self._delta_base.pop(digest, None)
                 if base is not None:
@@ -367,6 +417,9 @@ class ChunkStore:
                         self._delta_refs.pop(base, None)
             try:
                 blob_len = os.path.getsize(dp)
+                if self.index is not None \
+                        and not os.path.isfile(self._path_str(digest)):
+                    self.index.note_delete(digest, defer_flush=True)
                 os.unlink(dp)
             except FileNotFoundError:
                 return False      # a racing drop: the maps are clean
@@ -375,6 +428,8 @@ class ChunkStore:
                 self._count -= 1
         if self.sim is not None:
             self.sim.note_delta_dropped(blob_len)
+        if self.index is not None:
+            self.index.maybe_flush()
         return True
 
     def _rematerialize(self, digest: str, data: bytes) -> None:
@@ -383,7 +438,7 @@ class ChunkStore:
         read and ``_prime_delta_maps`` completes the unlink."""
         p = self._path_str(digest)
         if not os.path.isfile(p):      # raw write, past the sim seam
-            self._write_linked(os.path.dirname(p), p, data)
+            self._write_linked(os.path.dirname(p), p, data, digest)
         if self.sim is not None:
             self.sim.maybe_crash("sim.after_rematerialize")
         self._drop_delta(digest)
@@ -441,9 +496,14 @@ class ChunkStore:
         """Remove a chunk (raw or delta). A base that resident deltas
         reconstruct through is refused (False) until they die."""
         p = self._path_str(digest)
-        with self._link_mu:
+        with self._index_mu:
             if self.delta_pinned(digest):
                 return False
+            if self.index is not None and os.path.isfile(p):
+                # recorded BEFORE the unlink (written through): a crash
+                # between the two leaves a false negative for a present
+                # chunk; the reverse order could persist a stale "present"
+                self.index.note_delete(digest, defer_flush=True)
             try:
                 os.unlink(p)
             except FileNotFoundError:
@@ -454,6 +514,8 @@ class ChunkStore:
             with self._lock:
                 if self._count is not None:
                     self._count -= 1
+            if self.index is not None:
+                self.index.maybe_flush()   # outside the ordering mutex
             return True
         return self._deltas_possible() and self._drop_delta(digest)
 

@@ -487,3 +487,71 @@ def test_serving_tier_cluster_on_card(dev, tmp_path):
                 await n.stop()
 
     asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
+def test_tier_demotion_encodes_on_card(dev, tmp_path):
+    """Five nodes chunking on the card with the index and tiering planes
+    on: a scan demotes the unread file to k=3 EC, its P+Q encoded on the
+    card (ecEncode names the card, parity equals the oracle's), and the
+    cold file reads back with two nodes stopped."""
+    import asyncio
+    import socket
+
+    from dfs_tpu_torch.config import (CDCParams, ClusterConfig, IndexConfig,
+                                      NodeConfig, PeerAddr, TierConfig)
+    from dfs_tpu_torch.meta.manifest import ec_stripe_groups
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+    from dfs_tpu_torch.ops.ec import encode_pq_np
+
+    socks = [socket.socket() for _ in range(10)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i + 1, host="127.0.0.1", port=ports[2 * i],
+                 internal_port=ports[2 * i + 1]) for i in range(5)),
+        replication_factor=2)
+    hot, cold = corpus(60000, seed=13).tobytes(), \
+        corpus(60000, seed=14).tobytes()
+    tier = TierConfig(enabled=True, hot_fraction=0.5, min_idle_s=0.0,
+                      ec_k=3, half_life_s=86400.0)
+
+    async def go():
+        nodes = {i: StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(min_size=64, avg_size=256, max_size=1024),
+            health_probe_s=0, device=str(dev),
+            index=IndexConfig(enabled=True, filter_sync_s=0), tier=tier))
+            for i in range(1, 6)}
+        for n in nodes.values():
+            await n.start()
+        try:
+            hm, _ = await nodes[1].upload(hot, "hot.bin")
+            cm, _ = await nodes[1].upload(cold, "cold.bin")
+            _, got = await nodes[1].download(hm.file_id)
+            assert bytes(got) == hot
+            out = await nodes[1].tier_scan_once()
+            assert out["demoted"] == 1, out
+            enc = nodes[1].metrics()["frag"]["ecEncode"]
+            assert enc["device"] == str(dev) and enc["calls"] == 1
+            m = nodes[1].store.manifests.load(cm.file_id)
+            assert m.tier == "cold"
+            for grp, s in zip(ec_stripe_groups(m.chunks, 3), m.ec.stripes):
+                arr = np.zeros((len(grp), s.shard_len), dtype=np.uint8)
+                for j, c in enumerate(grp):
+                    arr[j, :c.length] = np.frombuffer(
+                        cold[c.offset:c.offset + c.length], dtype=np.uint8)
+                p, q = encode_pq_np(arr)
+                assert hashlib.sha256(p.tobytes()).hexdigest() == s.p
+                assert hashlib.sha256(q.tobytes()).hexdigest() == s.q
+            for i in (3, 4):
+                await nodes.pop(i).stop()
+            _, got = await nodes[5].download(cm.file_id)
+            assert bytes(got) == cold
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=120))

@@ -417,3 +417,197 @@ def test_serve_counters_match_on_one_data_root(tmp_path):
         assert counters(got) == counters(want)
 
     asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+def _mixed(n, tmp_path, ref_kw, port_kw, ref_ids=(1,)):
+    """dfs_tpu nodes at ``ref_ids``, port nodes elsewhere, one cluster
+    over ``n`` localhost nodes (rf 2, or 1 for a single node)."""
+    ports = _free_ports(2 * n)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(n)]
+    ref_cluster = RefCluster(peers=tuple(
+        RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=min(2, n))
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=min(2, n))
+    nodes = {}
+    for i, _, _ in addrs:
+        if i in ref_ids:
+            nodes[i] = RefServer(RefNodeConfig(
+                node_id=i, cluster=ref_cluster, data_root=tmp_path,
+                fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+                health_probe_s=0, **ref_kw))
+        else:
+            nodes[i] = StorageNodeServer(NodeConfig(
+                node_id=i, cluster=cluster, data_root=tmp_path,
+                cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu",
+                **port_kw))
+    return nodes
+
+
+def _ref_index(**kw):
+    from dfs_tpu.config import IndexConfig as RefIndexConfig
+
+    return RefIndexConfig(enabled=True, filter_sync_s=0, **kw)
+
+
+def _index(**kw):
+    from dfs_tpu_torch.config import IndexConfig
+
+    return IndexConfig(enabled=True, filter_sync_s=0, **kw)
+
+
+def test_mixed_cluster_index_gossip_and_probe_skip(tmp_path):
+    """One dfs_tpu node and two port nodes, all with the index plane:
+    every node replicates both kinds' filters (get_filter, then
+    filter_delta), a re-upload through either kind moves nothing and
+    skips the probe round, fresh data through either kind skips probe
+    RPCs altogether, and get_filters answers the same table from either
+    kind."""
+    nodes = _mixed(3, tmp_path, {"index": _ref_index()},
+                   {"index": _index()})
+    a, b = corpus(40_000, seed=51), corpus(35_000, seed=52)
+
+    async def go():
+        for n in nodes.values():
+            await n.start()
+        ref, p2 = nodes[1], nodes[2]
+        try:
+            ma, sa = await ref.upload(a, "a.bin")
+            mb, sb = await p2.upload(b, "b.bin")
+            for _ in range(2):             # a full sync, then deltas
+                for n in nodes.values():
+                    assert await n._filter_sync_once() == 2
+            assert p2.index.peer_filters.deltas >= 2
+            assert ref.index.peer_filters.deltas >= 2
+            for node, body, first in ((p2, a, sa), (ref, b, sb)):
+                _, st = await node.upload(body, "again.bin")
+                assert st["transferredBytes"] == 0
+                assert st["dedupSkippedBytes"] >= first["transferredBytes"]
+                ix = node.index_stats()
+                assert ix["filterTrusted"] > 0 and ix["filterFp"] == 0
+            for i, node in ((7, p2), (8, ref)):
+                skipped = node.index_stats()["probeRpcsSkipped"]
+                await node.upload(corpus(20_000, seed=50 + i), "new.bin")
+                assert node.index_stats()["probeRpcsSkipped"] > skipped
+            tables = []
+            for client, peer in ((p2.client, ref.cfg.cluster.peer(3)),
+                                 (ref.client, p2.cfg.cluster.peer(3))):
+                got = await client.get_filters(peer)
+                tables.append([(m["nodeId"], m["gen"], m["version"],
+                                bytes(blob)) for m, blob in got])
+            assert [t[0] for t in tables[0]] == [3, 1, 2]
+            assert tables[0] == tables[1]
+            for n in nodes.values():
+                _, body = await n.download(mb.file_id)
+                assert bytes(body) == b
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+@pytest.mark.parametrize("writer", ["port", "dfs_tpu"])
+def test_index_and_ledger_open_in_the_other_package(tmp_path, writer):
+    """A node with the index and tiering planes writes ``index/`` and
+    ``tier/ledger.json``; the other package's node opens the same data
+    root without a rebuild, with the same present set and ledger."""
+    from dfs_tpu.config import TierConfig as RefTierConfig
+
+    from dfs_tpu_torch.config import TierConfig
+
+    body = corpus(40_000, seed=53)
+    kinds = {"dfs_tpu": (1,), "port": ()}
+
+    def node_of(kind):
+        return _mixed(1, tmp_path,
+                      {"index": _ref_index(memtable_entries=256),
+                       "tier": RefTierConfig(enabled=True)},
+                      {"index": _index(memtable_entries=256),
+                       "tier": TierConfig(enabled=True)},
+                      ref_ids=kinds[kind])[1]
+
+    async def go():
+        first = node_of(writer)
+        await first.start()
+        try:
+            m, _ = await first.upload(body, "f.bin")
+            _, got = await first.download(m.file_id)
+            assert bytes(got) == body
+            want_present = sorted(first.index.lsi.present_digests())
+            assert len(first.tier.ledger) == len(m.chunks)
+        finally:
+            await first.stop()
+        # the snapshot written at stop, as the second package reads it
+        want_ledger = json.loads((tmp_path / "node-1" / "tier"
+                                  / "ledger.json").read_bytes())["entries"]
+        assert len(want_ledger) == len(m.chunks)
+        second = node_of("dfs_tpu" if writer == "port" else "port")
+        await second.start()
+        try:
+            assert second.index.lsi.stats()["rebuilds"] == 0
+            assert sorted(second.index.lsi.present_digests()) \
+                == want_present
+            assert {d.hex() for d in want_present} \
+                == set(second.store.chunks.digests())
+            assert second.tier.ledger._map == want_ledger
+            _, got = await second.download(m.file_id)
+            assert bytes(got) == body
+        finally:
+            await second.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+@pytest.mark.parametrize("demoter", ["dfs_tpu", "port"])
+def test_file_demoted_by_one_kind_reads_and_promotes_on_the_other(
+        tmp_path, demoter):
+    """A mixed 3-node cluster with tiering at k = 1: a scan on one kind
+    demotes the cold file (both kinds agree on the cold manifest); the
+    other kind reads it back and, read past promote_reads, promotes it."""
+    from dfs_tpu.config import TierConfig as RefTierConfig
+
+    from dfs_tpu_torch.config import TierConfig
+
+    knobs = dict(enabled=True, hot_fraction=0.5, min_idle_s=0.0, ec_k=1,
+                 half_life_s=86400.0, promote_reads=2.0)
+    nodes = _mixed(3, tmp_path, {"tier": RefTierConfig(**knobs)},
+                   {"tier": TierConfig(**knobs)})
+    hot, cold = corpus(30_000, seed=54), corpus(30_000, seed=55)
+    scanner, reader = (nodes[1], nodes[2]) if demoter == "dfs_tpu" \
+        else (nodes[2], nodes[1])
+
+    async def go():
+        for n in nodes.values():
+            await n.start()
+        try:
+            hm, _ = await scanner.upload(hot, "hot.bin")
+            cm, _ = await scanner.upload(cold, "cold.bin")
+            for _ in range(2):
+                _, got = await scanner.download(hm.file_id)
+            out = await scanner.tier_scan_once()
+            assert out["demoted"] == 1, out
+            docs = {n.store.manifests.load(cm.file_id).to_json()
+                    for n in nodes.values()}
+            assert len(docs) == 1 and '"tier":"cold"' in docs.pop()
+            # the check precedes a read's own feed and the heat decays:
+            # the fourth read of the file crosses promote_reads = 2
+            for _ in range(4):
+                _, got = await reader.download(cm.file_id)
+                assert bytes(got) == cold
+            for _ in range(200):
+                m = reader.store.manifests.load(cm.file_id)
+                if m.tier is None and not reader._tier_promoting:
+                    break
+                await asyncio.sleep(0.05)
+            assert reader.store.manifests.load(cm.file_id).tier is None
+            assert reader.tier_stats()["promotedFiles"] == 1
+            for n in nodes.values():
+                _, got = await n.download(cm.file_id)
+                assert bytes(got) == cold
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))

@@ -1,7 +1,7 @@
 """The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
 imports JAX or anything of dfs_tpu, a process that uses the port — the
 single-device and the sharded walk, and a node served over HTTP with the
-similarity plane and the serving tier — never
+similarity plane, the serving tier, the index and tiering — never
 loads either, and without CUDA the entry points raise instead of running
 on the CPU."""
 
@@ -72,8 +72,9 @@ with tempfile.TemporaryDirectory() as d:
     import dfs_tpu_torch.obs, dfs_tpu_torch.serve  # noqa: F401
     from dfs_tpu_torch.utils import deadline
     from dfs_tpu_torch.cli.client import NodeClient
-    from dfs_tpu_torch.config import (ClusterConfig, NodeConfig, ServeConfig,
-                                      SimConfig)
+    from dfs_tpu_torch.config import (ClusterConfig, IndexConfig,
+                                      NodeConfig, ServeConfig, SimConfig,
+                                      TierConfig)
     from dfs_tpu_torch.node.runtime import StorageNodeServer
     socks = [socket.socket() for _ in range(2)]
     for s in socks:
@@ -90,7 +91,8 @@ with tempfile.TemporaryDirectory() as d:
             health_probe_s=0, device="cpu",
             sim=SimConfig(enabled=True, min_chunk_bytes=1024),
             serve=ServeConfig(cache_bytes=1 << 20, readahead_batches=2,
-                              download_slots=2, hedge_budget_per_s=5.0)))
+                              download_slots=2, hedge_budget_per_s=5.0),
+            index=IndexConfig(enabled=True), tier=TierConfig(enabled=True)))
         await srv.start()
         try:
             c = NodeClient(port=ports[0], timeout_s=30)
@@ -103,6 +105,8 @@ with tempfile.TemporaryDirectory() as d:
             assert await asyncio.to_thread(c.download, fid) == body
             assert srv.serve.cache.stats()["hits"] > 0
             assert deadline.parse_header("1.5") == 1.5
+            assert srv.index_stats()["lsi"]["memtableEntries"] > 0
+            assert (await srv.tier_scan_once())["skipped"]  # 1 node
         finally:
             await srv.stop()
 
