@@ -8,13 +8,13 @@ spin that covers their enqueue, per launch; ``ms_n20`` the same at 20;
 ``ms_single``: one event pair around one call, host gap included), then
 drives the paths end to end and checks each against the NumPy oracle:
 
-- ``e2e``: a LocalNode streaming a 256 MiB upload through the anchored
+- ``e2e``: a LocalNode streaming a 128 MiB upload through the anchored
   CDC + SHA-256 chain at the default parameters (64 MiB windows, two in
   flight), checked against the oracle, hashlib and a download (kernels
   1-4);
 - ``cluster``: the node as users run it — 5 ``python -m
   dfs_tpu_torch.cli.main serve`` processes on the card (rf 2, write quorum
-  2, fsync on), the same 256 MiB streamed to node 1 over HTTP in 1 MiB
+  2, fsync on), the same 128 MiB streamed to node 1 over HTTP in 1 MiB
   chunked blocks; the chunk table against the oracle, every chunk read
   back from both of its owners' stores, downloads from a node that did not
   coordinate (whole and a Range), a re-upload to another node that moves
@@ -26,6 +26,10 @@ drives the paths end to end and checks each against the NumPy oracle:
   P+Q encoded on the card), its table, its parity digests and every
   shard's holder checked, and read back from node 1 after nodes 3 and 4
   are both SIGKILLed (by decode);
+- ``cluster_obs_off``: the ``cluster`` phase's warm-up and streamed 128 MiB
+  upload again, on 5 fresh processes with ``--trace-ring 0 --journal-bytes
+  0 --sentinel-interval 0`` (tracing, journal and sentinel off), its upload
+  time beside the default one's (kernels 1-4 in node 1);
 - ``ec_codec``: the EC codec on the card at that file's stripes (k=3 and
   k=1, padded per stripe): the batched encode the node runs against the
   NumPy oracle stripe by stripe, timed; the batched decode in torch on
@@ -47,7 +51,7 @@ drives the paths end to end and checks each against the NumPy oracle:
 - ``cluster_serve``: the serving tier as users run it: 5 ``serve``
   processes (rf 2, write quorum 2, fsync on) with ``--cache-bytes 512 MiB
   --readahead 2 --hedge-budget 50 --hedge-floor 0.04 --hedge-cap 0.3``,
-  node 5 also ``--download-slots 2 --queue-depth 6``. The 256 MiB body
+  node 5 also ``--download-slots 2 --queue-depth 6``. The 128 MiB body
   streamed to node 1 (table against the oracle, kernels 1-4 in node 1);
   node 3 reads it cold (readahead) and hot (cache), both identical, timed
   beside the ``cluster`` phase's download; 32 concurrent ``Range: bytes=
@@ -77,11 +81,34 @@ drives the paths end to end and checks each against the NumPy oracle:
   from node 1 until it promotes, then read again (identical, stored bytes
   back up). Every time on its own line, then node 1's and node 2's
   ``index`` and ``tier`` sections;
+- ``cluster_chaos``: the fault-injection and tracing planes as users run
+  them: 5 ``serve --chaos --chaos-seed 13`` processes (rf 2, write quorum
+  2, fsync on; tracing, journal and sentinel at their defaults). (a) The
+  64 MiB EC body streamed to node 1 with ``X-Dfs-Trace`` (table against
+  the oracle, kernels 1-4 in node 1), ``GET /trace`` on node 3 stitching
+  spans of at least 2 nodes with ``http./upload``, ``upload.fragment``,
+  ``rpc.store_chunks`` and ``peer.store_chunks``, every parent present but
+  the client's; ``upload.fragment``'s seconds beside ``chain_stages``'
+  whole-chain time for the same windows; (b) ``POST /chaos {"partition":
+  "2"}`` on node 1, ten 1 MiB uploads ack by handoff, node 1's ``/events``
+  holds trace-stamped ``chaos_inject`` events, healed and repaired, node 3
+  reads them back identical; (c) ``{"disk_full": true}`` on node 2: an
+  upload there answers 507 and journals ``disk_pressure``, node 2 still
+  serves (a), an upload at node 1 acks; (d) ``serve_delay_s`` 0.5 on node
+  3 and ``rpc_truncate_rate`` 0.05 on node 1: uploads ack, read back from
+  node 5, node 1's RPC table names node 3 its slowest peer; (e) node 4
+  restarted armed at each of the four upload-path crash points: each
+  upload dies by SIGKILL without an ack; a clean restart reads every acked
+  file back identical, journals ``boot_sweep``, and no manifest on node 4
+  names a chunk held by fewer than 2 nodes; (f) in this process, one
+  ``AnchoredCudaFragmenter.chunk`` of the 64 MiB body inside
+  ``device_trace`` and an ``upload.fragment`` span: the exported trace
+  holds kernels 1-4's launches inside that range (path ``device_trace``);
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
   at the default parameters over one slot per card (kernels 2, 3, 5);
-- ``sharded_walk``: the window-batched walk over the same 256 MiB body on
+- ``sharded_walk``: the window-batched walk over the same 128 MiB body on
   one slot per card and on 4 slots of the first card (kernels 1-4).
 
 Each path runs with the launch counters set to 0 just before it and read
@@ -89,7 +116,8 @@ just after; a kernel of the path that never launched fails the run.
 
     python3 chip_smoke.py            # from the repository root; one card
 
-Each phase prints one JSON line. Before the last line come the card's
+Each phase prints one JSON line (``timing`` gives each phase's seconds).
+Before the last line come the card's
 ``nvidia-smi`` name and power limit and the ``{"kernels": [...]}`` table
 (``launches`` counted on the path named by ``launches_path``, and on
 every path in ``launches_by_path``); the last
@@ -117,7 +145,10 @@ import types
 from pathlib import Path
 
 SEED = 20261016
-BODY_BYTES = 256 * 1024 * 1024
+# the body of e2e, cluster, cluster_obs_off, cluster_serve and the sharded
+# walk: 128 MiB (three 64 MiB windows at the 48 MiB stride), cut from 256
+# MiB so the run stays well inside its time limit
+BODY_BYTES = 128 * 1024 * 1024
 EC_BYTES = 64 * 1024 * 1024
 EC_K = 3
 BLOCK_BYTES = 1024 * 1024
@@ -141,6 +172,18 @@ SERVE_CURVE = (2, 8, 16, 32)
 TIER_FLAGS = ("--index", "--tier", "--tier-ec-k", "3", "--tier-min-idle",
               "0", "--tier-half-life", "86400", "--tier-hot-fraction",
               "0.5")
+# cluster_chaos: dfs_tpu's bench_chaos.py cluster (every node serve --chaos
+# at one seed, the defaults otherwise: tracing, journal and sentinel on),
+# 1 MiB bodies for the fault steps, the slow peer's 0.5 s and the torn
+# frames' 5%; the phase's time bound
+CHAOS_FLAGS = ("--chaos", "--chaos-seed", "13")
+CHAOS_SMALL_BYTES = 1024 * 1024
+CHAOS_PARTITION_UPLOADS = 10
+CHAOS_SLOW_UPLOADS = 5
+CHAOS_PHASE_BOUND_S = 240.0
+# the tracing-off twin of the cluster phase's upload
+OBS_OFF_FLAGS = ("--trace-ring", "0", "--journal-bytes", "0",
+                 "--sentinel-interval", "0")
 
 # H100 SXM peaks at the full 700 W power limit: HBM bandwidth (NVIDIA data
 # sheet), and the INT32 rate every kernel here is held to — 132 SMs x 64
@@ -326,10 +369,10 @@ def _http(port: int, method: str, path: str, body=None,
 
 
 def _upload(port: int, body, name: str, chunked: bool = False,
-            ec: int = 0) -> dict:
+            ec: int = 0, headers: dict | None = None) -> dict:
     st, _, out = _http(port, "POST", f"/upload?name={name}"
                        + (f"&ec={ec}" if ec else ""), body=body,
-                       chunked=chunked)
+                       headers=headers, chunked=chunked)
     check(st == 201, f"upload {name} to :{port} answered {st}: {out[:300]}")
     return json.loads(out)
 
@@ -771,7 +814,7 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
                   params, rng, np, ec_body: bytes, ec_table: list,
                   ec_parity: list) -> dict:
     """The ``cluster`` phase (module docstring). Returns node 1's kernel
-    launches across the streamed 256 MiB upload and across the EC
+    launches across the streamed 128 MiB upload and across the EC
     upload."""
     from dfs_tpu_torch.meta.manifest import Manifest, ec_stripe_groups
     from dfs_tpu_torch.ops.cdc_anchored import chunk_file_anchored_np
@@ -784,6 +827,9 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
         _upload(http_port[1], body[:8 * 2**20], "warm.bin")
 
         m0 = _metrics(http_port[1])["frag"]["launches"]
+        # the disk's dirty pages written back first: an earlier phase's
+        # writeback is not billed to this upload (nor to cluster_obs_off's)
+        os.sync()
         t0 = time.perf_counter()
         info = _upload(http_port[1], iter(blocks), "cluster.bin",
                        chunked=True)
@@ -988,7 +1034,7 @@ def cluster_phase(root: Path, body: bytes, blocks: list, oracle: list,
           "ec_decodes": ec_decodes, "encode": enc, "oracle_equal": True,
           "file_id_ok": True, "parity_digests_equal_oracle": True,
           "every_shard_on_its_holder": True, "launches": ec_launches})
-    return launches, ec_launches, download_s
+    return launches, ec_launches, download_s, upload_s
 
 
 def _get_many(port: int, path: str, n: int, headers: dict) -> list:
@@ -1441,6 +1487,354 @@ def cluster_index_tier_phase(root: Path, body_a: bytes, table_a: list,
     return both
 
 
+def cluster_obs_off_phase(root: Path, blocks: list, oracle: list,
+                          body_len: int, upload_default_s: float) -> dict:
+    """The ``cluster_obs_off`` phase (module docstring): the ``cluster``
+    phase's warm-up and streamed upload on 5 fresh processes with tracing,
+    the journal and the sentinel off. Returns node 1's kernel launches."""
+    fid = None
+    with serve_cluster(root, ".chip_smoke_obs_off_", OBS_OFF_FLAGS) as c:
+        port = c.port
+        _upload(port[1], b"".join(blocks[:8]), "warm.bin")
+        m0 = _metrics(port[1])["frag"]["launches"]
+        os.sync()                        # as the cluster phase does
+        t0 = time.perf_counter()
+        info = _upload(port[1], iter(blocks), "cluster.bin", chunked=True)
+        upload_s = time.perf_counter() - t0
+        m1 = _metrics(port[1])
+        launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+        for k in ("strip_chunk_states", "repack_lanes",
+                  "bswap_transpose", "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in node 1 "
+                  "during the tracing-off upload")
+        fid = info["fileId"]
+        st, _, doc = _http(port[1], "GET", f"/manifest?fileId={fid}",
+                           timeout=120)
+        check([(x["offset"], x["length"], x["digest"])
+               for x in json.loads(doc)["chunks"]] == oracle,
+              "tracing-off cluster chunk table != numpy oracle")
+        o = m1["obs"]
+        check(o["traceRing"] == 0 and o["spans"] == 0
+              and o["journal"] == {"enabled": False}
+              and o["sentinel"] == {"enabled": False},
+              f"tracing-off node 1 still observes: {o}")
+    gib = body_len / 2**30
+    emit({"phase": "cluster_obs_off", "flags": list(OBS_OFF_FLAGS),
+          "bytes": body_len, "start_s": c.start_s, "upload_s": upload_s,
+          "upload_gib_s": gib / upload_s,
+          "upload_default_s": upload_default_s,
+          "off_over_default": upload_s / upload_default_s,
+          "oracle_equal": True, "launches": launches})
+    return launches
+
+
+def _trace_header() -> tuple[str, str, dict]:
+    tid, sid = os.urandom(16).hex(), os.urandom(8).hex()
+    return tid, sid, {"X-Dfs-Trace": f"{tid}-{sid}"}
+
+
+def _events(port: int, since: float = 0.0) -> list:
+    st, _, out = _http(port, "GET", f"/events?since={since}&limit=4096",
+                       timeout=60)
+    check(st == 200, f"/events on :{port} answered {st}")
+    return json.loads(out)["events"]
+
+
+def _chaos(port: int, knobs: dict) -> dict:
+    st, _, out = _http(port, "POST", "/chaos",
+                       body=json.dumps(knobs).encode(), timeout=60)
+    check(st == 200, f"POST /chaos {knobs} on :{port} answered {st}: "
+          f"{out[:200]}")
+    return json.loads(out)
+
+
+def _rpc_by_peer(m: dict) -> dict:
+    """peer -> [calls, seconds] over node m's client RPC table."""
+    out: dict = {}
+    for key, row in m["rpcClient"].items():
+        peer = key.split(":", 1)[0]
+        acc = out.setdefault(peer, [0, 0.0])
+        acc[0] += row["count"]
+        acc[1] += row["seconds"]
+    return out
+
+
+def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
+                        chain_ms: float) -> dict:
+    """The ``cluster_chaos`` phase (module docstring), steps (a)-(e) on 5
+    ``serve --chaos`` processes. Returns node 1's kernel launches across
+    the traced upload of step (a)."""
+    from dfs_tpu_torch.chaos import CRASH_POINTS
+    from dfs_tpu_torch.meta.manifest import Manifest
+
+    ids = list(range(1, CLUSTER_NODES + 1))
+    rng = np.random.default_rng(SEED + 3)
+
+    def small() -> bytes:
+        return rng.integers(0, 256, size=CHAOS_SMALL_BYTES,
+                            dtype=np.uint8).tobytes()
+
+    acked: dict[str, bytes] = {}         # fileId -> body, every ack
+    fid = hashlib.sha256(body).hexdigest()
+    blocks = [body[i:i + BLOCK_BYTES] for i in range(0, len(body),
+                                                      BLOCK_BYTES)]
+    times: dict = {}
+    out: dict = {"phase": "cluster_chaos", "nodes": CLUSTER_NODES,
+                 "flags": list(CHAOS_FLAGS)}
+    per_node: dict[int, tuple] = {}
+    t_phase = time.perf_counter()
+    with serve_cluster(root, ".chip_smoke_chaos_", CHAOS_FLAGS,
+                       per_node=per_node) as c:
+        d, port, procs = c.dir, c.port, c.procs
+        out["start_s"] = c.start_s
+
+        # (a) the EC body streamed to node 1 under X-Dfs-Trace, stitched
+        # at node 3
+        tid, sid, hdr = _trace_header()
+        m0 = _metrics(port[1])["frag"]["launches"]
+        t0 = time.perf_counter()
+        info = _upload(port[1], iter(blocks), "traced.bin", chunked=True,
+                       headers=hdr)
+        times["a_upload_s"] = time.perf_counter() - t0
+        m1 = _metrics(port[1])
+        launches = {k: m1["frag"]["launches"][k] - m0[k] for k in m0}
+        for k in ("strip_chunk_states", "repack_lanes",
+                  "bswap_transpose", "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in node 1 "
+                  "during the traced upload")
+        check(info["fileId"] == fid, "traced upload fileId != sha256")
+        st, _, doc = _http(port[1], "GET", f"/manifest?fileId={fid}",
+                           timeout=120)
+        check([(x["offset"], x["length"], x["digest"])
+               for x in json.loads(doc)["chunks"]] == table,
+              "traced upload chunk table != numpy oracle")
+        acked[fid] = body
+        st, _, doc = _http(port[3], "GET", f"/trace?traceId={tid}",
+                           timeout=120)
+        check(st == 200, f"/trace on node 3 answered {st}")
+        doc = json.loads(doc)
+        spans = doc["spans"]
+        names = {x["name"] for x in spans}
+        nodes = {x["node"] for x in spans}
+        need = {"http./upload", "upload.fragment", "rpc.store_chunks",
+                "peer.store_chunks"}
+        check(need <= names, f"stitched trace lacks {need - names}")
+        check(len(nodes) >= 2, f"stitched trace spans nodes {nodes}")
+        span_ids = {x["s"] for x in spans}
+        roots = [x for x in spans if x["p"] not in span_ids]
+        check([x["name"] for x in roots] == ["http./upload"]
+              and roots[0]["p"] == sid,
+              f"stitched trace: spans without their parent {roots[:3]}")
+        frag = [x for x in spans if x["name"] == "upload.fragment"]
+        windows = launches["strip_chunk_states"]
+        out["a"] = {"upload_s": times["a_upload_s"], "bytes": len(body),
+                    "oracle_equal": True, "spans": len(spans),
+                    "span_nodes": sorted(nodes),
+                    "peers_failed": doc["peersFailed"],
+                    "names": sorted(names), "launches": launches,
+                    "upload_fragment_s": [x["d"] for x in frag],
+                    "windows": windows,
+                    "chain_stages_whole_chain_ms": chain_ms,
+                    "chain_ms_x_windows": chain_ms * windows}
+        emit({"phase": "cluster_chaos:a", **out["a"]})
+
+        # (b) node 1 cut from node 2: ten uploads ack by handoff, the
+        # journal holds the trace-stamped faults; healed and repaired,
+        # node 3 reads every one back
+        t0 = time.perf_counter()
+        _chaos(port[1], {"partition": "2"})
+        part = []
+        for k in range(CHAOS_PARTITION_UPLOADS):
+            b = small()
+            inf = _upload(port[1], b, f"part{k}.bin")
+            check(inf["handoffChunks"] > 0 and inf["minCopies"] >= 2,
+                  f"partitioned upload {k}: {inf}")
+            acked[inf["fileId"]] = b
+            part.append(inf["fileId"])
+        evs = _events(port[1])
+        cut = [e for e in evs if e["type"] == "chaos_inject"
+               and e.get("kind") == "partition"]
+        # every upload is its own trace; the health probe loop's faults
+        # carry none
+        traced = {e["trace"] for e in cut if e.get("trace")}
+        check(len(traced) >= CHAOS_PARTITION_UPLOADS,
+              f"node 1 journaled partition faults of {len(traced)} traces "
+              f"for {CHAOS_PARTITION_UPLOADS} uploads")
+        _chaos(port[1], {"partition": ""})
+        st, _, rep = _http(port[1], "POST", "/repair", body=b"",
+                           timeout=600)
+        check(st == 200, f"/repair answered {st}")
+        for f in part:
+            st, _, got = _http(port[3], "GET", f"/download?fileId={f}")
+            check(st == 200 and got == acked[f],
+                  f"partitioned upload {f[:12]} not identical on node 3")
+        times["b_s"] = time.perf_counter() - t0
+        out["b"] = {"uploads": len(part), "partition_faults": len(cut),
+                    "traced_faults": sum(1 for e in cut if e.get("trace")),
+                    "fault_traces": len(traced),
+                    "repair": json.loads(rep), "seconds": times["b_s"]}
+        emit({"phase": "cluster_chaos:b", **out["b"]})
+
+        # (c) node 2's disk full: 507 and disk_pressure there, reads of
+        # (a) still served by it, uploads at node 1 still ack
+        t0 = time.perf_counter()
+        _chaos(port[2], {"disk_full": True})
+        full_st, _, msg = _http(port[2], "POST", "/upload?name=full.bin",
+                                body=small())
+        check(full_st == 507, f"upload to a full node answered {full_st}: "
+              f"{msg[:200]}")
+        check(any(e["type"] == "disk_pressure" for e in _events(port[2])),
+              "node 2 journaled no disk_pressure")
+        t1 = time.perf_counter()
+        st, _, got = _http(port[2], "GET", f"/download?fileId={fid}")
+        read_s = time.perf_counter() - t1
+        check(st == 200 and got == body,
+              "the full node's download not identical")
+        del got
+        b = small()
+        inf = _upload(port[1], b, "beside-full.bin")
+        acked[inf["fileId"]] = b
+        _chaos(port[2], {"disk_full": False})
+        times["c_s"] = time.perf_counter() - t0
+        out["c"] = {"status": full_st, "full_node_read_s": read_s,
+                    "node1_upload_min_copies": inf["minCopies"],
+                    "seconds": times["c_s"]}
+        emit({"phase": "cluster_chaos:c", **out["c"]})
+
+        # (d) node 3 slow, node 1's frames torn at 5%: uploads ack,
+        # nothing acked is lost, node 1's table names node 3 slowest
+        t0 = time.perf_counter()
+        _chaos(port[3], {"serve_delay_s": 0.5})
+        _chaos(port[1], {"rpc_truncate_rate": 0.05})
+        r0 = _rpc_by_peer(_metrics(port[1]))
+        slow = []
+        for k in range(CHAOS_SLOW_UPLOADS):
+            b = small()
+            inf = _upload(port[1], b, f"slow{k}.bin")
+            acked[inf["fileId"]] = b
+            slow.append(inf["fileId"])
+        m = _metrics(port[1])
+        r1 = _rpc_by_peer(m)
+        means = {p: (r1[p][1] - r0.get(p, [0, 0.0])[1])
+                 / (r1[p][0] - r0.get(p, [0, 0.0])[0])
+                 for p in r1 if r1[p][0] > r0.get(p, [0, 0.0])[0]}
+        torn = m["chaos"]["injected"].get("rpc_truncate", 0)
+        _chaos(port[1], {"rpc_truncate_rate": 0.0})
+        _chaos(port[3], {"serve_delay_s": 0.0})
+        for f in slow:
+            st, _, got = _http(port[5], "GET", f"/download?fileId={f}")
+            check(st == 200 and got == acked[f],
+                  f"slow-peer upload {f[:12]} not identical on node 5")
+        check(max(means, key=means.get) == "3",
+              f"node 1's slowest peer is not node 3: {means}")
+        times["d_s"] = time.perf_counter() - t0
+        out["d"] = {"uploads": len(slow), "torn_frames": torn,
+                    "mean_rpc_s_by_peer": means, "seconds": times["d_s"]}
+        emit({"phase": "cluster_chaos:d", **out["d"]})
+
+        # (e) node 4 restarted armed at each upload-path crash point:
+        # each upload dies with its process, by SIGKILL, unacked
+        crashes = {}
+        for point in sorted(p for p in CRASH_POINTS
+                            if p.startswith(("place.", "upload."))):
+            per_node[4] = ("--chaos-crash-point", point)
+            restart_s = c.restart(4)
+            acked_now = False
+            try:
+                st, _, _ = _http(port[4], "POST", "/upload?name=doomed.bin",
+                                 body=small(), timeout=120)
+                acked_now = st == 201
+            except OSError:
+                pass                     # the connection died with it
+            rc = procs[4].wait(timeout=60)
+            check(rc == -signal.SIGKILL and not acked_now,
+                  f"{point}: exit {rc}, acked {acked_now}")
+            crashes[point] = {"restart_s": restart_s, "rc": rc}
+        per_node.pop(4)
+        t_clean = time.time()
+        restart_s = c.restart(4)
+        t1 = time.perf_counter()
+        for f, b in acked.items():
+            st, _, got = _http(port[4], "GET", f"/download?fileId={f}")
+            check(st == 200 and got == b,
+                  f"acked {f[:12]} not identical on the restarted node 4")
+        read_back_s = time.perf_counter() - t1
+        sweep = [e for e in _events(port[4], since=t_clean - 1.0)
+                 if e["type"] == "boot_sweep"]
+        check(sweep, "the clean restart journaled no boot_sweep")
+        # no manifest on node 4 names a chunk held by fewer than the
+        # write quorum's 2 nodes
+        held = {}
+        for i in ids:
+            cdir = d / "data" / f"node-{i}" / "chunks"
+            for sub in cdir.iterdir() if cdir.is_dir() else ():
+                if sub.is_dir() and len(sub.name) == 2:
+                    for fp in sub.iterdir():
+                        held[fp.name] = held.get(fp.name, 0) + 1
+        manifests = 0
+        for mp in (d / "data" / "node-4" / "manifests").glob("*.json"):
+            man = Manifest.from_json(mp.read_text())
+            manifests += 1
+            thin = [x for x in man.all_digests() if held.get(x, 0) < 2]
+            check(not thin, f"manifest {man.file_id[:12]} on node 4 names "
+                  f"{len(thin)} chunk(s) held by fewer than 2 nodes")
+        out["e"] = {"crashes": crashes, "clean_restart_s": restart_s,
+                    "acked_files": len(acked),
+                    "read_back_s": read_back_s,
+                    "boot_sweep": {k: sweep[-1].get(k)
+                                   for k in ("tmps", "orphans")},
+                    "manifests_checked": manifests}
+        emit({"phase": "cluster_chaos:e", **out["e"]})
+        out["events_node1"] = len(_events(port[1]))
+    out["seconds"] = time.perf_counter() - t_phase
+    out["within_bound"] = out["seconds"] <= CHAOS_PHASE_BOUND_S
+    out["launches"] = launches
+    out["zero_acked_loss"] = True
+    emit({k: v for k, v in out.items()
+          if k not in ("a", "b", "c", "d", "e")})
+    return launches
+
+
+def device_trace_phase(body: bytes, table: list, kernels) -> dict:
+    """Step (f) of ``cluster_chaos``: one ``AnchoredCudaFragmenter.chunk``
+    of the 64 MiB body inside ``device_trace`` and an ``upload.fragment``
+    span in this process; the exported trace must hold the launches of
+    K1-K4 inside that range. Returns the path's launch counts."""
+    import torch
+
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+    from dfs_tpu_torch.utils.trace import device_trace, kernels_within, span
+
+    frag = AnchoredCudaFragmenter(device="cuda")
+    frag.chunk(body[:frag.region_bytes])            # warm
+    torch.cuda.synchronize()
+    needed = ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+              "select_walk")
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_prof_",
+                                     dir=Path(__file__).resolve().parent
+                                     ) as tdir:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with device_trace(tdir):
+            with span("upload.fragment"):
+                got = frag.chunk(body)
+        trace_s = time.perf_counter() - t0
+        counts = path_launches(kernels, "device_trace", needed)
+        check([(x.offset, x.length, x.digest) for x in got] == table,
+              "traced chunk table != numpy oracle")
+        trace_file = Path(tdir) / "trace.json"
+        inside = kernels_within(str(trace_file), "upload.fragment",
+                                {k: kernels.DEVICE_FUNCS[k] for k in needed})
+        trace_bytes = trace_file.stat().st_size
+    check(all(inside[k] > 0 for k in needed),
+          f"device trace: kernels inside upload.fragment {inside}")
+    emit({"phase": "cluster_chaos:f", "bytes": len(body),
+          "seconds": trace_s, "trace_bytes": trace_bytes,
+          "kernels_inside_range": inside, "launches": counts,
+          "oracle_equal": True})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1470,6 +1864,7 @@ def main() -> int:
     from dfs_tpu_torch.parallel.mesh import make_mesh
 
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1662,10 +2057,10 @@ def main() -> int:
             k_max=shape["k_max"]),
         "whole_chain": lambda: chain(words, 0, REGION_BYTES, True),
     }
+    stage_ms = {k: single_ms(fn, reps=5, warmup=1)
+                for k, fn in stages.items()}
     emit({"phase": "chain_stages", "region_bytes": REGION_BYTES,
-          "lanes": s_pad, "segments": int(nseg),
-          "ms": {k: single_ms(fn, reps=5, warmup=1)
-                 for k, fn in stages.items()}})
+          "lanes": s_pad, "segments": int(nseg), "ms": stage_ms})
     del stages, cf32, since, srows, t_k, p_k, out_k, words, tiles
 
     # ---- the main path: LocalNode streaming upload on the card ----
@@ -1705,7 +2100,7 @@ def main() -> int:
         _, st2 = node.upload_stream(iter(blocks), name="smoke.bin")
         check(st2["transferredBytes"] == 0, "re-upload transferred bytes")
         edited = bytearray(body)
-        for off, ins in ((200_000_005, b"\x01"), (100_000_003, b"\x02" * 77),
+        for off, ins in ((120_000_005, b"\x01"), (60_000_003, b"\x02" * 77),
                          (10_000_001, b"\x03" * 7)):
             edited[off:off] = ins
         m3, st3 = node.upload(bytes(edited), name="smoke-edit.bin")
@@ -1733,17 +2128,39 @@ def main() -> int:
     ec_body = ec_rng.integers(0, 256, size=EC_BYTES, dtype=np.uint8)
     ec_table = A.chunk_file_anchored_np(ec_body, params)
     ec_body = ec_body.tobytes()
-    ec_parity = ec_codec_phase(ec_body, ec_table, dev, np)
-    sim_sketch_phase(ec_body, ec_table, dev, np)
-    launches["cluster"], launches["cluster_ec"], cluster_download_s = \
-        cluster_phase(root, body, blocks, oracle, params, rng, np, ec_body,
-                      ec_table, ec_parity)
-    launches["cluster_sim"] = cluster_sim_phase(root, ec_body, ec_table,
-                                                params, np)
-    launches["cluster_serve"] = cluster_serve_phase(
-        root, body, blocks, oracle, cluster_download_s)
-    launches["cluster_index_tier"] = cluster_index_tier_phase(
-        root, ec_body, ec_table, params, np)
+    phase_s: dict = {}
+
+    def timed_phase(name: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+
+    ec_parity = timed_phase("ec_codec", ec_codec_phase, ec_body, ec_table,
+                            dev, np)
+    timed_phase("sim_sketch", sim_sketch_phase, ec_body, ec_table, dev, np)
+    (launches["cluster"], launches["cluster_ec"], cluster_download_s,
+     cluster_upload_s) = timed_phase(
+        "cluster", cluster_phase, root, body, blocks, oracle, params, rng,
+        np, ec_body, ec_table, ec_parity)
+    launches["cluster_obs_off"] = timed_phase(
+        "cluster_obs_off", cluster_obs_off_phase, root, blocks, oracle,
+        len(body), cluster_upload_s)
+    launches["cluster_sim"] = timed_phase(
+        "cluster_sim", cluster_sim_phase, root, ec_body, ec_table, params,
+        np)
+    launches["cluster_serve"] = timed_phase(
+        "cluster_serve", cluster_serve_phase, root, body, blocks, oracle,
+        cluster_download_s)
+    launches["cluster_index_tier"] = timed_phase(
+        "cluster_index_tier", cluster_index_tier_phase, root, ec_body,
+        ec_table, params, np)
+    launches["cluster_chaos"] = timed_phase(
+        "cluster_chaos", cluster_chaos_phase, root, ec_body, ec_table, np,
+        stage_ms["whole_chain"])
+    launches["device_trace"] = timed_phase(
+        "device_trace", device_trace_phase, ec_body, ec_table, kernels)
 
     # ---- the multi-device anchored path ----
     n_cards = torch.cuda.device_count()
@@ -1794,6 +2211,8 @@ def main() -> int:
               "gib_s": BODY_BYTES / walk_s / 2**30, "oracle_equal": True,
               "launches": launches[path]})
 
+    emit({"phase": "timing", "seconds": phase_s,
+          "total_s": time.perf_counter() - t_run})
     for row in rows:
         row["launches_path"] = LAUNCHES_PATH[row["name"]]
         row["launches"] = launches[row["launches_path"]][row["name"]]

@@ -4,9 +4,22 @@ for the routes of the default configuration:
     GET    /status               200 "OK"
     GET    /files                JSON file list
     GET    /metrics              JSON counters and sections (``sim``,
-                                 ``tier``: ``{"enabled": false}`` without
-                                 the plane; ``index``: the IndexConfig
-                                 echo with ``"enabled": false``)
+                                 ``tier``, ``chaos``: ``{"enabled":
+                                 false}`` without the plane; ``index``:
+                                 the IndexConfig echo with ``"enabled":
+                                 false``; ``obs``: trace ring, journal,
+                                 sentinel, RPC tables)
+    GET    /metrics?format=prom  the same registries as OpenMetrics text
+                                 (histogram buckets with trace exemplars)
+    GET    /trace?traceId=       the trace's spans from every node, merged
+                                 (``&cluster=0``: this node's only); 400
+                                 on a malformed id
+    GET    /events?since=&limit= recent journal events, oldest first
+                                 (``{"enabled": false}`` without one)
+    GET    /chaos                the injector's knobs and counters
+    POST   /chaos                swap mutable knobs (JSON object); both
+                                 404 "Chaos disabled (boot with --chaos)"
+                                 without the injector
     GET    /manifest?fileId=     the manifest JSON
     POST   /upload?name=         201 JSON {fileId, ...}; Content-Length or
                                  chunked; 411 without either, 413 too big;
@@ -34,10 +47,15 @@ when a request's end-to-end deadline dies before its head: an
 download's slot is held until its body drains; a client that hangs up
 while queued frees its place.
 
-Every other route answers 404: dfs_tpu's ``/metrics?format=prom``,
-``/metrics/history``, ``/census``, ``/trace``, ``/events``, ``/chaos``,
-``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``, ``/commit``,
-``/missing`` and ``/upload_resume`` are not ported yet.
+Every request is an ``http.<route>`` span (``http.other`` off the route
+list), rooted fresh or adopted from an ``X-Dfs-Trace: <trace32hex>-
+<span16hex>`` header (a malformed one is ignored, never an error), with
+its latency recorded under the span name, the trace id as the bucket's
+exemplar.
+
+Every other route answers 404: dfs_tpu's ``/metrics/history``,
+``/census``, ``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``,
+``/commit``, ``/missing`` and ``/upload_resume`` are not ported yet.
 Query strings are URL-decoded; a malformed fileId is a 400.
 """
 
@@ -69,6 +87,11 @@ STREAM_BODY_BYTES = 64 * 1024 * 1024
 # plane); an explicit X-Dfs-Deadline header is honoured on any route
 _DEADLINE_DEFAULT_ROUTES = frozenset({"/download", "/upload", "/manifest",
                                       "/files"})
+# routes whose fixed path may name a span; any other path is "http.other",
+# so a client's path never mints span or histogram names
+_TRACED_ROUTES = frozenset({"/status", "/files", "/metrics", "/manifest",
+                            "/upload", "/download", "/scrub", "/repair",
+                            "/trace", "/events", "/chaos", "/tier"})
 
 
 def _head(status: int, length: int, content_type: str,
@@ -241,6 +264,8 @@ def make_http_handler(node: "StorageNodeServer"):
 
 async def _serve_one(node: "StorageNodeServer",
                      reader: asyncio.StreamReader):
+    from dfs_tpu_torch.obs import parse_http_trace
+
     request_line = (await reader.readline()).decode("latin-1").strip()
     if not request_line:
         return plain(400, "Empty request")
@@ -254,6 +279,7 @@ async def _serve_one(node: "StorageNodeServer",
     content_length: int | None = None
     range_header: str | None = None
     deadline_header: str | None = None
+    trace_header: str | None = None
     chunked = False
     while True:
         line = (await reader.readline()).decode("latin-1")
@@ -273,6 +299,8 @@ async def _serve_one(node: "StorageNodeServer",
                 range_header = v.strip()
             elif key == "x-dfs-deadline":
                 deadline_header = v.strip()   # malformed = no deadline
+            elif key == "x-dfs-trace":
+                trace_header = v.strip()      # malformed = a fresh root
             elif key == "transfer-encoding":
                 chunked = "chunked" in v.strip().lower()
     node.counters.inc("http_requests")
@@ -282,15 +310,26 @@ async def _serve_one(node: "StorageNodeServer",
             and node.cfg.serve.default_deadline_s > 0:
         budget = node.cfg.serve.default_deadline_s
     dl_token = deadline.activate(budget) if budget is not None else None
+    # the request span: every downstream hop parents to it through the
+    # context; a streamed download's body outlives it (the span covers the
+    # work up to the head and the first batch)
+    name = f"http.{path}" if path in _TRACED_ROUTES else "http.other"
     streamed = False
     try:
-        out = await _route(node, reader, method, path, query,
-                           content_length, range_header, chunked)
-        # a streamed body is iterated by the handler in this task after
-        # we return, and its per-batch checks must keep seeing the
-        # countdown: the context is left armed (it dies with the task)
-        streamed = isinstance(out, tuple)
-        return out
+        with node.obs.request_span(name, parse_http_trace(trace_header),
+                                   latency=True) as sp:
+            out = await _route(node, reader, method, path, query,
+                               content_length, range_header, chunked)
+            # a streamed body is iterated by the handler in this task
+            # after we return, and its per-batch checks must keep seeing
+            # the countdown: the context is left armed (it dies with the
+            # task)
+            streamed = isinstance(out, tuple)
+            if isinstance(out, (bytes, bytearray)):
+                sp.bytes = len(out)
+            elif isinstance(out, list):
+                sp.bytes = sum(len(p) for p in out)
+            return out
     finally:
         if dl_token is not None and not streamed:
             deadline.restore(dl_token)
@@ -319,8 +358,60 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
         return plain(200, "OK")
     if method == "GET" and path == "/files":
         return as_json(200, node.list_files())
-    if method == "GET" and path == "/metrics" and "format" not in query:
+    if method == "GET" and path == "/metrics":
+        if query.get("format") == "prom":
+            from dfs_tpu_torch.obs.prom import render_node_metrics
+
+            # OpenMetrics, not text/plain 0.0.4: the bucket lines carry
+            # exemplars, which only the OpenMetrics parser accepts
+            return _resp(200, render_node_metrics(node).encode(),
+                         "application/openmetrics-text; version=1.0.0; "
+                         "charset=utf-8")
         return as_json(200, node.metrics())
+    if method == "GET" and path == "/trace":
+        from dfs_tpu_torch.obs import TRACE_HEX, is_id
+
+        tid = query.get("traceId")
+        if not tid or not is_id(tid, TRACE_HEX):
+            return plain(400, "Bad traceId")
+        return as_json(200, await node.trace_spans(
+            tid, cluster=query.get("cluster", "1") != "0"))
+    if method == "GET" and path == "/events":
+        journal = node.obs.journal
+        if journal is None:
+            return as_json(200, {"enabled": False, "events": []})
+        try:
+            since = float(query.get("since", 0.0))
+            limit = int(query.get("limit", 256))
+        except ValueError:
+            return plain(400, "Bad since/limit")
+        if limit < 1 or limit > 4096:
+            return plain(400, "limit out of range (1..4096)")
+        # segment reads are file I/O: off the loop
+        out = await asyncio.to_thread(journal.tail, since, limit)
+        out["enabled"] = True
+        return as_json(200, out)
+    if path == "/chaos" and method in ("GET", "POST"):
+        # the master switch is boot-only: a node not booted with --chaos
+        # cannot be made fault-injectable over HTTP
+        if node.chaos is None:
+            return plain(404, "Chaos disabled (boot with --chaos)")
+        if method == "GET":
+            return as_json(200, node.chaos.stats())
+        if content_length is None:
+            return plain(411, "Length Required")
+        if content_length > 64 * 1024:
+            return plain(413, "Payload Too Large")
+        try:
+            knobs = json.loads(await reader.readexactly(content_length))
+            if not isinstance(knobs, dict):
+                raise ValueError("want a JSON object of chaos knobs")
+            return as_json(200, node.chaos.set(**knobs))
+        # AttributeError: a wrong-typed knob value failing inside the
+        # ChaosConfig validation is a bad request too
+        except (ValueError, TypeError, AttributeError,
+                UnicodeDecodeError) as e:
+            return plain(400, f"Bad chaos knobs: {e}")
     if method == "GET" and path == "/manifest":
         file_id, bad = _file_id(query)
         if bad is not None:

@@ -1,5 +1,6 @@
 """Synchronous HTTP client of one node (a copy of the parts of dfs_tpu's
-``cli/client.py`` that the port's routes serve), on urllib."""
+``cli/client.py`` that the port's routes serve), on urllib. A
+``trace_id`` on upload or download rides the ``X-Dfs-Trace`` header."""
 
 from __future__ import annotations
 
@@ -47,13 +48,27 @@ class NodeClient:
                            size=i.get("size", 0), chunks=i.get("chunks", 0))
                 for i in items]
 
-    def upload(self, data: bytes, name: str, ec: int = 0) -> dict:
+    @staticmethod
+    def _trace_headers(trace_id: str | None) -> dict:
+        """The ``X-Dfs-Trace`` carrier of a client-minted trace id: the
+        nodes tag every span of the request with it, and :meth:`trace`
+        stitches them afterwards."""
+        if not trace_id:
+            return {}
+        from dfs_tpu_torch.obs import new_span_id
+
+        return {"X-Dfs-Trace": f"{trace_id}-{new_span_id()}"}
+
+    def upload(self, data: bytes, name: str, ec: int = 0,
+               trace_id: str | None = None) -> dict:
         """Whole-body upload; ``ec`` > 0 erasure-codes it with k = ec."""
         params = {"name": name}
         if ec:
             params["ec"] = str(ec)
         q = urllib.parse.urlencode(params)
-        return json.loads(self._request("POST", f"/upload?{q}", body=data))
+        return json.loads(self._request(
+            "POST", f"/upload?{q}", body=data,
+            headers=self._trace_headers(trace_id)))
 
     def upload_stream(self, blocks, name: str) -> dict:
         """Upload with chunked transfer encoding (urllib sends a
@@ -63,9 +78,10 @@ class NodeClient:
         return json.loads(self._request("POST", f"/upload?{q}",
                                         body=iter(blocks)))
 
-    def download(self, file_id: str) -> bytes:
+    def download(self, file_id: str, trace_id: str | None = None) -> bytes:
         q = urllib.parse.urlencode({"fileId": file_id})
-        return self._request("GET", f"/download?{q}")
+        return self._request("GET", f"/download?{q}",
+                             headers=self._trace_headers(trace_id))
 
     def manifest(self, file_id: str) -> dict:
         q = urllib.parse.urlencode({"fileId": file_id})
@@ -73,6 +89,21 @@ class NodeClient:
 
     def metrics(self) -> dict:
         return json.loads(self._request("GET", "/metrics"))
+
+    def metrics_prom(self) -> str:
+        """The OpenMetrics page (``/metrics?format=prom``)."""
+        return self._request("GET", "/metrics?format=prom").decode()
+
+    def trace(self, trace_id: str) -> dict:
+        """The stitched spans of one trace, gathered by the contacted
+        node from every peer."""
+        q = urllib.parse.urlencode({"traceId": trace_id})
+        return json.loads(self._request("GET", f"/trace?{q}"))
+
+    def events(self, since: float = 0.0, limit: int = 256) -> dict:
+        """Recent flight-recorder events of the contacted node."""
+        q = urllib.parse.urlencode({"since": since, "limit": limit})
+        return json.loads(self._request("GET", f"/events?{q}"))
 
     def delete(self, file_id: str) -> str:
         q = urllib.parse.urlencode({"fileId": file_id})

@@ -10,10 +10,17 @@ subcommands talk HTTP to one.
         --cache-bytes 536870912 --readahead 2 --hedge-budget 50 ...
     python -m dfs_tpu_torch.cli.main serve --node-id 1 --index \\
         --tier --tier-ec-k 3 ...                    # index + tiering
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 --chaos \\
+        --chaos-seed 13 ...                         # fault injection
+    python -m dfs_tpu_torch.cli.main --port 7101 upload --trace f.bin
+    python -m dfs_tpu_torch.cli.main --port 7102 trace <traceId>
+    python -m dfs_tpu_torch.cli.main --port 7101 events --limit 20
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
-non-zero unless ``--device cpu`` asks for the plain versions. Subcommands:
-serve, status, list, upload, download, delete, metrics.
+non-zero unless ``--device cpu`` asks for the plain versions. Tracing, the
+journal and the sentinel are on by default (``--trace-ring 0
+--journal-bytes 0 --sentinel-interval 0`` turns them off). Subcommands:
+serve, status, list, upload, download, delete, metrics, events, trace.
 """
 
 from __future__ import annotations
@@ -25,9 +32,10 @@ import sys
 from pathlib import Path
 
 from dfs_tpu_torch.cli.client import NodeClient
-from dfs_tpu_torch.config import (CDCParams, ClusterConfig, DurabilityConfig,
-                                  FragmenterConfig, IndexConfig, IngestConfig,
-                                  NodeConfig, ServeConfig, SimConfig,
+from dfs_tpu_torch.config import (CDCParams, ChaosConfig, ClusterConfig,
+                                  DurabilityConfig, FragmenterConfig,
+                                  IndexConfig, IngestConfig, NodeConfig,
+                                  ObsConfig, ServeConfig, SimConfig,
                                   TierConfig)
 
 
@@ -79,7 +87,27 @@ def node_config(args) -> NodeConfig:
                             credit_bytes=args.ingest_credit_bytes,
                             slice_inflight=args.replicate_inflight,
                             cas_io_threads=args.cas_io_threads),
+        obs=ObsConfig(trace_ring=args.trace_ring,
+                      slow_span_s=args.slow_span,
+                      tail_keep=args.tail_keep,
+                      journal_bytes=args.journal_bytes,
+                      journal_segment_bytes=args.journal_segment_bytes,
+                      sentinel_interval_s=args.sentinel_interval,
+                      sentinel_lag_s=args.sentinel_lag),
         durability=DurabilityConfig(mode=args.durability),
+        chaos=ChaosConfig(
+            enabled=args.chaos,
+            seed=args.chaos_seed,
+            rpc_delay_s=args.chaos_rpc_delay,
+            rpc_delay_peers=args.chaos_rpc_delay_peers,
+            rpc_drop_rate=args.chaos_rpc_drop_rate,
+            partition=args.chaos_partition,
+            rpc_truncate_rate=args.chaos_rpc_truncate_rate,
+            serve_delay_s=args.chaos_serve_delay,
+            disk_error_rate=args.chaos_disk_error_rate,
+            disk_full=args.chaos_disk_full,
+            disk_delay_s=args.chaos_disk_delay,
+            crash_point=args.chaos_crash_point),
         device=None if args.device == "cuda" else args.device,
         sim=SimConfig(
             enabled=args.sim,
@@ -123,6 +151,9 @@ def cmd_serve(args) -> int:
     except RuntimeError as e:        # no card (resolve_device's message)
         print(f"serve: {e}", file=sys.stderr)
         return 2
+    except ValueError as e:          # an unregistered crash point
+        print(f"serve: {e}", file=sys.stderr)
+        return 1
 
     async def run() -> None:
         await node.start()
@@ -179,12 +210,25 @@ def cmd_list(args) -> int:
     return 0
 
 
+def _maybe_trace_id(args) -> str | None:
+    """--trace: a client-minted trace id every span of the request is
+    tagged with; inspect it afterwards with ``trace <id>``."""
+    if not getattr(args, "trace", False):
+        return None
+    from dfs_tpu_torch.obs import new_trace_id
+
+    return new_trace_id()
+
+
 def cmd_upload(args) -> int:
     path = Path(args.file)
+    trace_id = _maybe_trace_id(args)
     info = _client(args).upload(path.read_bytes(), name=path.name,
-                                ec=args.ec)
+                                ec=args.ec, trace_id=trace_id)
     extra = (f" ecParity={info['ecParityBytes']}B"
              if "ecParityBytes" in info else "")
+    if trace_id:
+        extra += f" traceId={trace_id}"
     print(f"Uploaded: fileId={info['fileId']} chunks={info['chunks']} "
           f"transferred={info.get('transferredBytes', '?')}B "
           f"dedupSkipped={info.get('dedupSkippedBytes', '?')}B{extra}")
@@ -193,7 +237,10 @@ def cmd_upload(args) -> int:
 
 def cmd_download(args) -> int:
     c = _client(args)
-    data = c.download(args.file_id)
+    trace_id = _maybe_trace_id(args)
+    data = c.download(args.file_id, trace_id=trace_id)
+    if trace_id:
+        print(f"traceId={trace_id}")
     name = args.file_id
     for f in c.list_files():
         if f.file_id == args.file_id:
@@ -212,7 +259,53 @@ def cmd_delete(args) -> int:
 
 
 def cmd_metrics(args) -> int:
+    if args.prom:
+        print(_client(args).metrics_prom(), end="")
+        return 0
     print(json.dumps(_client(args).metrics(), indent=2, sort_keys=True))
+    return 0
+
+
+def cmd_events(args) -> int:
+    """One node's recent journal events (GET /events), one line each,
+    oldest first."""
+    import datetime
+
+    data = _client(args).events(since=args.since, limit=args.limit)
+    if not data.get("enabled", True):
+        print("(journal disabled on this node)")
+        return 0
+    for ev in data.get("events", []):
+        ts = datetime.datetime.fromtimestamp(
+            ev.get("ts", 0.0)).strftime("%Y-%m-%d %H:%M:%S")
+        rest = {k: v for k, v in ev.items()
+                if k not in ("ts", "type", "node", "trace")}
+        trace = f" trace={ev['trace']}" if ev.get("trace") else ""
+        extra = " ".join(f"{k}={v}" for k, v in sorted(rest.items()))
+        print(f"{ts} node={ev.get('node', '?')} {ev.get('type', '?')} "
+              f"{extra}{trace}".rstrip())
+    if data.get("dropped"):
+        print(f"(warning: {data['dropped']} events dropped at the "
+              "bounded writer)", file=sys.stderr)
+    if data.get("torn"):
+        print(f"(note: {data['torn']} torn/corrupt journal line(s) "
+              "skipped)", file=sys.stderr)
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Render one trace stitched across the cluster: the contacted node
+    gathers every peer's spans, this prints the tree with a slow-span log
+    on top."""
+    from dfs_tpu_torch.obs.stitch import render_tree
+
+    data = _client(args).trace(args.trace_id)
+    slow = args.slow if args.slow is not None \
+        else float(data.get("slowSpanS", 1.0))
+    print(render_tree(data.get("spans", []), slow_s=slow))
+    if data.get("peersFailed"):
+        print(f"(warning: {data['peersFailed']} peer(s) unreachable — "
+              "trace may be partial)", file=sys.stderr)
     return 0
 
 
@@ -316,6 +409,30 @@ def build_parser() -> argparse.ArgumentParser:
                        help="replication slices in flight per peer")
     serve.add_argument("--cas-io-threads", type=int, default=4,
                        help="worker threads of the local chunk store")
+    serve.add_argument("--trace-ring", type=int, default=2048,
+                       help="finished-span ring capacity (distributed "
+                            "tracing); 0 disables tracing entirely")
+    serve.add_argument("--slow-span", type=float, default=1.0,
+                       help="slow threshold (s): trace stitcher slow "
+                            "log AND the tail-retention outlier "
+                            "detector")
+    serve.add_argument("--tail-keep", type=int, default=256,
+                       help="spans of slow/errored traces pinned "
+                            "across ring churn; 0 disables tail "
+                            "retention")
+    serve.add_argument("--journal-bytes", type=int,
+                       default=16 * 1024 * 1024,
+                       help="flight-recorder on-disk budget (JSONL "
+                            "event journal); 0 disables the journal")
+    serve.add_argument("--journal-segment-bytes", type=int,
+                       default=2 * 1024 * 1024,
+                       help="journal segment rotation size")
+    serve.add_argument("--sentinel-interval", type=float, default=1.0,
+                       help="loop-lag/stall sentinel sampling period "
+                            "(s); 0 disables sentinels")
+    serve.add_argument("--sentinel-lag", type=float, default=0.25,
+                       help="event-loop lag (s) above which the "
+                            "sentinel journals a loop_lag incident")
     serve.add_argument("--durability", default="fsync",
                        choices=["fsync", "none"],
                        help="fsync every chunk and the manifest before the "
@@ -407,6 +524,48 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--tier-ledger-entries", type=int, default=65536,
                        help="bounded temperature-ledger size (stalest "
                             "digests evict first)")
+    serve.add_argument("--chaos", action="store_true",
+                       help="enable the fault-injection plane: the "
+                            "knobs below apply and POST /chaos "
+                            "re-scripts them live; without this flag no "
+                            "injector exists and every knob is ignored")
+    serve.add_argument("--chaos-seed", type=int, default=0,
+                       help="fault-decision RNG seed (xor'd with the "
+                            "node id: per-node deterministic schedules)")
+    serve.add_argument("--chaos-rpc-delay", type=float, default=0.0,
+                       help="injected latency (s) before outbound "
+                            "storage-plane calls")
+    serve.add_argument("--chaos-rpc-delay-peers", default="",
+                       help="csv node ids the rpc delay applies to "
+                            "(empty = every peer)")
+    serve.add_argument("--chaos-rpc-drop-rate", type=float, default=0.0,
+                       help="probability an outbound call's connection "
+                            "is dropped before the frame is sent")
+    serve.add_argument("--chaos-partition", default="",
+                       help="csv node ids unreachable FROM this node "
+                            "(one-way; configure one side only for an "
+                            "asymmetric partition)")
+    serve.add_argument("--chaos-rpc-truncate-rate", type=float,
+                       default=0.0,
+                       help="probability an outbound frame is cut off "
+                            "mid-body and the connection closed")
+    serve.add_argument("--chaos-serve-delay", type=float, default=0.0,
+                       help="injected delay (s) before serving each "
+                            "inbound storage-plane op (a slow node)")
+    serve.add_argument("--chaos-disk-error-rate", type=float,
+                       default=0.0,
+                       help="probability a CAS put/get raises EIO")
+    serve.add_argument("--chaos-disk-full", action="store_true",
+                       help="every CAS put raises ENOSPC (uploads "
+                            "degrade to HTTP 507; reads keep working)")
+    serve.add_argument("--chaos-disk-delay", type=float, default=0.0,
+                       help="injected delay (s) before every CAS op "
+                            "(slow disk; runs on the CAS workers)")
+    serve.add_argument("--chaos-crash-point", default="",
+                       help="registered crash-point name (see "
+                            "dfs_tpu_torch.chaos.CRASH_POINTS): the "
+                            "process SIGKILLs itself the first time "
+                            "execution reaches it")
     serve.set_defaults(fn=cmd_serve)
 
     sub.add_parser("status").set_defaults(fn=cmd_status)
@@ -417,15 +576,39 @@ def build_parser() -> argparse.ArgumentParser:
                     help="erasure-code with K data shards + P/Q parity "
                          "per stripe (needs K+2 cluster nodes; any two "
                          "lost shards per stripe are recoverable)")
+    up.add_argument("--trace", action="store_true",
+                    help="tag the request with a fresh trace id "
+                         "(printed) for `trace <id>` inspection")
     up.set_defaults(fn=cmd_upload)
     down = sub.add_parser("download")
     down.add_argument("file_id")
     down.add_argument("--out", default=None)
+    down.add_argument("--trace", action="store_true",
+                      help="tag the request with a fresh trace id "
+                           "(printed) for `trace <id>` inspection")
     down.set_defaults(fn=cmd_download)
     rm = sub.add_parser("delete")
     rm.add_argument("file_id")
     rm.set_defaults(fn=cmd_delete)
-    sub.add_parser("metrics").set_defaults(fn=cmd_metrics)
+    mt = sub.add_parser("metrics")
+    mt.add_argument("--prom", action="store_true",
+                    help="OpenMetrics text exposition instead of JSON")
+    mt.set_defaults(fn=cmd_metrics)
+    ev = sub.add_parser("events",
+                        help="recent flight-recorder lifecycle events")
+    ev.add_argument("--since", type=float, default=0.0,
+                    help="unix-seconds lower bound (default: all "
+                         "retained)")
+    ev.add_argument("--limit", type=int, default=256,
+                    help="newest events returned (1..4096)")
+    ev.set_defaults(fn=cmd_events)
+    tr = sub.add_parser("trace",
+                        help="render a stitched cross-node trace")
+    tr.add_argument("trace_id")
+    tr.add_argument("--slow", type=float, default=None,
+                    help="slow-span threshold (s); default: the node's "
+                         "configured slow_span_s")
+    tr.set_defaults(fn=cmd_trace)
     return ap
 
 

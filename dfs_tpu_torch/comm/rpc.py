@@ -8,7 +8,16 @@ sender's ring epoch and map fingerprint (``repoch``/``rfp``), as dfs_tpu's
 client stamps them, so port and dfs_tpu nodes serve each other's frames.
 
 Every call is recorded per (peer, op) in :attr:`InternalClient.rpc_stats`
-(the hedge delay reads it). Under an end-to-end deadline
+(the hedge delay reads it; with an :class:`~dfs_tpu_torch.obs.Observability`
+it is ``obs.rpc_client``). With the obs hook each call opens an
+``rpc.<op>`` span and carries the trace context in the optional wire
+``trace`` field, and retries, unreachable peers, exhausted retry budgets
+and deadline sheds are journaled (``rpc_retry``, ``rpc_unreachable``,
+``retry_budget_exhausted``, ``deadline_shed``). With a
+:class:`~dfs_tpu_torch.chaos.ChaosInjector` each attempt passes its peer
+faults first: a one-way partition, injected latency, a dropped
+connection or a torn frame, all raised as the OSErrors the retry loop
+already handles. Under an end-to-end deadline
 (:mod:`dfs_tpu_torch.utils.deadline`) each attempt carries the remaining
 budget in the optional ``deadline`` header field; a call whose budget is
 gone is never sent, and a retry the budget cannot cover is not made
@@ -25,6 +34,7 @@ dedup/index plane's filter exchange ``get_filter``, ``get_filters`` and
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import random
 import time
 from typing import Any
@@ -122,14 +132,18 @@ class InternalClient:
 
     def __init__(self, connect_timeout_s: float = 2.0,
                  request_timeout_s: float = 10.0, retries: int = 3,
-                 coalesce_fetches: bool = False, ring=None) -> None:
+                 coalesce_fetches: bool = False, ring=None, obs=None,
+                 chaos=None) -> None:
         self.connect_timeout_s = connect_timeout_s
         self.request_timeout_s = request_timeout_s
         self.retries = retries
         self._ring = ring
+        self._obs = obs
+        self._chaos = chaos
         self.retry_budget = RetryBudget()
-        # per-(peer, op) calls, latency, bytes, errors, retries
-        self.rpc_stats = RpcStats()
+        # per-(peer, op) calls, latency, bytes, errors, retries: the
+        # node's client table when it has an Observability
+        self.rpc_stats = obs.rpc_client if obs is not None else RpcStats()
         self._backoff_rng = random.Random()
         self._pool: dict[tuple[str, int], list[FrameConnection]] = {}
         # per-(peer, digest) single-flight of get_chunk (the serving
@@ -190,10 +204,27 @@ class InternalClient:
                     f"peer {peer.node_id}: deadline expired before send")
             # the remaining budget, re-stamped on every attempt
             header["deadline"] = round(rem, 4)
+        chaos = self._chaos
+        op = str(header.get("op"))
+        if chaos is not None:
+            # partition: fail before dialing (one-way: only this side's
+            # sends die); delay/drop: link faults before the frame goes
+            # out. All OSErrors, so retries, backoff and the budget
+            # handle them as real faults
+            chaos.check_partition(peer.node_id, op)
+            await chaos.before_rpc(peer.node_id, op)
         conn = self._checkout(peer)
         reused = conn is not None
         if conn is None:
             conn = await self._dial(peer)
+        if chaos is not None and chaos.truncate_now(peer.node_id, op):
+            # a torn frame: the receiver's mid-frame teardown path
+            try:
+                conn.send_torn(header, body)
+            finally:
+                conn.close()
+            raise ConnectionResetError(
+                f"chaos: truncated frame to node {peer.node_id}")
         try:
             resp, rbody = await self._request(conn, header, body, timeout_s,
                                               acct)
@@ -232,25 +263,37 @@ class InternalClient:
         frame. ``retries`` overrides the attempt count (1 for a peer the
         health monitor believes dead); ``timeout_s`` raises, never lowers,
         the per-attempt budget. Recorded in :attr:`rpc_stats` (frame
-        bytes summed over the attempts)."""
+        bytes summed over the attempts). With the obs hook the call is an
+        ``rpc.<op>`` span whose id rides the header's ``trace`` field as
+        the peer's parent."""
         if self._ring is not None and header.get("op") in _EPOCH_OPS \
                 and "repoch" not in header:
             header["repoch"] = self._ring.epoch
             header["rfp"] = self._ring.current.fingerprint
         op = str(header.get("op"))
-        t0 = time.perf_counter()
-        acct = {"out": 0, "in": 0}
-        failed = True
-        try:
-            out = await self._call_retrying(peer, header, body, retries,
-                                            timeout_s, acct)
-            failed = False
-            return out
-        finally:
-            self.rpc_stats.record(peer.node_id, op,
-                                  time.perf_counter() - t0,
-                                  bytes_out=acct["out"],
-                                  bytes_in=acct["in"], error=failed)
+        obs = self._obs
+        with (obs.span(f"rpc.{op}", peer=peer.node_id) if obs is not None
+              else contextlib.nullcontext()) as sp:
+            if obs is not None:
+                # attached inside the span: its id is the peer's parent
+                tr = obs.wire_trace()
+                if tr is not None:
+                    header["trace"] = tr
+            t0 = time.perf_counter()
+            acct = {"out": 0, "in": 0}
+            failed = True
+            try:
+                out = await self._call_retrying(peer, header, body,
+                                                retries, timeout_s, acct)
+                failed = False
+                if sp is not None:
+                    sp.bytes = acct["out"] + acct["in"]
+                return out
+            finally:
+                self.rpc_stats.record(peer.node_id, op,
+                                      time.perf_counter() - t0,
+                                      bytes_out=acct["out"],
+                                      bytes_in=acct["in"], error=failed)
 
     async def _call_retrying(self, peer: PeerAddr, header: dict, body,
                              retries: int | None, timeout_s: float | None,
@@ -262,11 +305,20 @@ class InternalClient:
         for attempt in range(attempts):
             if attempt:
                 if not self.retry_budget.take(peer.node_id):
+                    self._event("retry_budget_exhausted", peer=peer.node_id,
+                                op=op, attempt=attempt,
+                                cause=type(last).__name__ if last
+                                else None)
                     raise RpcUnreachable(
                         f"peer {peer.node_id} retry budget exhausted "
                         f"after {attempt} attempt(s): "
                         f"{type(last).__name__}: {last}")
                 self.rpc_stats.retry(peer.node_id, op)
+                # a retry storm on one peer is the early sign of a sick
+                # link; the tables keep totals, the journal keeps when
+                self._event("rpc_retry", peer=peer.node_id, op=op,
+                            attempt=attempt,
+                            cause=type(last).__name__ if last else None)
             try:
                 return await self._call_once(peer, header, body, timeout_s,
                                              acct)
@@ -284,14 +336,23 @@ class InternalClient:
                             and rem < prev_sleep + self.connect_timeout_s:
                         # the budget cannot cover the backoff plus even a
                         # connect: another attempt is waste
+                        self._event("deadline_shed", where="rpc_retry",
+                                    peer=peer.node_id, op=op,
+                                    attempt=attempt)
                         raise DeadlineExpired(
                             f"peer {peer.node_id} {op}: deadline cannot "
                             f"cover another attempt ({rem:.3f}s left): "
                             f"{type(e).__name__}: {e}") from e
                     await asyncio.sleep(prev_sleep)
+        self._event("rpc_unreachable", peer=peer.node_id, op=op,
+                    attempts=attempts, cause=type(last).__name__)
         raise RpcUnreachable(
             f"peer {peer.node_id} unreachable after {attempts} attempts: "
             f"{type(last).__name__}: {last}")
+
+    def _event(self, etype: str, **fields) -> None:
+        if self._obs is not None:
+            self._obs.event(etype, **fields)
 
     # ---- typed ops ----
 
@@ -366,6 +427,12 @@ class InternalClient:
         key = (peer.host, peer.internal_port, digest)
         leader, fut = self._flight.claim(key)
         if not leader:
+            # a coalesced caller's trace shows where its time went:
+            # waiting on another flight, not the wire
+            if self._obs is not None:
+                with self._obs.span("rpc.get_chunk.wait",
+                                    peer=peer.node_id):
+                    return await self._flight.wait(fut)
             return await self._flight.wait(fut)
         try:
             _, body = await self.call(peer, {"op": "get_chunk",

@@ -10,11 +10,21 @@ frames. A frame is::
 
 The header is ``json.dumps(header, separators=(",", ":"))``. Chunk
 batches put (digest, length) pairs in the header and concatenate the raw
-bytes in the body. Receivers ignore header fields they do not know, so
-dfs_tpu's optional ``trace`` field passes through a port node unread. The
-optional ``deadline`` field (the sender's remaining end-to-end budget in
-seconds) is honoured: a port node sends it under a deadline, and drops a
-frame whose budget ran out before its op reaches the CAS.
+bytes in the body. Receivers ignore header fields they do not know.
+
+Two optional envelope fields ride any request, as in dfs_tpu:
+
+- ``trace`` — ``{"t": <trace32hex>, "s": <span16hex>, "f": <sender node
+  id>}``, the caller's ``rpc.<op>`` span: the receiver's ``peer.<op>``
+  span parents to it, which is what stitches one trace across nodes of
+  either package (:mod:`dfs_tpu_torch.obs`). Absent or malformed, the
+  frame is served like one from an untraced caller.
+- ``deadline`` — the sender's remaining end-to-end budget in seconds: a
+  port node sends it under a deadline, and drops a frame whose budget ran
+  out before its op reaches the CAS.
+
+The ``get_trace`` op (``{"traceId"}`` -> ``{"spans"}``) returns the
+receiver's finished spans of one trace for the stitcher.
 
 Both directions are zero-copy as in dfs_tpu: a body may be a sequence of
 buffers written one by one to the transport (never joined), and the
@@ -293,6 +303,26 @@ class FrameConnection(_FrameReceiver):
             return await fut
         finally:
             self._waiter = None
+
+    def send_torn(self, header: dict,
+                  body: Buffer | Sequence[Buffer] = b"",
+                  keep: float = 0.5) -> None:
+        """The chaos seam of torn frames: write only the first ``keep``
+        fraction of the whole frame (prefix and header included), then
+        close, so the receiver sees a frame cut mid-prefix, mid-header or
+        mid-body. At most total-1 bytes go out: a torn frame never
+        arrives whole. The connection is unusable afterwards."""
+        head, bufs, total = encode_frame(header, body)
+        budget = min(max(0, int(total * keep)), total - 1)
+        cut: list[Buffer] = []
+        for b in [head, *bufs]:
+            if budget <= 0:
+                break
+            take = b[:budget] if len(b) > budget else b
+            cut.append(take)
+            budget -= len(take)
+        self._write_encoded(cut[0] if cut else b"", cut[1:])
+        self.close()
 
     def _on_frame(self, header: dict, body: memoryview,
                   frame_len: int) -> None:

@@ -7,7 +7,10 @@
 - :class:`PeerAddr`, :class:`ClusterConfig` — membership and replication.
 - :class:`FragmenterConfig` — how the chunk-and-hash chain runs.
 - :class:`IngestConfig` — the pipelined write path's bounds.
+- :class:`ObsConfig` — tracing, the flight-recorder journal and the
+  sentinels, on by default as in dfs_tpu.
 - :class:`DurabilityConfig` — fsync before the ack, or not.
+- :class:`ChaosConfig` — deterministic fault injection, default off.
 - :class:`SimConfig` — the similarity plane (min-hash sketches, band
   index, delta-encoded chunks), default off.
 - :class:`ServeConfig` — the serving tier (hot-chunk cache, single-flight,
@@ -18,10 +21,9 @@
 - :class:`TierConfig` — the hot/cold tiering plane (temperature ledger,
   demotion to EC, promotion), default off.
 - :class:`NodeConfig` — one node. It holds only the fields the port's
-  runtime honours; dfs_tpu's other default-off planes (chaos, elastic
-  ring, census history, journal, tracing) are absent, not accepted and
-  ignored. ``device`` is the port's own: ``None`` means the
-  CUDA card (raising without one), ``"cpu"`` the plain versions.
+  runtime honours; dfs_tpu's elastic ring and census history are absent,
+  not accepted and ignored. ``device`` is the port's own: ``None`` means
+  the CUDA card (raising without one), ``"cpu"`` the plain versions.
 """
 
 from __future__ import annotations
@@ -169,6 +171,52 @@ class IngestConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Observability (:mod:`dfs_tpu_torch.obs`): distributed tracing, the
+    flight-recorder journal, tail retention of outlier traces and the
+    stall sentinels, with dfs_tpu's fields, defaults and validation.
+
+    Tracing defaults ON: always-on cheap tracing is what makes the one
+    slow request diagnosable after the fact. ``trace_ring=0`` turns span
+    collection and context propagation off (the wire and header carriers
+    are never attached); the journal, the sentinels and tail retention
+    are on by default too, each zeroable. RPC metrics stay on either way.
+    """
+
+    trace_ring: int = 2048      # finished-span ring capacity per node;
+                                # 0 = tracing fully off
+    slow_span_s: float = 1.0    # slow threshold (s): stitcher slow log
+                                # AND the tail-retention outlier detector
+    tail_keep: int = 256        # pinned spans of slow/errored traces
+                                # that survive ring churn; 0 = tail
+                                # retention off (outliers evict normally)
+    journal_bytes: int = 16 * 1024 * 1024   # flight-recorder on-disk
+                                # budget (JSONL segments); 0 = no journal
+    journal_segment_bytes: int = 2 * 1024 * 1024  # journal segment
+                                # rotation size (oldest segments are
+                                # deleted to hold the total budget)
+    sentinel_interval_s: float = 1.0  # loop-lag / stall sampler period;
+                                # 0 = sentinels off
+    sentinel_lag_s: float = 0.25      # event-loop lag above which the
+                                # sentinel journals a loop_lag incident
+
+    def __post_init__(self) -> None:
+        if self.trace_ring < 0:
+            raise ValueError("trace_ring must be >= 0")
+        if self.slow_span_s <= 0:
+            raise ValueError("slow_span_s must be > 0")
+        if self.tail_keep < 0:
+            raise ValueError("tail_keep must be >= 0")
+        if self.journal_bytes < 0 or self.journal_segment_bytes <= 0:
+            raise ValueError("journal_bytes must be >= 0 and "
+                             "journal_segment_bytes > 0")
+        if self.sentinel_interval_s < 0:
+            raise ValueError("sentinel_interval_s must be >= 0")
+        if self.sentinel_lag_s <= 0:
+            raise ValueError("sentinel_lag_s must be > 0")
+
+
+@dataclasses.dataclass(frozen=True)
 class DurabilityConfig:
     """``mode="fsync"`` (the default): every chunk put and the manifest
     save that acks an upload are fsync'd (file, then directory) before
@@ -184,6 +232,65 @@ class DurabilityConfig:
     @property
     def fsync(self) -> bool:
         return self.mode == "fsync"
+
+
+@dataclasses.dataclass(frozen=True)
+class ChaosConfig:
+    """Deterministic fault injection (:mod:`dfs_tpu_torch.chaos`), with
+    dfs_tpu's fields, defaults and validation.
+
+    Everything defaults off: ``enabled=False`` means the node holds no
+    injector at all. With ``enabled=True`` the node builds a
+    :class:`dfs_tpu_torch.chaos.ChaosInjector` seeded from ``seed ^
+    node_id``, applies the knobs below, and accepts ``POST /chaos``.
+
+    - ``rpc_delay_s`` / ``rpc_delay_peers``: outbound storage-plane calls
+      to the named peers (csv of node ids; empty = all) sleep first.
+    - ``rpc_drop_rate``: probability an outbound call's connection drops.
+    - ``partition``: csv of peer node ids this node cannot reach at all
+      (one-way).
+    - ``rpc_truncate_rate``: probability an outbound frame is cut off
+      mid-frame and the connection closed.
+    - ``serve_delay_s``: inbound storage-plane ops on this node sleep
+      before dispatch (a slow node).
+    - ``disk_error_rate``: probability a CAS put/get raises EIO.
+    - ``disk_full``: every CAS put raises ENOSPC (uploads answer 507).
+    - ``disk_delay_s``: every CAS op sleeps first, on the CAS workers.
+    - ``crash_point``: a registered crash point
+      (``dfs_tpu_torch.chaos.CRASH_POINTS``); the process dies by SIGKILL
+      the first time execution reaches it.
+    """
+
+    enabled: bool = False
+    seed: int = 0
+    rpc_delay_s: float = 0.0
+    rpc_delay_peers: str = ""     # csv node ids; "" = every peer
+    rpc_drop_rate: float = 0.0
+    partition: str = ""           # csv node ids unreachable from here
+    rpc_truncate_rate: float = 0.0
+    serve_delay_s: float = 0.0
+    disk_error_rate: float = 0.0
+    disk_full: bool = False
+    disk_delay_s: float = 0.0
+    crash_point: str = ""
+
+    def __post_init__(self) -> None:
+        for f in ("rpc_delay_s", "serve_delay_s", "disk_delay_s"):
+            if getattr(self, f) < 0:
+                raise ValueError(f"{f} must be >= 0")
+        for f in ("rpc_drop_rate", "rpc_truncate_rate",
+                  "disk_error_rate"):
+            if not 0.0 <= getattr(self, f) <= 1.0:
+                raise ValueError(f"{f} must be in [0, 1]")
+        for f in ("rpc_delay_peers", "partition"):
+            spec = getattr(self, f)
+            if not isinstance(spec, str):
+                raise ValueError(f"{f} must be a csv string of node "
+                                 f"ids, got {type(spec).__name__}")
+            if spec and not all(
+                    p.strip().isdigit() for p in spec.split(",")):
+                raise ValueError(f"{f} must be a csv of node ids, "
+                                 f"got {spec!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -447,8 +554,14 @@ class NodeConfig:
     # write_quorum nodes are reachable
     write_quorum: int = 2
     ingest: IngestConfig = dataclasses.field(default_factory=IngestConfig)
+    # observability: the span ring, the journal and the sentinels are on
+    # by default, as in dfs_tpu; ObsConfig(trace_ring=0, journal_bytes=0,
+    # sentinel_interval_s=0) turns them off
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     durability: DurabilityConfig = dataclasses.field(
         default_factory=DurabilityConfig)
+    # fault injection: the default ChaosConfig() builds no injector
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
     device: str | None = None       # None = the CUDA card; "cpu" = plain
     # similarity plane: the default SimConfig() builds no sketcher, no
     # band index and no delta tree

@@ -57,6 +57,16 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         [_P, _P, _P, _I, _I, _P]),
 }
 
+# kernel name -> the CUDA functions one wrapper call launches (what a
+# device trace names; K1 and K4 launch two each)
+DEVICE_FUNCS: dict[str, tuple[str, ...]] = {
+    "strip_chunk_states": ("select_cuts_kernel", "chunk_chains_kernel"),
+    "repack_lanes": ("repack_lanes_kernel",),
+    "bswap_transpose": ("bswap_transpose_kernel",),
+    "select_walk": ("select_records_kernel", "select_walk_kernel"),
+    "strip_states": ("chunk_chains_kernel",),
+}
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

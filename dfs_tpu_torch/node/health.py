@@ -1,7 +1,8 @@
 """Failure detection: a live/dead view per peer (a copy of dfs_tpu's
 ``node/health.py``). The data path marks a peer dead when a call exhausts
 its retries and skips it at once afterwards; a low-rate probe loop
-notices recovery."""
+notices recovery. Every transition is journaled (``peer_down`` /
+``peer_up``) when the node has an Observability."""
 
 from __future__ import annotations
 
@@ -17,12 +18,13 @@ from dfs_tpu_torch.utils.logging import get_logger
 class HealthMonitor:
     def __init__(self, cluster: ClusterConfig, self_id: int,
                  client: InternalClient,
-                 probe_interval_s: float = 5.0) -> None:
+                 probe_interval_s: float = 5.0, obs=None) -> None:
         self.cluster = cluster
         self.self_id = self_id
         self.client = client
         self.probe_interval_s = probe_interval_s
         self.log = get_logger("health", self_id)
+        self._obs = obs
         # optimistic start: every peer alive until a call says otherwise
         self._alive: dict[int, bool] = {
             p.node_id: True for p in cluster.peers if p.node_id != self_id}
@@ -37,12 +39,16 @@ class HealthMonitor:
             self._alive[node_id] = False
             self._last_change[node_id] = time.monotonic()
             self.log.warning("peer %d marked dead", node_id)
+            if self._obs is not None:
+                self._obs.event("peer_down", peer=node_id)
 
     def mark_alive(self, node_id: int) -> None:
         if not self._alive.get(node_id, True):
             self._alive[node_id] = True
             self._last_change[node_id] = time.monotonic()
             self.log.info("peer %d back alive", node_id)
+            if self._obs is not None:
+                self._obs.event("peer_up", peer=node_id)
 
     def snapshot(self) -> dict[str, bool]:
         return {str(k): v for k, v in sorted(self._alive.items())}

@@ -49,8 +49,8 @@ filters gossiped every ``filter_sync_s`` (``get_filter`` /
 filter rules out or vouches for, every filter-credited copy confirmed by
 one ``has_chunks`` round per peer before the manifest acks; repair's
 filter-trimmed probe; and scrub healing the index against the CAS walk in
-both directions. The port has no event journal, so ``lsi.on_event`` stays
-unset.
+both directions. The LSI journals ``index_rebuild`` / ``index_compact``
+through ``lsi.on_event``.
 
 With ``NodeConfig.tier.enabled`` (``serve --tier``) the tiering plane
 (:mod:`dfs_tpu_torch.tier`) keeps a temperature ledger fed by every read
@@ -61,8 +61,28 @@ index tier bit, and reclaims the surplus replicas through
 ``delete_chunks``; a cold file read past ``promote_reads`` is
 re-materialized replicated in the background and its parity reclaimed.
 
-What dfs_tpu builds only when configured — chaos, the elastic ring, the
-census history, the journal, tracing — is not ported.
+The observability core (:mod:`dfs_tpu_torch.obs`, ``NodeConfig.obs``) is
+built first and on by default, as in dfs_tpu: every HTTP request is an
+``http.<route>`` span, every storage-plane call an ``rpc.<op>`` span whose
+context rides the wire's ``trace`` field into the peer's ``peer.<op>``
+span, and the phases of an upload (``upload.hash_file``,
+``upload.fragment`` — where the card chunks —, ``upload.replicate``,
+``upload.handoff``, ``upload.ec_encode``, ``upload.verify_trusted``) and a
+read (``download.gather``, ``serve.flight.wait``, ``cas.*``) are spans
+under it. Spans sit in a bounded ring (``get_trace`` and ``GET /trace``
+stitch them across nodes), lifecycle events go to the flight-recorder
+journal under ``<data root>/node-<id>/journal/`` (``GET /events``), and
+the sentinel samples event-loop lag, the CAS backlog and credit stalls.
+
+With ``NodeConfig.chaos.enabled`` (``serve --chaos``) the fault injector
+(:mod:`dfs_tpu_torch.chaos`) is wired where dfs_tpu wires it: peer faults
+in the RPC client, a slow node in ``_serve_internal_frame``, disk faults
+in the ChunkStore hook, and SIGKILL at the 11 crash points
+(``place.*`` in ``_place_batch``, ``upload.*`` in ``_finalize_upload``,
+``demote.*`` in the demotion, ``sim.*`` in the similarity plane).
+
+What dfs_tpu builds only when configured — the elastic ring and the
+census history — is not ported.
 """
 
 from __future__ import annotations
@@ -93,6 +113,7 @@ from dfs_tpu_torch.meta.manifest import (ChunkRef, EcInfo, Manifest,
                                          stripe_shard_len)
 from dfs_tpu_torch.ops import ec as ec_ops
 from dfs_tpu_torch.node.health import HealthMonitor
+from dfs_tpu_torch.obs import Observability, Span, parse_wire_trace
 from dfs_tpu_torch.ring import RingMap
 from dfs_tpu_torch.ring.manager import RingManager
 from dfs_tpu_torch.serve import BatchPrefetcher, ServingTier
@@ -103,13 +124,14 @@ from dfs_tpu_torch.utils.aio import create_logged_task, gather_abort_siblings
 from dfs_tpu_torch.utils.hashing import (is_hex_digest, sha256_hex,
                                          sha256_many_hex, sha256_new)
 from dfs_tpu_torch.utils.logging import Counters, Stopwatches, get_logger
-from dfs_tpu_torch.utils.trace import LatencyRecorder, span
+from dfs_tpu_torch.utils.trace import LatencyRecorder
 
 # the internal-plane ops this node serves; any other answers "unknown op"
 _OPS = frozenset({"store_chunks", "has_chunks", "announce", "tombstones",
                   "list_manifests", "get_chunk", "get_chunks",
                   "get_manifest", "delete", "delete_chunks", "health",
-                  "get_filter", "filter_delta", "get_filters"})
+                  "get_filter", "filter_delta", "get_filters",
+                  "get_trace"})
 # the bulk ops: the internal admission gate bounds these only, so a health
 # probe never queues behind transfers and makes a busy node look dead
 _HEAVY_OPS = frozenset({"store_chunks", "get_chunk", "get_chunks"})
@@ -248,6 +270,18 @@ class _TrustLedger:
         return bool(self.by_peer)
 
 
+def _config_fingerprint(cfg: NodeConfig) -> str:
+    """sha256 over the config surface a healthy cluster shares (node-local
+    identity excluded), journaled in the ``boot`` event."""
+    import dataclasses as _dc
+    import json as _json
+
+    d = _dc.asdict(cfg)
+    for local in ("node_id", "data_root", "device"):
+        d.pop(local, None)
+    return sha256_hex(_json.dumps(d, sort_keys=True, default=str).encode())
+
+
 class StorageNodeServer:
     # per-RPC payload cap of replication slices, and the batch size of
     # streamed reads and repair fetches (class-level so tests can scale)
@@ -263,43 +297,85 @@ class StorageNodeServer:
                                          frag=cfg.frag, device=cfg.device)
         self.store = NodeStore(cfg.data_root, cfg.node_id,
                                fsync=cfg.durability.fsync)
+        self.counters = Counters()
+        self.latency = LatencyRecorder()
+        # the flight recorder under the node's data root, built before
+        # the Observability hub so every subsystem's obs.event() lands in
+        # it; None with journal_bytes == 0
+        journal = None
+        if cfg.obs.journal_bytes > 0:
+            from dfs_tpu_torch.obs.journal import Journal
+
+            journal = Journal(self.store.root / "journal", cfg.node_id,
+                              total_bytes=cfg.obs.journal_bytes,
+                              segment_bytes=cfg.obs.journal_segment_bytes)
+        # observability first: the client, the CAS tier, the serving tier
+        # and the planes take it as their tracing and journal hook
+        self.obs = Observability(cfg.obs, cfg.node_id,
+                                 latency=self.latency, journal=journal)
+        self._config_hash = _config_fingerprint(cfg)
+        # fault injection: None unless ChaosConfig.enabled, built right
+        # after obs so injected faults journal trace-stamped; disk faults
+        # ride the ChunkStore hook on the CAS worker threads
+        self.chaos = None
+        if cfg.chaos.enabled:
+            from dfs_tpu_torch.chaos import ChaosInjector
+
+            self.chaos = ChaosInjector(cfg.chaos, cfg.node_id, obs=self.obs)
+            self.store.chunks.fault = self.chaos.store_hook()
         # the similarity plane: None unless SimConfig.enabled, so the
-        # default node's CAS paths stay as they are
+        # default node's CAS paths stay as they are; its sim.* crash
+        # points fire through the injector
         self.sim = None
         if cfg.sim.enabled:
             from dfs_tpu_torch.sim import SimPlane
 
             self.sim = SimPlane(cfg.sim, self.store.root / "sim",
                                 device=self._ec_device())
+            if self.chaos is not None:
+                self.sim.crash = self.chaos.maybe_crash
             self.store.chunks.sim = self.sim
         # the dedup/index plane: None unless IndexConfig.enabled, so the
         # default node's existence checks stay one stat per digest. Opened
-        # in start(), before the listeners. No event journal in the port:
-        # lsi.on_event stays unset.
+        # in start(), before the listeners. (DigestIndex.hook stays
+        # unwired, as in dfs_tpu: no crash point lives there.)
         self.index = None
         self._filter_sync_task: asyncio.Task | None = None
         if cfg.index.enabled:
             from dfs_tpu_torch.index import IndexPlane
 
             self.index = IndexPlane(cfg.index, self.store.root)
+            self.index.lsi.on_event = self.obs.event
             # the ChunkStore seam: every put/delete feeds the LSI from the
             # CAS worker threads; has() answers from it first
             self.store.chunks.index = self.index
-        self.counters = Counters()
-        self.latency = LatencyRecorder()
         self.ingest_stalls = Stopwatches()
         self.ring = RingManager(cfg)
         self.cas = AsyncChunkStore(self.store.chunks,
-                                   workers=cfg.ingest.cas_io_threads)
+                                   workers=cfg.ingest.cas_io_threads,
+                                   obs=self.obs)
         self._STREAM_FLUSH_BYTES = cfg.ingest.flush_bytes
         self.client = InternalClient(cfg.connect_timeout_s,
                                      cfg.request_timeout_s, cfg.retries,
                                      coalesce_fetches=cfg.serve.cache_bytes
-                                     > 0, ring=self.ring)
+                                     > 0, ring=self.ring, obs=self.obs,
+                                     chaos=self.chaos)
         self.health = HealthMonitor(cfg.cluster, cfg.node_id, self.client,
-                                    probe_interval_s=cfg.health_probe_s)
+                                    probe_interval_s=cfg.health_probe_s,
+                                    obs=self.obs)
+        # the stall sentinel: loop lag, CAS backlog and credit stalls,
+        # journaled as incidents; None when sampled off
+        self.sentinel = None
+        if cfg.obs.sentinel_interval_s > 0:
+            from dfs_tpu_torch.obs.sentinel import Sentinel
+
+            self.sentinel = Sentinel(self.obs, cas=self.cas,
+                                     stalls=self.ingest_stalls,
+                                     interval_s=cfg.obs.sentinel_interval_s,
+                                     lag_s=cfg.obs.sentinel_lag_s)
+            self.obs.sentinel = self.sentinel
         # the serving tier: with ServeConfig() every component is off
-        self.serve = ServingTier(cfg.serve)
+        self.serve = ServingTier(cfg.serve, obs=self.obs)
         # the hot/cold tiering plane: None unless TierConfig.enabled, so
         # the default node never touches a ledger and never scans
         self.tier = None
@@ -313,7 +389,8 @@ class StorageNodeServer:
         if cfg.tier.enabled:
             from dfs_tpu_torch.tier import TierPlane
 
-            self.tier = TierPlane(cfg.tier, self.store.root / "tier")
+            self.tier = TierPlane(cfg.tier, self.store.root / "tier",
+                                  obs=self.obs)
         self._repair_lock = asyncio.Lock()
         self.under_replicated: set[str] = set()  # digests needing repair
         self._ec_encode_device: str | None = None  # where EC last encoded
@@ -340,6 +417,9 @@ class StorageNodeServer:
                                  info["reason"])
         # crash recovery before anything can be in flight
         swept = await asyncio.to_thread(self.store.boot_sweep)
+        # journaled on every boot, zeros included: after a crash the
+        # journal then says what recovery found, even when it was nothing
+        self.obs.event("boot_sweep", **swept)
         if swept["tmps"] or swept["orphans"]:
             self.log.info("boot sweep: %d temp(s), %d aged orphan(s)",
                           swept["tmps"], swept["orphans"])
@@ -353,6 +433,8 @@ class StorageNodeServer:
             make_http_handler(self), addr.host, addr.port)
         if self.cfg.health_probe_s > 0:
             self.health.start()
+        if self.sentinel is not None:
+            self.sentinel.start()
         if self.tier is not None and self.cfg.tier.scan_interval_s > 0:
             # the demotion worker (scan_interval_s == 0: POST /tier only)
             self._tier_task = create_logged_task(
@@ -363,6 +445,10 @@ class StorageNodeServer:
             # peer-existence filter gossip on the configured cadence
             self._filter_sync_task = create_logged_task(
                 self._filter_sync_loop(), self.log, "filter-sync")
+        # the flight recorder's first question: what config this life ran
+        self.obs.event("boot", configHash=self._config_hash,
+                       http=addr.port, internal=addr.internal_port,
+                       fragmenter=self.fragmenter.name)
         self.log.info("node %d up: http=%d internal=%d fragmenter=%s on %s",
                       self.cfg.node_id, addr.port, addr.internal_port,
                       self.fragmenter.name, self.frag_stats()["device"])
@@ -379,6 +465,8 @@ class StorageNodeServer:
             with contextlib.suppress(OSError):
                 await asyncio.to_thread(self.tier.snapshot_ledger)
         self.health.stop()
+        if self.sentinel is not None:
+            self.sentinel.stop()
         self.client.close()
         self.cas.close()
         if self.sim is not None:
@@ -397,6 +485,10 @@ class StorageNodeServer:
             if srv is not None:
                 srv.close()
                 await srv.wait_closed()
+        if self.obs.journal is not None:
+            # last: the teardown above may still emit; close() drains the
+            # queue and joins the writer thread, off the loop
+            await asyncio.to_thread(self.obs.journal.close)
 
     def _peers(self) -> list:
         return [p for p in self.cfg.cluster.peers
@@ -466,6 +558,8 @@ class StorageNodeServer:
         except (KeyError, TypeError, ValueError):
             self.counters.inc("filter_sync_failures")
             return False
+        self.obs.event("filter_resync", peer=peer.node_id,
+                       gen=meta.get("gen"), bytes=len(body))
         return True
 
     def index_stats(self) -> dict:
@@ -490,19 +584,31 @@ class StorageNodeServer:
     async def _serve_internal_frame(self, conn, header: dict,
                                     body: memoryview, nbytes_in: int) -> None:
         """Serve one inbound frame; ``body`` is a read-only view of its
-        receive buffer. An op error becomes an error reply. Its time goes
-        to ``/metrics`` latency as ``peer.<op>``, as dfs_tpu's server span
-        of the op."""
+        receive buffer. An op error becomes an error reply. The op is a
+        ``peer.<op>`` server span, parented by the wire's optional
+        ``trace`` field (the caller's ``rpc.<op>`` span); an untraced
+        frame roots a fresh trace for the bulk ops only, so health probes
+        never fill the ring. Its time also goes to ``/metrics`` latency
+        as ``peer.<op>``, and to the server RPC table by sender."""
         op = header.get("op")
         name = f"peer.{op}" if op in _OPS else "peer.other"
+        tr = parse_wire_trace(header.get("trace"))
         # the sender's remaining budget (the optional wire field) starts
         # this hop's own countdown; absent = no deadline
         budget = deadline.parse_wire(header.get("deadline"))
         dl_token = deadline.activate(budget) if budget is not None \
             else None
+        t0 = time.perf_counter()
         try:
-            with span(name, self.latency):
+            with (self.obs.server_span(name, tr)
+                  if tr is not None or op in _HEAVY_OPS
+                  else contextlib.nullcontext(Span())) as sp:
+                sp.bytes = nbytes_in
                 try:
+                    if self.chaos is not None:
+                        # a slow node (chaos serve_delay): inside the span,
+                        # before the gate, so probes feel it too
+                        await self.chaos.before_serve(str(op))
                     gate = self.serve.admission.internal
                     if gate.enabled and op in _HEAVY_OPS:
                         # a shed op reaches the peer as an error reply
@@ -512,11 +618,20 @@ class StorageNodeServer:
                     else:
                         resp, rbody = await self._dispatch(header, body)
                 except Exception as e:  # noqa: BLE001 — answered to the peer
+                    sp.err = type(e).__name__
                     resp, rbody = {"ok": False, "error": str(e)}, b""
+                # encoded inside the span: its bytes are the frame totals
+                head, bufs, nbytes_out = encode_frame(resp, rbody)
+                sp.bytes = nbytes_in + nbytes_out
         finally:
             if dl_token is not None:
                 deadline.restore(dl_token)
-        head, bufs, _ = encode_frame(resp, rbody)
+        dt = time.perf_counter() - t0
+        self.latency.record(name, dt)
+        self.obs.rpc_server.record(
+            tr[2] if tr is not None and tr[2] is not None else "-",
+            str(op), dt, bytes_out=nbytes_out, bytes_in=nbytes_in,
+            error=not resp.get("ok", False))
         try:
             conn.send_encoded(head, bufs)
             await conn.drain()
@@ -530,6 +645,7 @@ class StorageNodeServer:
             # the caller's budget ran out while the frame queued or flew:
             # dropped before any CAS job, hash pass or write
             self.counters.inc("deadline_drops")
+            self.obs.event("deadline_shed", where="dispatch", op=str(op))
             return {"ok": False, "error": "deadline expired"}, b""
         repoch, rfp = header.get("repoch"), header.get("rfp")
         ring = self.ring.current
@@ -682,6 +798,11 @@ class StorageNodeServer:
             removed, refused = await asyncio.to_thread(reclaim)
             self.serve.drop_cached(removed)
             return {"ok": True, "removed": removed, "refused": refused}, b""
+        if op == "get_trace":
+            # this node's spans of one trace, for the stitcher: a bounded
+            # ring scan, ungated like health
+            return {"ok": True, "spans": self.obs.spans_for(
+                str(header.get("traceId", "")))}, b""
         if op == "health":
             return {"ok": True, "nodeId": self.cfg.node_id,
                     "chunks": await asyncio.to_thread(
@@ -724,11 +845,13 @@ class StorageNodeServer:
         ``ec_k`` the chunks are grouped into stripes of ``ec_k``, each
         stripe gains P and Q, and every shard is placed once, on its
         stripe holder (the parity is the redundancy)."""
-        with span("upload.hash_file", self.latency):
+        with self.obs.span("upload.hash_file", latency=True):
             file_id = await asyncio.to_thread(sha256_hex, data)
         if not name:
             name = f"file-{file_id[:8]}"
-        with span("upload.fragment", self.latency):
+        # opened on the loop around the await: the worker thread does not
+        # inherit the trace context, the await does
+        with self.obs.span("upload.fragment", latency=True):
             manifest = await asyncio.to_thread(
                 self.fragmenter.manifest, data, name=name, file_id=file_id)
         stats = self._new_upload_stats()
@@ -754,7 +877,7 @@ class StorageNodeServer:
             if ec_k > 255:
                 # the Q coefficients repeat beyond GF(256)*'s order 255
                 raise UploadError("ec must be <= 255", status=400)
-            with span("upload.ec_encode", self.latency):
+            with self.obs.span("upload.ec_encode", latency=True):
                 manifest, parity = await asyncio.to_thread(
                     self._ec_extend, manifest, data, ec_k)
             for d, b in parity:
@@ -882,7 +1005,13 @@ class StorageNodeServer:
                 except _queue.Full:
                     continue
 
-        frag_task = asyncio.create_task(asyncio.to_thread(run_fragmenter))
+        async def fragment() -> None:
+            # the walk's whole life (it waits on body blocks and credits
+            # too), a span on the loop around the thread
+            with self.obs.span("upload.fragment", latency=True):
+                await asyncio.to_thread(run_fragmenter)
+
+        frag_task = asyncio.create_task(fragment())
 
         async def feeder() -> int:
             total = 0
@@ -1042,10 +1171,12 @@ class StorageNodeServer:
         return out
 
     def _raise_if_disk_full(self, e: OSError) -> None:
-        """A full local disk during placement answers 507, not a 500."""
+        """A full local disk during placement answers 507, not a 500, and
+        journals ``disk_pressure``."""
         if e.errno != errno.ENOSPC:
             return
         self.counters.inc("disk_full_rejects")
+        self.obs.event("disk_pressure", cause="enospc_put")
         raise UploadError("Insufficient storage: local CAS put failed "
                           "(ENOSPC)", status=507) from e
 
@@ -1069,7 +1200,13 @@ class StorageNodeServer:
         existence filter first: digests the filter rules out skip the
         probe and transfer directly; positives are credited as trusted
         copies when ``ledger`` is given (probe and transfer skipped; the
-        caller runs :meth:`_verify_trusted` before acking), else probed."""
+        caller runs :meth:`_verify_trusted` before acking), else probed.
+
+        Crash points ``place.before_local_put`` (before any put) and
+        ``place.after_replicate`` (puts and replication done, before the
+        quorum check)."""
+        if self.chaos is not None:
+            self.chaos.maybe_crash("place.before_local_put")
         ring = self.ring.current
         ids = ring.member_ids()
         if self.index is not None and self.index.echo_cache is not None:
@@ -1289,9 +1426,11 @@ class StorageNodeServer:
                 self._raise_if_disk_full(e)
                 raise
 
-        with span("upload.replicate", self.latency):
+        with self.obs.span("upload.replicate", latency=True):
             await place([put_local(local_puts),
                          *(replicate(nid, w) for nid, w in per_node.items())])
+        if self.chaos is not None:
+            self.chaos.maybe_crash("place.after_replicate")
 
         # sloppy-quorum handoff: chunks below quorum try the next nodes of
         # their ring; handoff copies are queued for repair, which moves
@@ -1299,7 +1438,7 @@ class StorageNodeServer:
         quorum = min(self.cfg.write_quorum, rf, len(ids))
         handoff: set[str] = set()
         next_try = {d: len(primary_targets(d)) for d in copies}
-        with span("upload.handoff", self.latency):
+        with self.obs.span("upload.handoff", latency=True):
             while True:
                 need = [d for d, n in copies.items() if n < quorum]
                 if not need:
@@ -1328,6 +1467,9 @@ class StorageNodeServer:
 
         failed = [d for d, n in copies.items() if n < quorum]
         if failed:
+            # journaled: the 500 it becomes carries no cluster state
+            self.obs.event("quorum_fail", chunksBelow=len(failed),
+                           quorum=quorum)
             raise UploadError(f"Replication failed: {len(failed)} chunks "
                               f"below quorum {quorum}")
         for d, n in copies.items():
@@ -1389,6 +1531,9 @@ class StorageNodeServer:
             self.ingest_stalls.peak("sliceInflight", peak)
             return
         hedge.note_fired()
+        self.obs.event("hedge_fired", op="store_chunks",
+                       primary=primary_id, backup=backup_id,
+                       slices=len(slices), delayS=round(delay, 4))
         btask = asyncio.create_task(send_train(backup_id))
         try:
             done, _ = await asyncio.wait(
@@ -1410,6 +1555,8 @@ class StorageNodeServer:
                 self.health.mark_dead(other_id)
             if first_id == backup_id:
                 hedge.note_won()
+                self.obs.event("hedge_won", op="store_chunks",
+                               primary=primary_id, backup=backup_id)
             else:
                 self.ingest_stalls.peak("sliceInflight", first.result())
             return
@@ -1425,6 +1572,8 @@ class StorageNodeServer:
             raise (ferr if first_id == primary_id else e) from None
         if other_id == backup_id:
             hedge.note_won()
+            self.obs.event("hedge_won", op="store_chunks",
+                           primary=primary_id, backup=backup_id)
 
     def _new_trust_ledger(self) -> _TrustLedger | None:
         """A trust ledger when the filter plane is on, else None (a probe
@@ -1447,7 +1596,7 @@ class StorageNodeServer:
         plane = self.index
         assert plane is not None
         unconfirmed: dict[str, int] = {}
-        with span("upload.verify_trusted", self.latency):
+        with self.obs.span("upload.verify_trusted", latency=True):
             for node_id, entries in sorted(ledger.by_peer.items()):
                 peer = self.cfg.cluster.peer(node_id)
                 digests = sorted(entries)
@@ -1477,6 +1626,7 @@ class StorageNodeServer:
         if not unconfirmed:
             return
         self.counters.inc("filter_fp_replaced", len(unconfirmed))
+        self.obs.event("filter_fp_replace", chunks=len(unconfirmed))
         items: list[tuple[str, bytes]] = []
         local = dict(await self.cas.get_many(sorted(unconfirmed)))
         for d, ln in sorted(unconfirmed.items()):
@@ -1498,7 +1648,12 @@ class StorageNodeServer:
     async def _finalize_upload(self, manifest: Manifest) -> None:
         """The ack: the manifest saved last (fsync'd, off the loop), then
         a best-effort announce to every peer. A fresh upload clears a
-        tombstone, here and (fresh=True) at the peers."""
+        tombstone, here and (fresh=True) at the peers. Crash points
+        ``upload.before_manifest`` (chunks durable, no manifest: the
+        torn-upload window) and ``upload.after_manifest`` (durable, not
+        yet announced or acked)."""
+        if self.chaos is not None:
+            self.chaos.maybe_crash("upload.before_manifest")
         self.store.manifests.clear_tombstone(manifest.file_id)
         try:
             saved = await asyncio.to_thread(self.store.manifests.save,
@@ -1508,6 +1663,8 @@ class StorageNodeServer:
             raise
         if not saved:
             raise UploadError("manifest save refused (tombstone race)")
+        if self.chaos is not None:
+            self.chaos.maybe_crash("upload.after_manifest")
         mj = manifest.to_json()
 
         async def announce(peer) -> None:
@@ -1640,6 +1797,9 @@ class StorageNodeServer:
                     i += 1
                     continue
                 hedge.note_fired()
+                self.obs.event("hedge_fired", digest=digest[:12],
+                               primary=nid, backup=backup_id,
+                               delayS=round(delay, 4))
                 btask = asyncio.create_task(attempt(backup_id))
                 done, _ = await asyncio.wait(
                     {task, btask}, return_when=asyncio.FIRST_COMPLETED)
@@ -1670,6 +1830,8 @@ class StorageNodeServer:
             if data is not None:
                 if src == backup_id:
                     hedge.note_won()
+                    self.obs.event("hedge_won", digest=digest[:12],
+                                   primary=nid, backup=backup_id)
                 return accept(data)
             i += 2                       # both replicas consumed
         raise DownloadError(f"Could not retrieve chunk {digest[:12]}…")
@@ -1718,6 +1880,9 @@ class StorageNodeServer:
                 await reap_on_cancel()
                 raise
         hedge.note_fired()
+        self.obs.event("hedge_fired", op="get_chunks",
+                       primary=primary_id, backup=backup_id,
+                       chunks=len(digests), delayS=round(delay, 4))
         btask = asyncio.create_task(fetch_from(backup_id))
         try:
             done, _ = await asyncio.wait(
@@ -1739,6 +1904,8 @@ class StorageNodeServer:
                 self.health.mark_dead(other_id)
             if first_id == backup_id:
                 hedge.note_won()
+                self.obs.event("hedge_won", op="get_chunks",
+                               primary=primary_id, backup=backup_id)
             return first.result(), first_id
         # the first finisher failed: the other side decides, no third RPC
         if isinstance(ferr, RpcUnreachable):
@@ -1752,6 +1919,8 @@ class StorageNodeServer:
             raise (ferr if first_id == primary_id else e) from None
         if other_id == backup_id:
             hedge.note_won()
+            self.obs.event("hedge_won", op="get_chunks",
+                           primary=primary_id, backup=backup_id)
         return got, other_id
 
     async def _gather_chunks(self, manifest: Manifest | None, chunks=None,
@@ -2109,6 +2278,7 @@ class StorageNodeServer:
         if deadline.expired():
             # checked per batch: a mid-download expiry stops the rest
             self.counters.inc("deadline_drops")
+            self.obs.event("deadline_shed", where="fetch")
             raise DeadlineExceeded("deadline expired")
         if self.tier is not None:
             # the temperature feed: every requested digest is one read,
@@ -2159,15 +2329,18 @@ class StorageNodeServer:
                     serve.flight.resolve(d, b)
                     out[d] = b
         failed_waits: list[str] = []
-        for d, fut in waits.items():
-            try:
-                out[d] = await serve.flight.wait(fut)
-            except DownloadError:
-                failed_waits.append(d)       # re-fetched just below
-            except asyncio.CancelledError:
-                if not fut.done():
-                    raise                    # WE were cancelled
-                failed_waits.append(d)       # the leader's flight died
+        if waits:
+            # one span for the whole wait, not one per coalesced digest
+            with self.obs.span("serve.flight.wait"):
+                for d, fut in waits.items():
+                    try:
+                        out[d] = await serve.flight.wait(fut)
+                    except DownloadError:
+                        failed_waits.append(d)   # re-fetched just below
+                    except asyncio.CancelledError:
+                        if not fut.done():
+                            raise                # WE were cancelled
+                        failed_waits.append(d)   # the leader's flight died
         if failed_waits:
             # a rejected flight says nothing about this request: one
             # batched direct attempt
@@ -2206,6 +2379,7 @@ class StorageNodeServer:
                 self.under_replicated.add(d)
                 self.log.warning("evicted corrupt local chunk %s on read",
                                  d[:12])
+                self.obs.event("corrupt_chunk", digest=d[:12], where="read")
         return await self._gather_chunks(manifest, chunks=chunks,
                                          prefetched=good, strict=strict)
 
@@ -2311,7 +2485,7 @@ class StorageNodeServer:
         """The whole file as one buffer, through :meth:`download_stream`."""
         manifest, gen = await self.download_stream(file_id)
         out = bytearray()
-        with span("download.gather", self.latency):
+        with self.obs.span("download.gather", latency=True):
             async for part in gen:
                 out += part
         return manifest, out
@@ -2357,6 +2531,45 @@ class StorageNodeServer:
         return {"mode": self.cfg.durability.mode,
                 "fsyncs": self.store.chunks.fsync_count()}
 
+    def chaos_stats(self) -> dict:
+        """``/metrics`` ``chaos``: the active knobs and per-kind injected
+        fault counters; ``{"enabled": False}`` without the injector."""
+        if self.chaos is None:
+            return {"enabled": False}
+        return self.chaos.stats()
+
+    async def trace_spans(self, trace_id: str,
+                          cluster: bool = True) -> dict:
+        """This node's spans of one trace and (``cluster``) every peer's
+        through the ``get_trace`` op, merged for the stitcher (``GET
+        /trace``, ``trace <id>``). An unreachable peer makes the result
+        partial (``peersFailed``), never an error."""
+        from dfs_tpu_torch.obs.stitch import merge_spans
+
+        lists: list[list[dict]] = [self.obs.spans_for(trace_id)]
+        peers = self._peers() if cluster else []
+
+        async def one(peer) -> list[dict] | None:
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "get_trace", "traceId": trace_id},
+                    retries=1)
+            except RpcError:
+                return None           # counted in peersFailed
+            spans = resp.get("spans")
+            return spans if isinstance(spans, list) else []
+
+        failed = 0
+        for got in await asyncio.gather(*(one(p) for p in peers)):
+            if got is None:
+                failed += 1
+            else:
+                lists.append(got)
+        return {"traceId": trace_id,
+                "slowSpanS": self.cfg.obs.slow_span_s,
+                "spans": merge_spans(lists),
+                "peersQueried": len(peers), "peersFailed": failed}
+
     def metrics(self) -> dict:
         """``GET /metrics``: the counters and the sections of dfs_tpu's
         document for the parts ported."""
@@ -2374,6 +2587,8 @@ class StorageNodeServer:
         snap["tier"] = self.tier_stats()
         snap["sim"] = self.sim_stats()
         snap["serve"] = self.serve.stats()
+        snap["obs"] = self.obs.stats()
+        snap["chaos"] = self.chaos_stats()
         snap["rpcClient"] = {
             f"{p}:{o}": {"count": r[0], "errors": r[1], "retries": r[2],
                          "bytesOut": r[3], "bytesIn": r[4],
@@ -2435,8 +2650,11 @@ class StorageNodeServer:
                 await self.client.call(peer, {"op": "delete",
                                               "fileId": file_id})
             except RpcError:
-                # converges later through tombstone anti-entropy
+                # converges later through tombstone anti-entropy; the
+                # journal dates the window a peer kept serving the file
                 self.counters.inc("delete_propagate_failures")
+                self.obs.event("delete_propagate_fail", peer=peer.node_id,
+                               fileId=file_id[:12])
 
         await asyncio.gather(*(forget(p) for p in self._peers()))
         return found
@@ -2674,6 +2892,8 @@ class StorageNodeServer:
                 self.log.warning("repair push to node %d failed: %s",
                                  node_id, e)
                 self.counters.inc("repair_push_failures")
+                self.obs.event("repair_push_fail", peer=node_id,
+                               cause=type(e).__name__)
         self.under_replicated -= verified
         # EC shards are pinned to their stripe holders: never relocated
         for d in ec_digests:
@@ -2694,6 +2914,12 @@ class StorageNodeServer:
         if swept:
             self.serve.drop_cached(swept)
             self.log.info("gc: swept %d aged orphan chunks", len(swept))
+        if repaired or swept or relocated:
+            # the repair and GC decisions a post-mortem needs dated
+            self.obs.event("repair", repaired=repaired,
+                           sweptOrphans=len(swept),
+                           relocated=len(relocated),
+                           underReplicated=len(self.under_replicated))
         self.counters.inc("repairs")
         return repaired
 
@@ -2757,6 +2983,8 @@ class StorageNodeServer:
         self.counters.inc("scrubs")
         if corrupt:
             self.counters.inc("scrub_corrupt", corrupt)
+            self.obs.event("scrub_corrupt", scanned=scanned,
+                           corrupt=corrupt)
         if delta_missing_base:
             self.counters.inc("scrub_delta_missing_base", delta_missing_base)
         out = {"scanned": scanned, "corrupt": corrupt,
@@ -2787,6 +3015,8 @@ class StorageNodeServer:
         if missing or phantom:
             self.counters.inc("index_healed_missing", len(missing))
             self.counters.inc("index_healed_phantom", len(phantom))
+            self.obs.event("index_healed", missing=len(missing),
+                           phantom=len(phantom))
             self.log.warning("scrub: index healed (%d missing, %d phantom)",
                              len(missing), len(phantom))
         return {"healedMissing": len(missing),
@@ -2811,6 +3041,7 @@ class StorageNodeServer:
                 continue          # a POST /tier holds the single slot
             except (RpcError, OSError, DownloadError) as e:
                 self.tier.errors += 1
+                self.obs.event("tier_error", where="scan", error=str(e))
                 self.log.warning("tier scan failed: %s", e)
 
     async def tier_scan_once(self) -> dict:
@@ -2869,6 +3100,8 @@ class StorageNodeServer:
                         UploadError) as e:
                     # one unreachable replica set must not starve the scan
                     plane.errors += 1
+                    self.obs.event("tier_error", where="demote",
+                                   fileId=fid, error=str(e))
                     self.log.warning("tier demote %s failed: %s",
                                      fid[:12], e)
             # finish pass: idempotent, skipped once confirmed clean at this
@@ -2882,12 +3115,17 @@ class StorageNodeServer:
                     out["finished"] += 1
                 except (RpcError, OSError) as e:
                     plane.errors += 1
+                    self.obs.event("tier_error", where="finish",
+                                   fileId=m.file_id, error=str(e))
                     self.log.warning("tier finish %s failed: %s",
                                      m.file_id[:12], e)
             plane.scans += 1
             plane.last_scan_at = now
             plane.note_progress()
             await asyncio.to_thread(plane.snapshot_ledger)
+            self.obs.event("tier_scan", scanned=out["scanned"],
+                           cold=out["cold"], demoted=out["demoted"],
+                           finished=out["finished"])
             return out
 
     async def _demote_file(self, m: Manifest) -> bool:
@@ -2896,10 +3134,10 @@ class StorageNodeServer:
         parity at their stripe holders, commit the cold manifest (the
         durable tier flip), flip the index tier bits, then reclaim the
         surplus replicas. Parity before the flip and the flip before the
-        deletes, so a crash anywhere leaves the file readable. (dfs_tpu's
-        chaos crash points ``demote.after_parity_write`` and
-        ``demote.after_tier_flip`` have no seam here: chaos is not
-        ported.)"""
+        deletes, so a crash anywhere leaves the file readable: the crash
+        points ``demote.after_parity_write`` and ``demote.after_tier_flip``
+        sit after each step (``demote.before_replica_delete`` opens
+        :meth:`_tier_delete_surplus`)."""
         import dataclasses as _dc
 
         plane = self.tier
@@ -2922,6 +3160,8 @@ class StorageNodeServer:
         placement = ec_placement_map(cold_m, self.ring.current)
         await self._place_batch(m.file_id, batch, stats, rf=1,
                                 placement=placement)
+        if self.chaos is not None:
+            self.chaos.maybe_crash("demote.after_parity_write")
         # the commit: a tombstone landing mid-demotion wins
         if not await asyncio.to_thread(self.store.manifests.save, cold_m):
             return False
@@ -2930,6 +3170,8 @@ class StorageNodeServer:
                 for d in sorted({c.digest for c in m.chunks}):
                     self.index.note_tier(d, True)
             await asyncio.to_thread(flip)
+        if self.chaos is not None:
+            self.chaos.maybe_crash("demote.after_tier_flip")
         await self._announce_all(cold_m)
         pbytes = sum(len(b) for _, b in parity)
         plane.demoted_files += 1
@@ -2937,6 +3179,8 @@ class StorageNodeServer:
         plane.parity_bytes += pbytes
         plane.note_progress()
         self.counters.inc("tier_demotions")
+        self.obs.event("tier_demote", fileId=m.file_id, bytes=m.size,
+                       parityBytes=pbytes)
         await self._tier_delete_surplus(cold_m)
         return True
 
@@ -2948,6 +3192,8 @@ class StorageNodeServer:
         its own manifests. A refusal (a peer that missed the cold
         announce) re-announces and leaves the file for the next scan's
         finish pass. Returns (removed, refused) across the cluster."""
+        if self.chaos is not None:
+            self.chaos.maybe_crash("demote.before_replica_delete")
         digests = sorted({c.digest for c in m.chunks})
         length = {c.digest: c.length for c in m.chunks}
         plane = self.tier
@@ -3042,9 +3288,12 @@ class StorageNodeServer:
             plane.note_promoted(m.file_id)
             plane.note_progress()
             self.counters.inc("tier_promotions")
+            self.obs.event("tier_promote", fileId=m.file_id, bytes=m.size)
         except (RpcError, OSError, DownloadError, UploadError) as e:
             # the file stays cold; a later read re-triggers
             plane.errors += 1
+            self.obs.event("tier_error", where="promote",
+                           fileId=m.file_id, error=str(e))
             self.log.warning("tier promote %s failed: %s",
                              m.file_id[:12], e)
         finally:

@@ -37,12 +37,13 @@ class ServingTier:
     and the hedge policy (None when the hedge budget is 0). Built by every
     node; the default config makes every component a no-op."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, obs=None) -> None:
         self.cfg = cfg
         self.cache = ChunkCache(cfg.cache_bytes) \
             if cfg.cache_bytes > 0 else None
         self.flight = SingleFlight()
-        self.admission = AdmissionControl(cfg)
+        # obs reaches the admission gates only (events, queue-wait spans)
+        self.admission = AdmissionControl(cfg, obs=obs)
         self.readahead_batches = int(cfg.readahead_batches)
         # the budget refill is the master switch: 0 builds no policy and
         # the reads and writes take the single-replica walk

@@ -16,7 +16,10 @@ apart from the capacity ``shed``. A queued waiter may carry a
 position instead of taking a slot at the head (:class:`ClientDisconnected`).
 
 ``slots <= 0`` disables a gate (the default): acquire returns at once and
-no counter moves.
+no counter moves. With the node's Observability a shed journals ``shed``,
+a deadline shed ``deadline_shed`` and a queued client's hangup
+``queue_disconnect``, and a queued acquire records an
+``admission.<class>.wait`` span under the caller's trace.
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ class AdmissionGate:
     _SHED_TS_MAX = 256
 
     def __init__(self, name: str, slots: int, queue_depth: int,
-                 retry_after_s: float = 1.0) -> None:
+                 retry_after_s: float = 1.0, obs=None) -> None:
         self.name = name
+        self._obs = obs
         self.slots = int(slots)
         self.queue_depth = max(0, int(queue_depth))
         self.retry_after_s = float(retry_after_s)
@@ -78,6 +82,8 @@ class AdmissionGate:
 
     def _shed_deadline(self, where: str) -> None:
         self.deadline_shed += 1
+        if self._obs is not None:
+            self._obs.event("deadline_shed", cls=self.name, where=where)
         raise ShedError(self.name, self.retry_after_s,
                         reason=f"deadline expired ({where})")
 
@@ -101,12 +107,19 @@ class AdmissionGate:
         if waiting >= self.queue_depth:
             self.shed += 1
             self._shed_ts.append(time.monotonic())
+            if self._obs is not None:
+                self._obs.event("shed", cls=self.name,
+                                active=self._active, waiting=waiting)
             raise ShedError(self.name, self.retry_after_s)
         fut = asyncio.get_running_loop().create_future()
         self._queue.append(fut)
         self.queued += 1
         try:
-            await self._await_grant(fut, disconnected)
+            if self._obs is not None:
+                with self._obs.span(f"admission.{self.name}.wait"):
+                    await self._await_grant(fut, disconnected)
+            else:
+                await self._await_grant(fut, disconnected)
         except asyncio.CancelledError:
             if fut.done() and not fut.cancelled():
                 # the grant raced our cancellation: the slot is ours —
@@ -152,6 +165,9 @@ class AdmissionGate:
                         # EOF or reset while queued: the client is gone
                         self._abandon(fut)
                         self.disconnects += 1
+                        if self._obs is not None:
+                            self._obs.event("queue_disconnect",
+                                            cls=self.name)
                         raise ClientDisconnected(
                             f"{self.name} client hung up while queued")
                     # a stray byte from a pipelining client is no hangup:
@@ -201,15 +217,16 @@ class AdmissionGate:
 class AdmissionControl:
     """The node's three gates, built from a ServeConfig."""
 
-    def __init__(self, cfg) -> None:
+    def __init__(self, cfg, obs=None) -> None:
         self.download = AdmissionGate(
             "download", cfg.download_slots, cfg.queue_depth,
-            cfg.retry_after_s)
+            cfg.retry_after_s, obs=obs)
         self.upload = AdmissionGate(
-            "upload", cfg.upload_slots, cfg.queue_depth, cfg.retry_after_s)
+            "upload", cfg.upload_slots, cfg.queue_depth, cfg.retry_after_s,
+            obs=obs)
         self.internal = AdmissionGate(
             "internal", cfg.internal_slots, cfg.queue_depth,
-            cfg.retry_after_s)
+            cfg.retry_after_s, obs=obs)
 
     def stats(self) -> dict:
         return {g.name: g.stats()

@@ -7,7 +7,10 @@ never blocks on chunk I/O and disk concurrency is bounded
 single-chunk read never queues behind a batch: ``cas-w`` puts, ``cas-r``
 batched reads, ``cas-g`` single gets and existence probes. ``queueS``
 (waiting for a worker) and ``busyS`` (doing I/O) are served under
-``/metrics`` ``ingest.cas``.
+``/metrics`` ``ingest.cas``; ``pending`` is the backlog the sentinel
+samples. With an :class:`~dfs_tpu_torch.obs.Observability` each op
+records a ``cas.<op>`` span, opened on the loop side around the await:
+``run_in_executor`` does not copy the caller's context, the await does.
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ T = TypeVar("T")
 class AsyncChunkStore:
     """Bounded-thread-pool async wrapper over one node's ChunkStore."""
 
-    def __init__(self, store: ChunkStore, workers: int = 4) -> None:
+    def __init__(self, store: ChunkStore, workers: int = 4,
+                 obs=None) -> None:
         self.store = store
+        self._obs = obs
         self._workers = max(1, int(workers))
         self._wpool = ThreadPoolExecutor(max_workers=self._workers,
                                          thread_name_prefix="cas-w")
@@ -42,7 +47,8 @@ class AsyncChunkStore:
         self._busy_s = 0.0
         self._pending = 0
 
-    async def _run(self, pool: ThreadPoolExecutor, fn: Callable[[], T]) -> T:
+    async def _run(self, pool: ThreadPoolExecutor, fn: Callable[[], T],
+                   opname: str | None = None) -> T:
         t_submit = time.perf_counter()
         with self._lock:
             self._pending += 1
@@ -65,16 +71,21 @@ class AsyncChunkStore:
             with self._lock:          # never submitted: unwind the gauge
                 self._pending -= 1
             raise
-        return await fut
+        if self._obs is None or opname is None:
+            return await fut
+        with self._obs.span(opname):
+            return await fut
 
     async def get(self, digest: str) -> bytes | None:
-        return await self._run(self._gpool, lambda: self.store.get(digest))
+        return await self._run(self._gpool, lambda: self.store.get(digest),
+                               "cas.get")
 
     async def has_many(self, digests: Sequence[str]) -> list[bool]:
         if not digests:
             return []
         ds = list(digests)
-        return await self._run(self._gpool, lambda: self.store.has_many(ds))
+        return await self._run(self._gpool, lambda: self.store.has_many(ds),
+                               "cas.has_many")
 
     async def get_many(self, digests: Sequence[str]
                        ) -> list[tuple[str, bytes]]:
@@ -86,7 +97,8 @@ class AsyncChunkStore:
         return await self._run(
             self._rpool,
             lambda: [(d, b) for d in ds
-                     if (b := self.store.get(d)) is not None])
+                     if (b := self.store.get(d)) is not None],
+            "cas.get_many")
 
     async def put_many(self, items: Sequence[tuple[str, bytes]],
                        verify: bool = False) -> list[bool]:
@@ -96,7 +108,14 @@ class AsyncChunkStore:
             return []
         its = list(items)
         return await self._run(
-            self._wpool, lambda: self.store.put_batch(its, verify=verify))
+            self._wpool, lambda: self.store.put_batch(its, verify=verify),
+            "cas.put_many")
+
+    @property
+    def pending(self) -> int:
+        """Jobs submitted but not yet finished (queued + running)."""
+        with self._lock:
+            return self._pending
 
     def stats(self) -> dict:
         with self._lock:

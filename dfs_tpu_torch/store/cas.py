@@ -107,7 +107,13 @@ class ChunkStore:
     against a resident similar base, and ``get`` reconstructs it.
 
     ``index`` is the dedup/index seam (a
-    :class:`dfs_tpu_torch.index.IndexPlane` or None), as dfs_tpu's."""
+    :class:`dfs_tpu_torch.index.IndexPlane` or None), as dfs_tpu's.
+
+    ``fault`` is the chaos seam (:mod:`dfs_tpu_torch.chaos`): when set,
+    every put and get calls ``fault(op, digest)`` first, on the calling
+    thread (the CAS workers), so injected ENOSPC / EIO / slow-disk faults
+    ride the real I/O paths. None (the default) costs one attribute
+    check."""
 
     def __init__(self, root: Path, fsync: bool = False) -> None:
         self.root = Path(root)
@@ -119,6 +125,7 @@ class ChunkStore:
         self._lock = threading.Lock()
         self._dirs: set[str] = set()
         self._tmp_seq = itertools.count()
+        self.fault = None                  # chaos hook: fault(op, digest)
         self.sim = None
         # the dedup/index seam: None keeps every path without the index
         self.index = None
@@ -278,6 +285,8 @@ class ChunkStore:
         With the similarity plane attached, an eligible new chunk may be
         stored as a delta instead; ``sketch`` carries its min-hash from
         the batched path (``put_batch``)."""
+        if self.fault is not None:
+            self.fault("put", digest)
         p = self._path_str(digest)
         if os.path.isfile(p):
             if self.index is not None and not self.index.lookup(digest):
@@ -444,6 +453,8 @@ class ChunkStore:
         self._drop_delta(digest)
 
     def get(self, digest: str) -> bytes | None:
+        if self.fault is not None:
+            self.fault("get", digest)
         try:
             with open(self._path_str(digest), "rb") as f:
                 return f.read()

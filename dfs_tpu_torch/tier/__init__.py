@@ -230,7 +230,7 @@ class TierPlane:
     ``self.tier = None`` otherwise — every seam is one None check).
     """
 
-    def __init__(self, cfg: TierConfig, root: Path) -> None:
+    def __init__(self, cfg: TierConfig, root: Path, obs=None) -> None:
         self.cfg = cfg
         self.root = root                   # <data_root>/tier
         self.ledger = TemperatureLedger.restore(
@@ -239,7 +239,7 @@ class TierPlane:
         # no queue — an overlapping scan request sheds instead of
         # piling up behind a slow one
         self.gate = AdmissionGate("tier", slots=1, queue_depth=0,
-                                  retry_after_s=1.0)
+                                  retry_after_s=1.0, obs=obs)
         # demotion byte budget (data read + parity written + deletes
         # all draw from it)
         self.credits = ByteRate(cfg.demote_credit_bytes)

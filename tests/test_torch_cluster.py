@@ -288,8 +288,11 @@ def test_http_ranges_and_error_probes(tmp_path):
                  None),
                 ("POST", "/upload?ec=2", {"Content-Length": "1"}, 400,
                  None, None),
-                ("GET", "/metrics?format=prom", None, 404, None, None),
+                ("GET", "/metrics?format=prom", None, 200, None, None),
+                ("GET", "/trace?traceId=nothex", None, 400, None, None),
+                ("GET", "/chaos", None, 404, None, None),
                 ("GET", "/census", None, 404, None, None),
+                ("GET", "/doctor", None, 404, None, None),
                 ("DELETE", "/files?fileId=" + "0" * 64, None, 404, None,
                  None),
             ]

@@ -225,6 +225,31 @@ def test_chain_and_walk_match_oracle_on_card(dev):
     assert [(c.offset, c.length, c.digest) for c in got] == want
 
 
+def test_device_trace_frames_the_kernels_on_card(dev, tmp_path):
+    """A fragmenter walk inside device_trace and an upload.fragment span:
+    the exported trace holds the launches of K1-K4 inside the range."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+    from dfs_tpu_torch.utils.trace import (device_trace, kernels_within,
+                                           span)
+
+    data = corpus(200000, seed=17)
+    f = AnchoredCudaFragmenter(SMALL, region_bytes=16384, cpu_cutoff=0,
+                               lane_multiple=8, device=dev)
+    f.chunk(data.tobytes())                   # built and warm
+    with device_trace(str(tmp_path)):
+        with span("upload.fragment"):
+            got = f.chunk(data.tobytes())
+    assert [(c.offset, c.length, c.digest) for c in got] \
+        == A.chunk_file_anchored_np(data, SMALL)
+    inside = kernels_within(
+        str(tmp_path / "trace.json"), "upload.fragment",
+        {k: kernels.DEVICE_FUNCS[k] for k in (
+            "strip_chunk_states", "repack_lanes", "bswap_transpose",
+            "select_walk")})
+    assert all(n > 0 for n in inside.values()), inside
+
+
 def test_node_roundtrip_on_card(dev, tmp_path):
     from dfs_tpu_torch.node import LocalNode
 

@@ -5,7 +5,9 @@ the same fileId and chunk digests and either kind serves the other's
 files; the frame encoder and the ring fingerprint are held equal
 directly. With four port nodes, erasure-coded files cross both ways. An
 expired wire deadline is dropped by either kind, and the serving tier's
-cache and single-flight count the same on one read sequence."""
+cache and single-flight count the same on one read sequence. A traced
+upload through either kind stitches one trace across both, and the
+frames a traced client sends are byte-identical up to the random ids."""
 
 import asyncio
 import hashlib
@@ -192,6 +194,13 @@ FRAMES = [
      [bytearray(b"ab"), memoryview(b"cde")]),
     ({"ok": False, "error": "unknown op 'x'", "n": None, "f": [1.0, -2]},
      b"\x00" * 1000),
+    ({"op": "get_trace", "traceId": "0123456789abcdef" * 2,
+      "trace": {"t": "0123456789abcdef" * 2, "s": "fedcba9876543210",
+                "f": 3}, "deadline": 2.5}, b""),
+    ({"ok": True, "spans": [{"t": "ab" * 16, "s": "cd" * 8, "p": None,
+                             "name": "peer.store_chunks", "node": 2,
+                             "t0": 1790000000.123456, "d": 0.25,
+                             "peer": 1, "bytes": 4096}]}, b""),
 ]
 
 
@@ -205,6 +214,106 @@ def test_frames_are_byte_identical(header, body):
     table, pb = wire.pack_chunks([("ab" * 32, b"xyz"), ("cd" * 32, b"")])
     assert (table, pb) == ref_wire.pack_chunks(
         [("ab" * 32, b"xyz"), ("cd" * 32, b"")])
+
+
+def test_traced_frames_are_byte_identical_up_to_the_ids():
+    """The header a client of each kind sends from inside a traced
+    request: the random trace and span ids masked, the frames are the
+    same bytes (the ``trace`` field's keys, order and sender id
+    included)."""
+    from dfs_tpu.config import ObsConfig as RefObsConfig
+    from dfs_tpu.obs import Observability as RefObs
+
+    from dfs_tpu_torch.config import ObsConfig
+    from dfs_tpu_torch.obs import Observability
+
+    frames = []
+    for o in (Observability(ObsConfig(), node_id=3),
+              RefObs(RefObsConfig(), node_id=3)):
+        with o.request_span("http./upload"):
+            with o.span("rpc.store_chunks", peer=2):
+                tr = o.wire_trace()
+        assert list(tr) == ["t", "s", "f"] and tr["f"] == 3
+        tr.update(t="T" * len(tr["t"]), s="S" * len(tr["s"]))
+        frames.append({"op": "store_chunks", "fileId": "",
+                       "chunks": [{"digest": "ab" * 32, "length": 3}],
+                       "repoch": 0, "rfp": "0123456789abcdef",
+                       "trace": tr, "deadline": 1.25})
+    assert frames[0] == frames[1]
+    head, bufs, _ = wire.encode_frame(frames[0], [b"xyz"])
+    rhead, rbufs, _ = ref_wire.encode_frame(frames[1], [b"xyz"])
+    assert head == rhead
+
+
+def test_mixed_cluster_trace_stitches_both_ways(tmp_path):
+    """One dfs_tpu node and two port nodes, rf 2: an upload traced at the
+    dfs_tpu node stitches, through its /trace, the port nodes' peer spans
+    under its rpc spans; an upload traced at a port node stitches the
+    dfs_tpu node's spans through the port's /trace, and each kind renders
+    the other's stitch the same."""
+    from dfs_tpu.obs import new_trace_id
+    from dfs_tpu.obs.stitch import render_tree as ref_render
+
+    from dfs_tpu_torch.obs.stitch import render_tree
+
+    ports = _free_ports(6)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(3)]
+    ref_cluster = RefCluster(peers=tuple(
+        RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+
+    async def http(fn, *args, **kw):
+        return await asyncio.to_thread(fn, *args, **kw)
+
+    def check(spans, coordinator):
+        ids = {s["s"] for s in spans}
+        assert [s["name"] for s in spans if s["p"] not in ids] \
+            == ["http./upload"]
+        assert {s["node"] for s in spans} == {1, 2, 3}
+        peers = [s for s in spans if s["name"] == "peer.store_chunks"]
+        assert {s["node"] for s in peers} == {1, 2, 3} - {coordinator}
+        for s in peers:
+            parent = next(x for x in spans if x["s"] == s["p"])
+            assert parent["name"] == "rpc.store_chunks"
+            assert parent["node"] == coordinator
+        assert render_tree(spans) == ref_render(spans)
+
+    async def go():
+        ref = RefServer(RefNodeConfig(
+            node_id=1, cluster=ref_cluster, data_root=tmp_path,
+            fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+            health_probe_s=0))
+        ports_ = [StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu"))
+            for i in (2, 3)]
+        nodes = [ref, *ports_]
+        for n in nodes:
+            await n.start()
+        try:
+            c_ref = RefClient(port=addrs[0][1], timeout_s=30)
+            c_port = NodeClient(port=addrs[1][1], timeout_s=30)
+            t1, t2 = new_trace_id(), new_trace_id()
+            await http(c_ref.upload, corpus(40_000, seed=21), "a.bin",
+                       trace_id=t1)
+            await http(c_port.upload, corpus(40_000, seed=22), "b.bin",
+                       trace_id=t2)
+            check((await http(c_ref.trace, t1))["spans"], 1)
+            check((await http(c_port.trace, t2))["spans"], 2)
+            # the other kind's /trace stitches the same spans
+            def by_id(doc):
+                return sorted(doc["spans"], key=lambda x: x["s"])
+
+            assert by_id(await http(c_port.trace, t1)) \
+                == by_id(await http(c_ref.trace, t1))
+        finally:
+            for n in nodes:
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
 
 
 @pytest.mark.parametrize("ids", [[1], [1, 2, 3], [1, 2, 3, 4, 5],

@@ -1,8 +1,9 @@
 """The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
 imports JAX or anything of dfs_tpu, a process that uses the port — the
 single-device and the sharded walk, and a node served over HTTP with the
-similarity plane, the serving tier, the index and tiering — never
-loads either, and without CUDA the entry points raise instead of running
+similarity plane, the serving tier, the index and tiering, chaos, a
+traced request stitched and journaled, and a device-trace capture —
+never loads either, and without CUDA the entry points raise instead of running
 on the CPU."""
 
 import ast
@@ -70,11 +71,16 @@ with tempfile.TemporaryDirectory() as d:
     from pathlib import Path
     import dfs_tpu_torch.api.http, dfs_tpu_torch.cli.main  # noqa: F401
     import dfs_tpu_torch.obs, dfs_tpu_torch.serve  # noqa: F401
+    import dfs_tpu_torch.chaos, dfs_tpu_torch.obs.journal  # noqa: F401
+    import dfs_tpu_torch.obs.prom, dfs_tpu_torch.obs.sentinel  # noqa: F401
+    import dfs_tpu_torch.obs.stitch  # noqa: F401
+    from dfs_tpu_torch.obs import new_trace_id
+    from dfs_tpu_torch.utils.trace import device_trace
     from dfs_tpu_torch.utils import deadline
     from dfs_tpu_torch.cli.client import NodeClient
-    from dfs_tpu_torch.config import (ClusterConfig, IndexConfig,
-                                      NodeConfig, ServeConfig, SimConfig,
-                                      TierConfig)
+    from dfs_tpu_torch.config import (ChaosConfig, ClusterConfig,
+                                      IndexConfig, NodeConfig, ServeConfig,
+                                      SimConfig, TierConfig)
     from dfs_tpu_torch.node.runtime import StorageNodeServer
     socks = [socket.socket() for _ in range(2)]
     for s in socks:
@@ -92,7 +98,8 @@ with tempfile.TemporaryDirectory() as d:
             sim=SimConfig(enabled=True, min_chunk_bytes=1024),
             serve=ServeConfig(cache_bytes=1 << 20, readahead_batches=2,
                               download_slots=2, hedge_budget_per_s=5.0),
-            index=IndexConfig(enabled=True), tier=TierConfig(enabled=True)))
+            index=IndexConfig(enabled=True), tier=TierConfig(enabled=True),
+            chaos=ChaosConfig(enabled=True, seed=13)))
         await srv.start()
         try:
             c = NodeClient(port=ports[0], timeout_s=30)
@@ -107,6 +114,16 @@ with tempfile.TemporaryDirectory() as d:
             assert deadline.parse_header("1.5") == 1.5
             assert srv.index_stats()["lsi"]["memtableEntries"] > 0
             assert (await srv.tier_scan_once())["skipped"]  # 1 node
+            tid = new_trace_id()
+            fid3 = (await asyncio.to_thread(c.upload, near[::-1], "r",
+                                            trace_id=tid))["fileId"]
+            spans = (await asyncio.to_thread(c.trace, tid))["spans"]
+            assert "upload.fragment" in {s["name"] for s in spans}
+            assert (await asyncio.to_thread(c.events))["events"]
+            assert "# EOF" in await asyncio.to_thread(c.metrics_prom)
+            srv.chaos.set(serve_delay_s=0.0)
+            with device_trace(str(Path(d) / "prof")):
+                assert await asyncio.to_thread(c.download, fid3)
         finally:
             await srv.stop()
 
