@@ -18,7 +18,7 @@ drives the paths end to end and checks each against the NumPy oracle:
   chunked blocks; the chunk table against the oracle, every chunk read
   back from both of its owners' stores, downloads from a node that did not
   coordinate (whole and a Range), a re-upload to another node that moves
-  0 B, two concurrent 64 MiB uploads to node 1 (both oracle-equal), and a
+  0 B, two concurrent 32 MiB uploads to node 1 (both oracle-equal), and a
   download after one owner is SIGKILLed (kernels 1-4, counted by node 1's
   ``/metrics``: its launches move across the streamed upload); and
   erasure coding as users run it: a 64 MiB body uploaded whole with
@@ -83,7 +83,10 @@ drives the paths end to end and checks each against the NumPy oracle:
   ``index`` and ``tier`` sections;
 - ``cluster_chaos``: the fault-injection and tracing planes as users run
   them: 5 ``serve --chaos --chaos-seed 13`` processes (rf 2, write quorum
-  2, fsync on; tracing, journal and sentinel at their defaults). (a) The
+  2, fsync on; tracing, journal and sentinel at their defaults), step (d)
+  first (as ``bench_chaos.py`` runs its slow_peer scenario first: the
+  doctor reads 60 s windows of RPC means, which the other steps' bulk
+  transfers would fill). (a) The
   64 MiB EC body streamed to node 1 with ``X-Dfs-Trace`` (table against
   the oracle, kernels 1-4 in node 1), ``GET /trace`` on node 3 stitching
   spans of at least 2 nodes with ``http./upload``, ``upload.fragment``,
@@ -91,19 +94,44 @@ drives the paths end to end and checks each against the NumPy oracle:
   the client's; ``upload.fragment``'s seconds beside ``chain_stages``'
   whole-chain time for the same windows; (b) ``POST /chaos {"partition":
   "2"}`` on node 1, ten 1 MiB uploads ack by handoff, node 1's ``/events``
-  holds trace-stamped ``chaos_inject`` events, healed and repaired, node 3
+  holds trace-stamped ``chaos_inject`` events, node 1's ``/doctor`` sees
+  node 2 cut (``dead_peer`` or a peer failed), healed and repaired, node 3
   reads them back identical; (c) ``{"disk_full": true}`` on node 2: an
   upload there answers 507 and journals ``disk_pressure``, node 2 still
   serves (a), an upload at node 1 acks; (d) ``serve_delay_s`` 0.5 on node
   3 and ``rpc_truncate_rate`` 0.05 on node 1: uploads ack, read back from
-  node 5, node 1's RPC table names node 3 its slowest peer; (e) node 4
-  restarted armed at each of the four upload-path crash points: each
-  upload dies by SIGKILL without an ack; a clean restart reads every acked
-  file back identical, journals ``boot_sweep``, and no manifest on node 4
-  names a chunk held by fewer than 2 nodes; (f) in this process, one
+  node 5, node 1's ``/doctor`` names node 3 in a ``slow_peer`` finding
+  (asked up to 3 times late in the fault) and its RPC table names node 3
+  its slowest peer; (e) node 4 restarted armed at each of the four
+  upload-path crash points: each upload dies by SIGKILL without an ack; a
+  clean restart reads every acked file back identical, journals
+  ``boot_sweep``, and no manifest on node 4 names a chunk held by fewer
+  than 2 nodes. After (b), (c) and (e) the census at node 1 is clean
+  (under- and over-replicated 0, every peer answering; no orphan after (b)
+  and (c)), repair rounds on every node until it is; (f) in this process, one
   ``AnchoredCudaFragmenter.chunk`` of the 64 MiB body inside
   ``device_trace`` and an ``upload.fragment`` span: the exported trace
   holds kernels 1-4's launches inside that range (path ``device_trace``);
+- ``cluster_ring``: the elastic ring as users run it (dfs_tpu's
+  ``bench_chaos.py`` add_remove_node scenario with ``bench_rebalance.py``'s
+  gates): 4 ``serve`` processes (rf 2, write quorum 2, fsync on,
+  ``--ring-vnodes 64 --ring-members 1,2,3
+  --ring-rebalance-credit-bytes 2097152``, repair every 2 s), node 4 a
+  standby. (a) A 64 MiB body (seed 20261018) to node 1 (table against the
+  oracle, kernels 1-4 in node 1); (b) open-loop load of 48,000 B uploads at
+  4/s on nodes 1-3 (4 s of warm-up first), ``POST /ring {"action": "add",
+  "nodeId": 4}`` without a weight (the derived weight in [0.25, 4]), node 4
+  SIGKILLed 0.25 s after the answer, the body read from node 2 with the window open (identical), one
+  traced upload through the fault; (c) node 4 restarted: it resumes epoch
+  1 from ``ring.json``, every node reaches it with one fingerprint and
+  closes its window within 90 s; (d) ``drain`` node 4 under the load:
+  moved bytes <= 1.5 x the theoretical minimum + 2 x the bytes uploaded
+  meanwhile, and each node's rate <= the credit x 1.35 (or under one
+  credit-second moved); (e) the census clean (orphans reported), node 4
+  empty, every acked file and the body identical from nodes 1-3, the
+  traced upload stitched at node 1, no ``epoch_mismatch`` or
+  ``rebalance_stuck`` from the doctor; every node's ``ring.rebalance``
+  printed; the phase within 180 s;
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -128,6 +156,7 @@ of JAX or of the dfs_tpu package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import hashlib
 import http.client
@@ -154,7 +183,9 @@ EC_K = 3
 BLOCK_BYTES = 1024 * 1024
 REGION_BYTES = 64 * 1024 * 1024
 CLUSTER_NODES = 5
-CONCURRENT_BYTES = 64 * 1024 * 1024
+# cluster's two concurrent uploads: 32 MiB each (one window apiece, as 64
+# MiB was), cut from 64 MiB so the run keeps a margin under its limit
+CONCURRENT_BYTES = 32 * 1024 * 1024
 # cluster_sim's generation 2: one 4-byte overwrite every 64 KiB
 SIM_EDIT_AT = 12_345
 SIM_EDIT_STRIDE = 64 * 1024
@@ -181,6 +212,21 @@ CHAOS_SMALL_BYTES = 1024 * 1024
 CHAOS_PARTITION_UPLOADS = 10
 CHAOS_SLOW_UPLOADS = 5
 CHAOS_PHASE_BOUND_S = 240.0
+# cluster_ring: bench_chaos.py's add_remove_node scenario on its own
+# 4-process cluster (ring members 1-3 at 64 vnodes, node 4 a standby) with
+# bench_rebalance.py's full-mode credit and gates, its seed body and
+# bench_chaos.py --tiny's open-loop load (48,000 B at 4/s on nodes 1-3)
+RING_NODES = 4
+RING_SEED = 20261018
+RING_BYTES = 64 * 1024 * 1024
+RING_CREDIT = 2 * 1024 * 1024
+RING_FLAGS = ("--ring-vnodes", "64", "--ring-members", "1,2,3",
+              "--ring-rebalance-credit-bytes", str(RING_CREDIT),
+              "--repair-interval", "2")
+RING_PAYLOAD, RING_RATE, RING_WARM_S = 48_000, 4.0, 4.0
+RING_KILL_DELAY_S = 0.25
+RING_CONVERGE_S = 90.0
+RING_PHASE_BOUND_S = 180.0
 # the tracing-off twin of the cluster phase's upload
 OBS_OFF_FLAGS = ("--trace-ring", "0", "--journal-bytes", "0",
                  "--sentinel-interval", "0")
@@ -516,8 +562,10 @@ def ec_codec_phase(body: bytes, table: list, dev, np) -> list:
 @contextlib.contextmanager
 def serve_cluster(root: Path, prefix: str, extra: tuple = (),
                   per_node: dict | None = None,
-                  data_root: Path | None = None):
-    """``CLUSTER_NODES`` ``python -m dfs_tpu_torch.cli.main serve``
+                  data_root: Path | None = None,
+                  nodes: int = CLUSTER_NODES):
+    """``nodes`` (default ``CLUSTER_NODES``) ``python -m
+    dfs_tpu_torch.cli.main serve``
     processes on fresh ports and a fresh data root under ``root`` (or
     ``data_root``, to restart on the same disk; rf 2, write quorum 2,
     fsync on, no repair loop, plus ``extra`` flags and a node's
@@ -527,8 +575,8 @@ def serve_cluster(root: Path, prefix: str, extra: tuple = (),
     flags, on the same disk, and returns the seconds until every one
     answers ``/status``); on failure the nodes' log tails go to
     stderr; every process is killed on the way out."""
-    ids = list(range(1, CLUSTER_NODES + 1))
-    ports = _free_ports(2 * CLUSTER_NODES)
+    ids = list(range(1, nodes + 1))
+    ports = _free_ports(2 * nodes)
     http_port = {i: ports[2 * (i - 1)] for i in ids}
     procs: dict[int, subprocess.Popen] = {}
     logs = []
@@ -1559,6 +1607,65 @@ def _rpc_by_peer(m: dict) -> dict:
     return out
 
 
+def _get_json(port: int, path: str, timeout: float = 120.0) -> dict:
+    st, _, out = _http(port, "GET", path, timeout=timeout)
+    check(st == 200, f"GET {path} on :{port} answered {st}: {out[:200]}")
+    return json.loads(out)
+
+
+def _census_gate(rep: dict, require_no_orphans: bool) -> dict:
+    """bench_chaos.py's census gate: under- and over-replicated 0, every
+    peer answering, and (unless uploads were aborted) no orphan."""
+    out = {"under_replicated": rep.get("underReplicatedTotal", -1),
+           "over_replicated": rep.get("overReplicatedTotal", -1),
+           "orphaned": rep.get("orphanedTotal", -1),
+           "in_flight": rep.get("inFlightTotal", -1),
+           "peers_failed": rep.get("peersFailed", -1),
+           # diverging buckets past the drill cap: their copies count as
+           # unknown, as in dfs_tpu (reported, not gated)
+           "unchecked_buckets": rep.get("uncheckedBuckets", -1)}
+    out["census_clean"] = (out["under_replicated"] == 0
+                          and out["over_replicated"] == 0
+                          and out["peers_failed"] == 0
+                          and (not require_no_orphans
+                               or out["orphaned"] == 0))
+    return out
+
+
+def _census_clean(port: dict, coord: int, what: str,
+                  require_no_orphans: bool, timeout: float = 90.0) -> dict:
+    """Repair rounds on every node (all at once) until ``GET /census`` at
+    ``coord`` passes the gate; fails the run past ``timeout``. Returns the
+    gate's numbers with the rounds and seconds it took."""
+    t0 = time.perf_counter()
+    rounds = 0
+    while True:
+        rep = _get_json(port[coord], "/census")
+        gate = _census_gate(rep, require_no_orphans)
+        if gate["census_clean"]:
+            break
+        check(time.perf_counter() - t0 < timeout,
+              f"census at node {coord} not clean {what}: {gate}")
+        # every node's repair at once (a stray waits for its holders'
+        # confirmations, so a round may take two passes)
+        with concurrent.futures.ThreadPoolExecutor(len(port)) as pool:
+            sts = list(pool.map(lambda i: _http(port[i], "POST", "/repair",
+                                                body=b"", timeout=600)[0],
+                                sorted(port)))
+        check(all(st == 200 for st in sts), f"/repair answered {sts}")
+        rounds += 1
+    return {**gate, "repair_rounds": rounds,
+            "seconds": time.perf_counter() - t0,
+            "digests": rep.get("digests"),
+            "histogram": rep.get("replicationHistogram")}
+
+
+def _doctor_rules(port: int) -> tuple[dict, list]:
+    doc = _get_json(port, "/doctor")
+    return doc, [(f["rule"], f.get("peers") or [])
+                 for f in doc.get("findings", [])]
+
+
 def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
                         chain_ms: float) -> dict:
     """The ``cluster_chaos`` phase (module docstring), steps (a)-(e) on 5
@@ -1587,6 +1694,56 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
                        per_node=per_node) as c:
         d, port, procs = c.dir, c.port, c.procs
         out["start_s"] = c.start_s
+
+        # (d), run first: node 3 slow, node 1's frames torn at 5%: uploads
+        # ack, nothing acked is lost, node 1's table and doctor name node 3
+        # slowest. First, as bench_chaos.py runs its slow_peer scenario
+        # first: the doctor's slow_peer rule reads 60 s windows of every
+        # node's RPC means, and the bulk transfers of the other steps
+        # would sit in them
+        t0 = time.perf_counter()
+        _chaos(port[3], {"serve_delay_s": 0.5})
+        _chaos(port[1], {"rpc_truncate_rate": 0.05})
+        r0 = _rpc_by_peer(_metrics(port[1]))
+        slow = []
+        for k in range(CHAOS_SLOW_UPLOADS):
+            b = small()
+            inf = _upload(port[1], b, f"slow{k}.bin")
+            acked[inf["fileId"]] = b
+            slow.append(inf["fileId"])
+        # the doctor's verdict late in the fault window, polled up to 3
+        # times as bench_chaos.py's scenario_slow_peer polls it: the
+        # windowed per-peer means need enough slow calls to dominate
+        slow_named, slow_polls = False, 0
+        for _ in range(3):
+            slow_polls += 1
+            _, rules = _doctor_rules(port[1])
+            slow_named = any(r == "slow_peer" and 3 in peers
+                             for r, peers in rules)
+            if slow_named:
+                break
+            time.sleep(2.0)
+        check(slow_named, f"node 1's doctor names no slow node 3: {rules}")
+        m = _metrics(port[1])
+        r1 = _rpc_by_peer(m)
+        means = {p: (r1[p][1] - r0.get(p, [0, 0.0])[1])
+                 / (r1[p][0] - r0.get(p, [0, 0.0])[0])
+                 for p in r1 if r1[p][0] > r0.get(p, [0, 0.0])[0]}
+        torn = m["chaos"]["injected"].get("rpc_truncate", 0)
+        _chaos(port[1], {"rpc_truncate_rate": 0.0})
+        _chaos(port[3], {"serve_delay_s": 0.0})
+        for f in slow:
+            st, _, got = _http(port[5], "GET", f"/download?fileId={f}")
+            check(st == 200 and got == acked[f],
+                  f"slow-peer upload {f[:12]} not identical on node 5")
+        check(max(means, key=means.get) == "3",
+              f"node 1's slowest peer is not node 3: {means}")
+        times["d_s"] = time.perf_counter() - t0
+        out["d"] = {"uploads": len(slow), "torn_frames": torn,
+                    "mean_rpc_s_by_peer": means, "seconds": times["d_s"],
+                    "doctor_named_slow_peer": slow_named,
+                    "doctor_polls": slow_polls, "doctor_rules": rules}
+        emit({"phase": "cluster_chaos:d", **out["d"]})
 
         # (a) the EC body streamed to node 1 under X-Dfs-Trace, stitched
         # at node 3
@@ -1660,6 +1817,11 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
         check(len(traced) >= CHAOS_PARTITION_UPLOADS,
               f"node 1 journaled partition faults of {len(traced)} traces "
               f"for {CHAOS_PARTITION_UPLOADS} uploads")
+        # node 1's doctor while the link is cut: node 2 does not answer
+        doc, rules = _doctor_rules(port[1])
+        saw_dead = any(r == "dead_peer" and 2 in peers
+                       for r, peers in rules) or doc["peersFailed"] >= 1
+        check(saw_dead, f"node 1's doctor does not see node 2 cut: {rules}")
         _chaos(port[1], {"partition": ""})
         st, _, rep = _http(port[1], "POST", "/repair", body=b"",
                            timeout=600)
@@ -1668,11 +1830,16 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
             st, _, got = _http(port[3], "GET", f"/download?fileId={f}")
             check(st == 200 and got == acked[f],
                   f"partitioned upload {f[:12]} not identical on node 3")
+        census_b = _census_clean(port, 1, "after the partition heals",
+                                 require_no_orphans=True)
         times["b_s"] = time.perf_counter() - t0
         out["b"] = {"uploads": len(part), "partition_faults": len(cut),
                     "traced_faults": sum(1 for e in cut if e.get("trace")),
                     "fault_traces": len(traced),
-                    "repair": json.loads(rep), "seconds": times["b_s"]}
+                    "repair": json.loads(rep), "seconds": times["b_s"],
+                    "doctor_saw_dead_link": saw_dead,
+                    "doctor_peers_failed": doc["peersFailed"],
+                    "doctor_rules": rules, "census": census_b}
         emit({"phase": "cluster_chaos:b", **out["b"]})
 
         # (c) node 2's disk full: 507 and disk_pressure there, reads of
@@ -1683,8 +1850,13 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
                                 body=small())
         check(full_st == 507, f"upload to a full node answered {full_st}: "
               f"{msg[:200]}")
-        check(any(e["type"] == "disk_pressure" for e in _events(port[2])),
-              "node 2 journaled no disk_pressure")
+        # the journal's writer thread lands the event a moment later
+        t1 = time.perf_counter()
+        while not any(e["type"] == "disk_pressure"
+                      for e in _events(port[2])):
+            check(time.perf_counter() - t1 < 10.0,
+                  "node 2 journaled no disk_pressure")
+            time.sleep(0.25)
         t1 = time.perf_counter()
         st, _, got = _http(port[2], "GET", f"/download?fileId={fid}")
         read_s = time.perf_counter() - t1
@@ -1695,42 +1867,13 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
         inf = _upload(port[1], b, "beside-full.bin")
         acked[inf["fileId"]] = b
         _chaos(port[2], {"disk_full": False})
+        census_c = _census_clean(port, 1, "after the disk frees",
+                                 require_no_orphans=True)
         times["c_s"] = time.perf_counter() - t0
         out["c"] = {"status": full_st, "full_node_read_s": read_s,
                     "node1_upload_min_copies": inf["minCopies"],
-                    "seconds": times["c_s"]}
+                    "seconds": times["c_s"], "census": census_c}
         emit({"phase": "cluster_chaos:c", **out["c"]})
-
-        # (d) node 3 slow, node 1's frames torn at 5%: uploads ack,
-        # nothing acked is lost, node 1's table names node 3 slowest
-        t0 = time.perf_counter()
-        _chaos(port[3], {"serve_delay_s": 0.5})
-        _chaos(port[1], {"rpc_truncate_rate": 0.05})
-        r0 = _rpc_by_peer(_metrics(port[1]))
-        slow = []
-        for k in range(CHAOS_SLOW_UPLOADS):
-            b = small()
-            inf = _upload(port[1], b, f"slow{k}.bin")
-            acked[inf["fileId"]] = b
-            slow.append(inf["fileId"])
-        m = _metrics(port[1])
-        r1 = _rpc_by_peer(m)
-        means = {p: (r1[p][1] - r0.get(p, [0, 0.0])[1])
-                 / (r1[p][0] - r0.get(p, [0, 0.0])[0])
-                 for p in r1 if r1[p][0] > r0.get(p, [0, 0.0])[0]}
-        torn = m["chaos"]["injected"].get("rpc_truncate", 0)
-        _chaos(port[1], {"rpc_truncate_rate": 0.0})
-        _chaos(port[3], {"serve_delay_s": 0.0})
-        for f in slow:
-            st, _, got = _http(port[5], "GET", f"/download?fileId={f}")
-            check(st == 200 and got == acked[f],
-                  f"slow-peer upload {f[:12]} not identical on node 5")
-        check(max(means, key=means.get) == "3",
-              f"node 1's slowest peer is not node 3: {means}")
-        times["d_s"] = time.perf_counter() - t0
-        out["d"] = {"uploads": len(slow), "torn_frames": torn,
-                    "mean_rpc_s_by_peer": means, "seconds": times["d_s"]}
-        emit({"phase": "cluster_chaos:d", **out["d"]})
 
         # (e) node 4 restarted armed at each upload-path crash point:
         # each upload dies with its process, by SIGKILL, unacked
@@ -1778,7 +1921,11 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
             thin = [x for x in man.all_digests() if held.get(x, 0) < 2]
             check(not thin, f"manifest {man.file_id[:12]} on node 4 names "
                   f"{len(thin)} chunk(s) held by fewer than 2 nodes")
-        out["e"] = {"crashes": crashes, "clean_restart_s": restart_s,
+        # crash-aborted uploads may leave orphans: reported, not gated
+        census_e = _census_clean(port, 1, "after the crash restarts",
+                                 require_no_orphans=False)
+        out["e"] = {"census": census_e,
+                    "crashes": crashes, "clean_restart_s": restart_s,
                     "acked_files": len(acked),
                     "read_back_s": read_back_s,
                     "boot_sweep": {k: sweep[-1].get(k)
@@ -1790,6 +1937,363 @@ def cluster_chaos_phase(root: Path, body: bytes, table: list, np,
     out["within_bound"] = out["seconds"] <= CHAOS_PHASE_BOUND_S
     out["launches"] = launches
     out["zero_acked_loss"] = True
+    emit({k: v for k, v in out.items()
+          if k not in ("a", "b", "c", "d", "e")})
+    return launches
+
+
+class _OpenLoopLoad:
+    """bench_chaos.py's open-loop upload load: one ``RING_PAYLOAD``-byte
+    body every 1/``RING_RATE`` s round-robin on ``nodes``, issued on
+    schedule whatever the answers (a pool of senders); every 201 is
+    checked (fileId == sha256) and kept as acked."""
+
+    def __init__(self, port: dict, nodes: list, np) -> None:
+        self.port, self.nodes, self.np = port, nodes, np
+        self.rng = np.random.default_rng(RING_SEED + 1)
+        self.acked: dict[str, bytes] = {}
+        self.failed: dict = {}
+        self.sent = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self._senders: list[threading.Thread] = []
+
+    def _one(self, k: int, body: bytes) -> None:
+        nid = self.nodes[k % len(self.nodes)]
+        try:
+            st, _, out = _http(self.port[nid], "POST",
+                               f"/upload?name=load{k}.bin", body=body,
+                               timeout=120)
+        except OSError as e:
+            st, out = type(e).__name__, b""
+        with self._lock:
+            if st == 201:
+                fid = json.loads(out)["fileId"]
+                self.acked[fid] = body
+                if fid != hashlib.sha256(body).hexdigest():
+                    self.failed["ack_hash_mismatch"] = \
+                        self.failed.get("ack_hash_mismatch", 0) + 1
+            else:
+                self.failed[str(st)] = self.failed.get(str(st), 0) + 1
+
+    def _run(self) -> None:
+        t0 = time.perf_counter()
+        k = 0
+        while not self._stop.is_set():
+            wait = t0 + k / RING_RATE - time.perf_counter()
+            if wait > 0 and self._stop.wait(wait):
+                break
+            body = self.rng.integers(0, 256, size=RING_PAYLOAD,
+                                     dtype=self.np.uint8).tobytes()
+            t = threading.Thread(target=self._one, args=(k, body),
+                                 daemon=True)
+            t.start()
+            self._senders.append(t)
+            k += 1
+        self.sent = k
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        for t in self._senders:
+            t.join(timeout=180)
+        with self._lock:
+            return {"sent": self.sent, "acked": len(self.acked),
+                    "failed": dict(self.failed)}
+
+
+def _catalog(port: int) -> dict:
+    """digest -> length over every manifest the node holds."""
+    out: dict = {}
+    for f in _get_json(port, "/files"):
+        st, _, doc = _http(port, "GET", f"/manifest?fileId={f['fileId']}",
+                           timeout=120)
+        if st == 200:
+            for c in json.loads(doc)["chunks"]:
+                out.setdefault(c["digest"], c["length"])
+    return out
+
+
+def _ring_view(port: int):
+    from dfs_tpu_torch.ring import RingMap
+
+    st = _get_json(port, "/ring?cluster=0")
+    return RingMap.from_dict({"epoch": st["epoch"], "vnodes": st["vnodes"],
+                              "members": st["members"]}), st
+
+
+def _rebalance(port: dict) -> dict:
+    return {i: _metrics(port[i])["ring"]["rebalance"] for i in port}
+
+
+def _wait_ring(port: dict, epoch: int, settled: bool) -> float:
+    """Seconds until every node holds ``epoch`` with one fingerprint (and,
+    with ``settled``, has closed its migration window); fails past
+    ``RING_CONVERGE_S``."""
+    t0 = time.perf_counter()
+    while True:
+        views = {}
+        for i in port:
+            try:
+                views[i] = _ring_view(port[i])
+            except (OSError, SystemExit):
+                views[i] = None      # not answering yet: asked again
+        fps = {v[0].fingerprint for v in views.values() if v is not None}
+        ok = (all(v is not None and v[0].epoch == epoch
+                  for v in views.values()) and len(fps) == 1
+              and (not settled
+                   or not any(v[1]["migrating"] for v in views.values())))
+        if ok:
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < RING_CONVERGE_S,
+              f"ring did not converge on epoch {epoch}: " + str(
+                  {i: None if v is None else (v[0].epoch, v[0].fingerprint,
+                                              v[1]["migrating"])
+                   for i, v in views.items()}))
+        time.sleep(0.5)
+
+
+def _min_movement(catalog: dict, old, new, rf: int = 2) -> int:
+    """bench_rebalance.py's theoretical minimum: every byte of every copy
+    at a new owner that was not at an old one."""
+    return sum(ln * len(set(new.owners(d, rf)) - set(old.owners(d, rf)))
+               for d, ln in catalog.items())
+
+
+def cluster_ring_phase(root: Path, np, params) -> dict:
+    """The ``cluster_ring`` phase (module docstring): steps (a)-(e) on 4
+    ``serve`` processes, ring members 1-3 and node 4 a standby. Returns
+    node 1's kernel launches across the seed upload of step (a)."""
+    from dfs_tpu_torch.ops import cdc_anchored as A
+
+    body_np = np.random.default_rng(RING_SEED).integers(
+        0, 256, size=RING_BYTES, dtype=np.uint8)
+    table = A.chunk_file_anchored_np(body_np, params)
+    body = body_np.tobytes()
+    del body_np
+    fid = hashlib.sha256(body).hexdigest()
+    blocks = [body[i:i + BLOCK_BYTES] for i in range(0, len(body),
+                                                      BLOCK_BYTES)]
+    out: dict = {"phase": "cluster_ring", "nodes": RING_NODES,
+                 "flags": list(RING_FLAGS), "bytes": RING_BYTES}
+    t_phase = time.perf_counter()
+    with serve_cluster(root, ".chip_smoke_ring_", RING_FLAGS,
+                       nodes=RING_NODES) as c:
+        port, procs = c.port, c.procs
+        out["start_s"] = c.start_s
+
+        # (a) seed: the 64 MiB body to node 1, chunked on the card
+        m0 = _metrics(port[1])["frag"]["launches"]
+        t0 = time.perf_counter()
+        info = _upload(port[1], iter(blocks), "ring-seed.bin", chunked=True)
+        seed_s = time.perf_counter() - t0
+        m1 = _metrics(port[1])["frag"]["launches"]
+        launches = {k: m1[k] - m0[k] for k in m0}
+        for k in ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+                  "select_walk"):
+            check(launches[k] > 0, f"kernel {k} never launched in node 1 "
+                  "during the ring seed upload")
+        check(info["fileId"] == fid, "ring seed fileId != sha256")
+        doc = _get_json(port[1], f"/manifest?fileId={fid}")
+        check([(x["offset"], x["length"], x["digest"])
+               for x in doc["chunks"]] == table,
+              "ring seed chunk table != numpy oracle")
+        ring0, _ = _ring_view(port[1])
+        check(ring0.active_ids() == [1, 2, 3] and ring0.vnodes == 64,
+              f"epoch 0 ring {ring0.to_dict()}")
+        to_move = _min_movement(_catalog(port[1]), ring0,
+                                ring0.hashed({1: 1.0, 2: 1.0, 3: 1.0,
+                                              4: 1.0}, 1, 64))
+        out["a"] = {"upload_s": seed_s, "oracle_equal": True,
+                    "launches": launches, "chunks": len(table),
+                    "bytes_to_move_on_add": to_move}
+        emit({"phase": "cluster_ring:a", **out["a"]})
+
+        # (b) node 4 added under load without a weight, SIGKILLed 0.25 s
+        # later; the body read from node 2 while the window is open; one
+        # traced upload through the fault
+        load = _OpenLoopLoad(port, [1, 2, 3], np)
+        load.start()
+        # bench_chaos.py warms the cluster with the load before the add:
+        # every node has chunked on its card before the membership moves
+        time.sleep(RING_WARM_S)
+        t_add = time.perf_counter()
+        st, _, add = _http(port[1], "POST", "/ring", body=json.dumps(
+            {"action": "add", "nodeId": 4}).encode(), timeout=120)
+        add_post_s = time.perf_counter() - t_add
+        check(st == 200, f"POST /ring add answered {st}: {add[:200]}")
+        add = json.loads(add)
+        weight = {m["nodeId"]: m["weight"]
+                  for m in add["ring"]["members"]}[4]
+        check(0.25 <= weight <= 4.0 and add["epoch"] == 1,
+              f"ring add: epoch {add['epoch']}, derived weight {weight}")
+        # as bench_chaos.py: the kill comes 0.25 s after the add answers
+        time.sleep(RING_KILL_DELAY_S)
+        procs[4].send_signal(signal.SIGKILL)
+        kill_after_add_s = time.perf_counter() - t_add
+        rc4 = procs[4].wait(timeout=60)
+        check(rc4 == -signal.SIGKILL, f"node 4 exit {rc4}")
+        moved_at_kill = _metrics(port[1])["ring"]["rebalance"]
+        peer_admin = {}
+        for i in (2, 3):
+            lat = _metrics(port[i])["latency"]
+            peer_admin[i] = {k: lat.get(k) for k in (
+                "peer.get_census", "peer.propose_ring", "peer.has_chunks",
+                "peer.store_chunks")}
+        views = {i: _ring_view(port[i])[1] for i in (1, 2, 3)}
+        check(all(v["epoch"] == 1 and v["migrating"]
+                  for v in views.values()),
+              f"the window is not open on nodes 1-3: {views}")
+        t0 = time.perf_counter()
+        st, _, got = _http(port[2], "GET", f"/download?fileId={fid}")
+        window_read_s = time.perf_counter() - t0
+        check(st == 200 and got == body,
+              "the body read from node 2 mid-window is not identical")
+        del got
+        check(_ring_view(port[2])[1]["migrating"],
+              "the window closed before the mid-window read ended")
+        tid, _, hdr = _trace_header()
+        traced_body = hashlib.sha256(tid.encode()).digest() * 1500
+        traced = _upload(port[1], traced_body, "ring-traced.bin",
+                         headers=hdr)
+        # stitched at once: hundreds of uploads later its spans are gone
+        # from the rings
+        spans = _get_json(port[1], f"/trace?traceId={tid}")["spans"]
+        span_nodes = {x["node"] for x in spans}
+        check(len(span_nodes) >= 2 and "http./upload"
+              in {x["name"] for x in spans},
+              f"the traced upload stitched nodes {span_nodes}")
+        m1 = _metrics(port[1])
+        admin_rpc = {k: v for k, v in m1["rpcClient"].items()
+                     if k.endswith((":get_census", ":propose_ring"))}
+        dual = {i: r["dualReadHits"] for i, r in _rebalance(
+            {i: port[i] for i in (1, 2, 3)}).items()}
+        out["b"] = {"derived_weight": weight, "epoch": add["epoch"],
+                    "pushed": add["pushed"], "add_post_s": add_post_s,
+                    "http_ring_latency": m1["latency"].get("http./ring"),
+                    "admin_rpc": admin_rpc, "peer_latency": peer_admin,
+                    "trace_nodes": sorted(span_nodes),
+                    "trace_spans": len(spans), "kill_rc": rc4,
+                    "kill_after_add_s": kill_after_add_s,
+                    "window_read_s": window_read_s,
+                    "window_read_identical": True,
+                    "dual_read_hits": dual,
+                    "node1_bytes_moved_at_kill":
+                        moved_at_kill["bytesMoved"],
+                    "traced_upload_copies": traced["minCopies"]}
+        emit({"phase": "cluster_ring:b", **out["b"]})
+
+        # (c) node 4 restarted: it resumes the epoch and the open window
+        # from ring.json, and the cluster converges on the add's epoch
+        restart_s = c.restart(4)
+        resumed, _ = _ring_view(port[4])
+        check(resumed.epoch == 1, f"node 4 resumed epoch {resumed.epoch}")
+        epoch_s = _wait_ring(port, 1, settled=False)
+        settle_s = _wait_ring(port, 1, settled=True)
+        out["c"] = {"restart_s": restart_s, "resumed_epoch": resumed.epoch,
+                    "one_fingerprint_s": epoch_s,
+                    "migration_done_s": epoch_s + settle_s,
+                    "add_to_done_s": time.perf_counter() - t_add}
+        emit({"phase": "cluster_ring:c", **out["c"]})
+
+        # (d) drain node 4 under the same load; bench_rebalance.py's gates
+        # on the drain's movement and per-node rate
+        pre_cat = _catalog(port[1])
+        ring1, _ = _ring_view(port[1])
+        pre = _rebalance(port)
+        walks0 = {i: _metrics(port[i]).get("repairs", 0) for i in port}
+        t0 = time.perf_counter()
+        st, _, drain = _http(port[1], "POST", "/ring", body=json.dumps(
+            {"action": "drain", "nodeId": 4}).encode(), timeout=120)
+        check(st == 200, f"POST /ring drain answered {st}: {drain[:200]}")
+        drain = json.loads(drain)
+        _wait_ring(port, 2, settled=True)
+        drain_s = time.perf_counter() - t0
+        loaded = load.stop()
+        post = _rebalance(port)
+        walks = {i: _metrics(port[i]).get("repairs", 0) - walks0[i]
+                 for i in port}
+        post_cat = _catalog(port[1])
+        ring2, _ = _ring_view(port[1])
+        per_node = {i: {k: post[i][k] - pre[i][k]
+                        for k in ("bytesMoved", "pushes", "creditStallS",
+                                  "dualReadHits")} for i in port}
+        moved = sum(v["bytesMoved"] for v in per_node.values())
+        min_bytes = _min_movement(pre_cat, ring1, ring2)
+        new_bytes = sum(ln for d, ln in post_cat.items()
+                        if d not in pre_cat)
+        bound = 1.5 * min_bytes + 2 * new_bytes
+        rates = {i: v["bytesMoved"] / max(drain_s, 1e-6)
+                 for i, v in per_node.items()}
+        bw_ok = {i: per_node[i]["bytesMoved"] <= RING_CREDIT
+                 or rates[i] <= RING_CREDIT * 1.35 for i in port}
+        check(min_bytes > 0 and moved <= bound,
+              f"drain moved {moved} B > 1.5 x {min_bytes} + 2 x "
+              f"{new_bytes}")
+        check(all(bw_ok.values()),
+              f"drain rate above the credit x 1.35: {rates}")
+        out["d"] = {"epoch": drain["epoch"], "seconds": drain_s,
+                    "moved_bytes": moved, "min_bytes": min_bytes,
+                    "concurrent_new_bytes": new_bytes,
+                    "moved_bound": bound, "moved_within_bound": True,
+                    "rate_bytes_s": rates, "credit": RING_CREDIT,
+                    "bandwidth_ok": True, "per_node": per_node,
+                    "repair_walks": walks,
+                    "load": loaded}
+        emit({"phase": "cluster_ring:d", **out["d"]})
+
+        # (e) the census clean, node 4 empty, everything acked identical
+        # from nodes 1-3, the traced upload stitched, the doctor quiet on
+        # the ring
+        check(loaded["failed"].get("ack_hash_mismatch", 0) == 0,
+              "an upload acked with a fileId != sha256")
+        census = _census_clean(port, 1, "after the drain",
+                               require_no_orphans=False)
+        rep = _get_json(port[1], "/census")
+        cas4 = rep["capacity"]["nodes"]["4"]["casChunks"]
+        check(cas4 == 0, f"node 4 still holds {cas4} chunk(s)")
+        acked = dict(load.acked)
+        acked[fid] = body
+        acked[traced["fileId"]] = traced_body
+        t0 = time.perf_counter()
+
+        def read_back(item) -> str | None:
+            f, b, i = item
+            st, _, got = _http(port[i], "GET", f"/download?fileId={f}")
+            return None if st == 200 and got == b else \
+                f"acked {f[:12]} not identical on node {i} ({st})"
+
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            bad = [e for e in pool.map(read_back, [
+                (f, b, i) for f, b in acked.items() for i in (1, 2, 3)])
+                if e is not None]
+        check(not bad, f"{len(bad)} read(s) not identical: {bad[:3]}")
+        read_s = time.perf_counter() - t0
+        doc, rules = _doctor_rules(port[1])
+        bad = [r for r in rules if r[0] in ("epoch_mismatch",
+                                            "rebalance_stuck")]
+        check(not bad, f"the doctor names {bad}")
+        final = _rebalance(port)
+        out["e"] = {"census": census, "node4_cas_chunks": cas4,
+                    "acked_files": len(acked), "read_back_s": read_s,
+                    "zero_acked_loss": True,
+                    "trace_nodes": sorted(span_nodes),
+                    "doctor_rules": rules,
+                    "rebalance": {i: {k: r[k] for k in (
+                        "bytesMoved", "pushes", "creditStallS",
+                        "dualReadHits", "lastSeconds", "lastBytesMoved")}
+                        for i, r in final.items()}}
+        emit({"phase": "cluster_ring:e", **out["e"]})
+    out["seconds"] = time.perf_counter() - t_phase
+    out["within_bound"] = out["seconds"] <= RING_PHASE_BOUND_S
+    check(out["within_bound"], f"cluster_ring took {out['seconds']:.1f} s "
+          f"(bound {RING_PHASE_BOUND_S} s)")
+    out["launches"] = launches
     emit({k: v for k, v in out.items()
           if k not in ("a", "b", "c", "d", "e")})
     return launches
@@ -2159,6 +2663,8 @@ def main() -> int:
     launches["cluster_chaos"] = timed_phase(
         "cluster_chaos", cluster_chaos_phase, root, ec_body, ec_table, np,
         stage_ms["whole_chain"])
+    launches["cluster_ring"] = timed_phase(
+        "cluster_ring", cluster_ring_phase, root, np, params)
     launches["device_trace"] = timed_phase(
         "device_trace", device_trace_phase, ec_body, ec_table, kernels)
 

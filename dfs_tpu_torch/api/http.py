@@ -8,7 +8,24 @@ for the routes of the default configuration:
                                  false}`` without the plane; ``index``:
                                  the IndexConfig echo with ``"enabled":
                                  false``; ``obs``: trace ring, journal,
-                                 sentinel, RPC tables)
+                                 sentinel, RPC tables; ``ring``: the
+                                 RingConfig echo, epoch and rebalance;
+                                 ``census``: the CensusConfig echo,
+                                 history and last census)
+    GET    /metrics/history      the sampled series' names, or with
+                                 ``?name=`` one series at both
+                                 resolutions (404 unknown); ``{"enabled":
+                                 false}`` with the sampler off
+    GET    /census               replication census and capacity (df)
+                                 over every node, partial on dead peers
+                                 (``&cluster=0``: this node's only)
+    GET    /doctor               the rule table over every node's
+                                 snapshot (``&cluster=0``: this node)
+    GET    /ring                 membership view and every peer's epoch
+    POST   /ring                 {"action": "add"|"drain"|"remove"|
+                                 "reweight", "nodeId": N[, "weight": W]}:
+                                 the next epoch, pushed to every peer; 400
+                                 with the reason on a bad change
     GET    /metrics?format=prom  the same registries as OpenMetrics text
                                  (histogram buckets with trace exemplars)
     GET    /trace?traceId=       the trace's spans from every node, merged
@@ -53,8 +70,7 @@ list), rooted fresh or adopted from an ``X-Dfs-Trace: <trace32hex>-
 its latency recorded under the span name, the trace id as the bucket's
 exemplar.
 
-Every other route answers 404: dfs_tpu's ``/metrics/history``,
-``/census``, ``/ring``, ``/doctor``, ``/chunking``, ``/dataplane``,
+Every other route answers 404: dfs_tpu's ``/chunking``, ``/dataplane``,
 ``/commit``, ``/missing`` and ``/upload_resume`` are not ported yet.
 Query strings are URL-decoded; a malformed fileId is a 400.
 """
@@ -91,7 +107,9 @@ _DEADLINE_DEFAULT_ROUTES = frozenset({"/download", "/upload", "/manifest",
 # so a client's path never mints span or histogram names
 _TRACED_ROUTES = frozenset({"/status", "/files", "/metrics", "/manifest",
                             "/upload", "/download", "/scrub", "/repair",
-                            "/trace", "/events", "/chaos", "/tier"})
+                            "/trace", "/events", "/chaos", "/tier",
+                            "/doctor", "/census", "/metrics/history",
+                            "/ring"})
 
 
 def _head(status: int, length: int, content_type: str,
@@ -368,6 +386,48 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
                          "application/openmetrics-text; version=1.0.0; "
                          "charset=utf-8")
         return as_json(200, node.metrics())
+    if method == "GET" and path == "/metrics/history":
+        # no name: the series directory; sampler off: enabled false,
+        # never an error
+        history = node.history
+        if history is None:
+            return as_json(200, {"enabled": False, "series": []})
+        name = query.get("name")
+        if not name:
+            return as_json(200, {"enabled": True,
+                                 "series": history.names()})
+        snap = history.snapshot(name)
+        if snap is None:
+            return plain(404, "Unknown series")
+        snap["enabled"] = True
+        return as_json(200, snap)
+    if method == "GET" and path == "/census":
+        return as_json(200, await node.census_report(
+            cluster=query.get("cluster", "1") != "0"))
+    if method == "GET" and path == "/doctor":
+        return as_json(200, await node.doctor_report(
+            cluster=query.get("cluster", "1") != "0"))
+    if path == "/ring" and method in ("GET", "POST"):
+        if method == "GET":
+            return as_json(200, await node.ring_status(
+                cluster=query.get("cluster", "1") != "0"))
+        if content_length is None:
+            return plain(411, "Length Required")
+        if content_length > 64 * 1024:
+            return plain(413, "Payload Too Large")
+        try:
+            body = json.loads(await reader.readexactly(content_length))
+            if not isinstance(body, dict):
+                raise ValueError("want a JSON object")
+            action = str(body.get("action", ""))
+            node_id = body.get("nodeId")
+            weight = body.get("weight")
+            return as_json(200, await node.ring_admin(
+                action,
+                node_id=int(node_id) if node_id is not None else None,
+                weight=float(weight) if weight is not None else None))
+        except (ValueError, TypeError, UnicodeDecodeError) as e:
+            return plain(400, f"Bad ring change: {e}")
     if method == "GET" and path == "/trace":
         from dfs_tpu_torch.obs import TRACE_HEX, is_id
 

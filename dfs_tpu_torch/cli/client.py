@@ -105,6 +105,46 @@ class NodeClient:
         q = urllib.parse.urlencode({"since": since, "limit": limit})
         return json.loads(self._request("GET", f"/events?{q}"))
 
+    def doctor(self, cluster: bool = True) -> dict:
+        """The doctor report (``GET /doctor``); render it with
+        :func:`dfs_tpu_torch.obs.doctor.render_report`."""
+        q = urllib.parse.urlencode({"cluster": "1" if cluster else "0"})
+        return json.loads(self._request("GET", f"/doctor?{q}"))
+
+    def census(self, cluster: bool = True) -> dict:
+        """The census and capacity report (``GET /census``); render it
+        with :func:`dfs_tpu_torch.obs.census.render_census` or
+        ``render_df``."""
+        q = urllib.parse.urlencode({"cluster": "1" if cluster else "0"})
+        return json.loads(self._request("GET", f"/census?{q}"))
+
+    def history(self, name: str | None = None) -> dict:
+        """``GET /metrics/history``: the series directory, or one
+        series at both resolutions."""
+        path = "/metrics/history"
+        if name:
+            path += "?" + urllib.parse.urlencode({"name": name})
+        return json.loads(self._request("GET", path))
+
+    def ring_status(self, cluster: bool = True) -> dict:
+        """``GET /ring``: epoch, members, migration and rebalance state,
+        and every peer's epoch."""
+        q = urllib.parse.urlencode({"cluster": "1" if cluster else "0"})
+        return json.loads(self._request("GET", f"/ring?{q}"))
+
+    def ring_admin(self, action: str, node_id: int | None = None,
+                   weight: float | None = None) -> dict:
+        """``POST /ring``: add, drain, remove or reweight a member; the
+        contacted node bumps the epoch and pushes it to every peer."""
+        body: dict = {"action": action}
+        if node_id is not None:
+            body["nodeId"] = node_id
+        if weight is not None:
+            body["weight"] = weight
+        return json.loads(self._request(
+            "POST", "/ring", body=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"}))
+
     def delete(self, file_id: str) -> str:
         q = urllib.parse.urlencode({"fileId": file_id})
         return self._request("DELETE", f"/files?{q}").decode()

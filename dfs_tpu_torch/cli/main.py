@@ -15,12 +15,18 @@ subcommands talk HTTP to one.
     python -m dfs_tpu_torch.cli.main --port 7101 upload --trace f.bin
     python -m dfs_tpu_torch.cli.main --port 7102 trace <traceId>
     python -m dfs_tpu_torch.cli.main --port 7101 events --limit 20
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 --nodes 4 \
+        --ring-vnodes 64 --ring-members 1,2,3 ...   # node 4 a standby
+    python -m dfs_tpu_torch.cli.main --port 7101 ring add 4
+    python -m dfs_tpu_torch.cli.main --port 7101 ring drain 4
+    python -m dfs_tpu_torch.cli.main --port 7101 census   # also df, doctor
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
 non-zero unless ``--device cpu`` asks for the plain versions. Tracing, the
 journal and the sentinel are on by default (``--trace-ring 0
 --journal-bytes 0 --sentinel-interval 0`` turns them off). Subcommands:
-serve, status, list, upload, download, delete, metrics, events, trace.
+serve, status, list, upload, download, delete, metrics, events, trace,
+doctor, census, df, ring.
 """
 
 from __future__ import annotations
@@ -32,10 +38,11 @@ import sys
 from pathlib import Path
 
 from dfs_tpu_torch.cli.client import NodeClient
-from dfs_tpu_torch.config import (CDCParams, ChaosConfig, ClusterConfig,
-                                  DurabilityConfig, FragmenterConfig,
-                                  IndexConfig, IngestConfig, NodeConfig,
-                                  ObsConfig, ServeConfig, SimConfig,
+from dfs_tpu_torch.config import (CDCParams, CensusConfig, ChaosConfig,
+                                  ClusterConfig, DurabilityConfig,
+                                  FragmenterConfig, IndexConfig,
+                                  IngestConfig, NodeConfig, ObsConfig,
+                                  RingConfig, ServeConfig, SimConfig,
                                   TierConfig)
 
 
@@ -94,7 +101,17 @@ def node_config(args) -> NodeConfig:
                       journal_segment_bytes=args.journal_segment_bytes,
                       sentinel_interval_s=args.sentinel_interval,
                       sentinel_lag_s=args.sentinel_lag),
+        census=CensusConfig(
+            history_interval_s=args.census_interval,
+            history_slots=args.census_history_slots,
+            history_coarse_every=args.census_coarse_every,
+            history_coarse_slots=args.census_coarse_slots,
+            max_listed=args.census_max_listed),
         durability=DurabilityConfig(mode=args.durability),
+        ring=RingConfig(
+            vnodes=args.ring_vnodes,
+            members=args.ring_members,
+            rebalance_credit_bytes=args.ring_rebalance_credit_bytes),
         chaos=ChaosConfig(
             enabled=args.chaos,
             seed=args.chaos_seed,
@@ -309,6 +326,100 @@ def cmd_trace(args) -> int:
     return 0
 
 
+def cmd_doctor(args) -> int:
+    """Print the doctor's named pathologies with their evidence; exit 1
+    on a warning or critical finding or an unreachable peer."""
+    from dfs_tpu_torch.obs.doctor import render_report
+
+    report = _client(args).doctor(cluster=not args.local)
+    print(render_report(report))
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    sick = any(f.get("severity") in ("critical", "warning")
+               for f in report.get("findings") or []) \
+        or report.get("peersFailed", 0)
+    return 1 if sick else 0
+
+
+def cmd_census(args) -> int:
+    """Print the replication census; exit 1 on findings or an
+    unreachable peer."""
+    from dfs_tpu_torch.obs.census import render_census
+
+    report = _client(args).census(cluster=not args.local)
+    print(render_census(report))
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    sick = any(report.get(f"{k}Total") for k in
+               ("underReplicated", "orphaned", "overReplicated")) \
+        or report.get("peersFailed", 0)
+    return 1 if sick else 0
+
+
+def cmd_df(args) -> int:
+    """Print cluster capacity: per-node CAS bytes, disk headroom, dedup
+    ratio (the capacity section of ``GET /census``)."""
+    from dfs_tpu_torch.obs.census import render_df
+
+    report = _client(args).census(cluster=True)
+    print(render_df(report))
+    if report.get("peersFailed"):
+        print(f"(warning: {report['peersFailed']} peer(s) unreachable "
+              "— totals are partial)", file=sys.stderr)
+    return 0
+
+
+def cmd_ring(args) -> int:
+    """``ring status`` prints the epoch, members and migration view of the
+    cluster (exit 1 on a split view or an unreachable peer); ``ring
+    add/drain/remove/reweight <node>`` bumps the epoch on the contacted
+    node, which pushes it to every peer."""
+    c = _client(args)
+    if args.action == "status":
+        st = c.ring_status()
+        mode = st.get("mode", "?")
+        lines = [f"ring epoch {st.get('epoch')} ({mode}"
+                 + (f", {st.get('vnodes')} vnodes" if mode == "hash"
+                    else "") + ")"
+                 + (" — MIGRATING from epoch "
+                    f"{st.get('previousEpoch')}"
+                    if st.get("migrating") else "")]
+        for m in st.get("members", []):
+            w = m.get("weight", 1.0)
+            lines.append(f"  node {m.get('nodeId')}: weight {w}"
+                         + ("  (draining)" if w == 0 else ""))
+        reb = st.get("rebalance") or {}
+        if reb.get("bytesMoved"):
+            lines.append(f"  rebalance: {reb['bytesMoved']} bytes "
+                         f"moved, {reb.get('pushes', 0)} pushes, "
+                         f"creditStallS={reb.get('creditStallS', 0)}, "
+                         f"dualReadHits={reb.get('dualReadHits', 0)}")
+        for nid, p in sorted((st.get("peers") or {}).items(),
+                             key=lambda kv: int(kv[0])):
+            if p is None:
+                lines.append(f"  peer {nid}: NO ANSWER")
+            elif p.get("epoch") != st.get("epoch") or p.get("migrating"):
+                lines.append(f"  peer {nid}: epoch {p.get('epoch')}"
+                             + (" (migrating)" if p.get("migrating")
+                                else ""))
+        print("\n".join(lines))
+        if st.get("peersFailed"):
+            print(f"(warning: {st['peersFailed']} peer(s) unreachable "
+                  "— view is partial)", file=sys.stderr)
+        split = any(p is not None and p.get("epoch") != st.get("epoch")
+                    for p in (st.get("peers") or {}).values())
+        return 1 if split or st.get("peersFailed") else 0
+    out = c.ring_admin(args.action, node_id=args.node,
+                       weight=args.weight)
+    print(f"ring epoch {out.get('epoch')} installed "
+          f"({args.action} node {args.node}); pushed to: "
+          + ", ".join(f"{k}={'ok' if v else 'FAILED'}"
+                      for k, v in sorted(
+                          (out.get('pushed') or {}).items(),
+                          key=lambda kv: int(kv[0]))))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="dfs-tpu-torch",
@@ -433,6 +544,29 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--sentinel-lag", type=float, default=0.25,
                        help="event-loop lag (s) above which the "
                             "sentinel journals a loop_lag incident")
+    serve.add_argument("--census-interval", type=float, default=10.0,
+                       help="metrics-history sample period (s); 0 turns "
+                            "the sampler off (census queries still work)")
+    serve.add_argument("--census-history-slots", type=int, default=360,
+                       help="fine-resolution history buckets per series")
+    serve.add_argument("--census-coarse-every", type=int, default=30,
+                       help="fine steps folded into one coarse bucket")
+    serve.add_argument("--census-coarse-slots", type=int, default=288,
+                       help="coarse-resolution history buckets per series")
+    serve.add_argument("--census-max-listed", type=int, default=64,
+                       help="digests listed per census finding category")
+    serve.add_argument("--ring-vnodes", type=int, default=0,
+                       help="virtual nodes per unit weight on the "
+                            "consistent-hash ring; 0 (default) = the "
+                            "static epoch-0 placement")
+    serve.add_argument("--ring-members", default="",
+                       help="csv node ids owning digest space at epoch 0 "
+                            "(the others are reachable standbys until "
+                            "`ring add`); empty = every peer")
+    serve.add_argument("--ring-rebalance-credit-bytes", type=int,
+                       default=8 * 1024 * 1024,
+                       help="online-rebalancer bound (payload bytes/s per "
+                            "node); 0 = unthrottled")
     serve.add_argument("--durability", default="fsync",
                        choices=["fsync", "none"],
                        help="fsync every chunk and the manifest before the "
@@ -602,6 +736,38 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--limit", type=int, default=256,
                     help="newest events returned (1..4096)")
     ev.set_defaults(fn=cmd_events)
+    dr = sub.add_parser("doctor",
+                        help="cluster diagnosis (named pathologies and "
+                             "their evidence)")
+    dr.add_argument("--local", action="store_true",
+                    help="diagnose the contacted node only")
+    dr.add_argument("--json", action="store_true",
+                    help="also print the full report as JSON")
+    dr.set_defaults(fn=cmd_doctor)
+    cn = sub.add_parser("census",
+                        help="replication census (copies histogram, "
+                             "under-/over-replicated and orphaned digests)")
+    cn.add_argument("--local", action="store_true",
+                    help="inventory the contacted node only")
+    cn.add_argument("--json", action="store_true",
+                    help="also print the full report as JSON")
+    cn.set_defaults(fn=cmd_census)
+    df = sub.add_parser("df",
+                        help="cluster capacity: per-node CAS bytes, disk "
+                             "headroom, dedup ratio")
+    df.set_defaults(fn=cmd_df)
+    rg = sub.add_parser("ring",
+                        help="show or change the placement ring (epoch-"
+                             "versioned; changes rebalance online)")
+    rg.add_argument("action",
+                    choices=["status", "add", "drain", "remove",
+                             "reweight"])
+    rg.add_argument("node", type=int, nargs="?", default=None,
+                    help="target node id (every action but status)")
+    rg.add_argument("--weight", type=float, default=None,
+                    help="member weight (add/reweight); add without it "
+                         "derives one from disk headroom")
+    rg.set_defaults(fn=cmd_ring)
     tr = sub.add_parser("trace",
                         help="render a stitched cross-node trace")
     tr.add_argument("trace_id")

@@ -28,7 +28,16 @@ Ops: ``store_chunks`` (with the receiver's hash echo) and its windowed
 form, ``has_chunks``, ``get_chunk(s)``, ``get_manifest``, ``announce``,
 ``delete``, ``tombstones``, ``list_manifests``, ``health``, and the
 dedup/index plane's filter exchange ``get_filter``, ``get_filters`` and
-``filter_delta`` (the frames dfs_tpu's nodes send).
+``filter_delta``, the membership ops ``get_ring`` and ``propose_ring``,
+and the diagnosis ops ``get_census`` and ``get_doctor`` (the frames
+dfs_tpu's nodes send).
+
+A peer that refuses a placement-bearing op with another ring answers a
+structured refusal (``ringEpoch`` and its map), raised as
+:class:`RingEpochMismatch`; :meth:`InternalClient.call` then converges
+once, as dfs_tpu's client does: it adopts the peer's map when it wins the
+``(epoch, fingerprint)`` order, or pushes ours with ``propose_ring``, and
+retries the call exactly once.
 """
 
 from __future__ import annotations
@@ -67,6 +76,17 @@ class DeadlineExpired(RpcError):
     """The caller's end-to-end deadline ran out before (or between)
     attempts: no frame is sent and no retry is paid. Not RpcUnreachable:
     an expired budget says nothing about the peer's liveness."""
+
+
+class RingEpochMismatch(RpcRemoteError):
+    """The peer refused a placement-bearing op because our rings differ.
+    Carries the peer's epoch and (when it sent one) its ring map, so the
+    stale side converges without another round trip."""
+
+    def __init__(self, msg: str, epoch: int, ring: dict | None) -> None:
+        super().__init__(msg)
+        self.epoch = epoch
+        self.ring = ring
 
 
 # ops that carry the sender's ring epoch + fingerprint
@@ -249,6 +269,14 @@ class InternalClient:
         # for an application error: pool it either way
         self._checkin(peer, conn)
         if not resp.get("ok", False):
+            re = resp.get("ringEpoch")
+            if isinstance(re, int) and not isinstance(re, bool):
+                # structured membership refusal: the peer's epoch and map
+                # ride it, so call() converges without another round trip
+                raise RingEpochMismatch(
+                    f"peer {peer.node_id} error: {resp.get('error')}",
+                    epoch=re, ring=resp.get("ring")
+                    if isinstance(resp.get("ring"), dict) else None)
             raise RpcRemoteError(
                 f"peer {peer.node_id} error: {resp.get('error')}")
         return resp, rbody
@@ -283,8 +311,8 @@ class InternalClient:
             acct = {"out": 0, "in": 0}
             failed = True
             try:
-                out = await self._call_retrying(peer, header, body,
-                                                retries, timeout_s, acct)
+                out = await self._call_converging(peer, header, body,
+                                                  retries, timeout_s, acct)
                 failed = False
                 if sp is not None:
                     sp.bytes = acct["out"] + acct["in"]
@@ -294,6 +322,42 @@ class InternalClient:
                                       time.perf_counter() - t0,
                                       bytes_out=acct["out"],
                                       bytes_in=acct["in"], error=failed)
+
+    async def _call_converging(self, peer: PeerAddr, header: dict, body,
+                               retries: int | None,
+                               timeout_s: float | None,
+                               acct: dict) -> tuple[dict, memoryview]:
+        """:meth:`_call_retrying` plus the one-shot epoch convergence: on
+        a :class:`RingEpochMismatch` the lower map refreshes — ours adopts
+        the peer's map from the refusal when it wins the ``(epoch,
+        fingerprint)`` order, otherwise the peer gets ours through
+        ``propose_ring`` — and the call is retried exactly once. A second
+        mismatch (a racing epoch bump) propagates."""
+        try:
+            return await self._call_retrying(peer, header, body, retries,
+                                             timeout_s, acct)
+        except RingEpochMismatch as e:
+            ring = self._ring
+            if ring is None:
+                raise
+            ring.note_epoch_mismatch()
+            adopted = False
+            if e.ring is not None:
+                try:
+                    adopted = ring.adopt(e.ring,
+                                         source=f"mismatch:{peer.node_id}")
+                except ValueError:
+                    raise e from None   # malformed map from the peer
+            if not adopted:
+                # the peer's map lost (or was absent): teach it ours
+                await self._call_retrying(
+                    peer, {"op": "propose_ring",
+                           "ring": ring.current.to_dict()},
+                    b"", 1, None, acct)
+            header["repoch"] = ring.epoch
+            header["rfp"] = ring.current.fingerprint
+            return await self._call_retrying(peer, header, body, retries,
+                                             timeout_s, acct)
 
     async def _call_retrying(self, peer: PeerAddr, header: dict, body,
                              retries: int | None, timeout_s: float | None,
@@ -494,6 +558,19 @@ class InternalClient:
             peer, {"op": "filter_delta", "gen": gen, "since": since},
             retries=retries)
         return resp
+
+    async def get_census(self, peer: PeerAddr,
+                         prefixes: list[str] | None = None,
+                         retries: int | None = None) -> dict | None:
+        """One peer's census inventory: the bucketed CAS summary, or with
+        ``prefixes`` the member digest lists of exactly those buckets (the
+        drill-down; the receiver caps each list)."""
+        header: dict = {"op": "get_census"}
+        if prefixes:
+            header["prefixes"] = list(prefixes)
+        resp, _ = await self.call(peer, header, retries=retries)
+        census = resp.get("census")
+        return census if isinstance(census, dict) else None
 
     async def get_manifest(self, peer: PeerAddr, file_id: str
                            ) -> tuple[str | None, float | None]:

@@ -24,7 +24,16 @@ Two optional envelope fields ride any request, as in dfs_tpu:
   out before its op reaches the CAS.
 
 The ``get_trace`` op (``{"traceId"}`` -> ``{"spans"}``) returns the
-receiver's finished spans of one trace for the stitcher.
+receiver's finished spans of one trace for the stitcher. The membership and
+diagnosis ops carry dfs_tpu's fields:
+
+- ``get_ring`` ``{}`` -> ``{"ring", "previous", "migrating"}``;
+- ``propose_ring`` ``{"ring"}`` -> ``{"epoch", "installed"}``;
+- ``get_census`` ``{"prefixes"?}`` -> ``{"census"}``;
+- ``get_doctor`` ``{}`` -> ``{"doctor"}``.
+
+A placement-bearing op refused for a ring mismatch answers ``{"ok":
+false, "error", "ringEpoch", "ring"}``.
 
 Both directions are zero-copy as in dfs_tpu: a body may be a sequence of
 buffers written one by one to the transport (never joined), and the

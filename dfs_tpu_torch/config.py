@@ -20,10 +20,12 @@
   filters), default off.
 - :class:`TierConfig` — the hot/cold tiering plane (temperature ledger,
   demotion to EC, promotion), default off.
+- :class:`CensusConfig` — the census and the metrics-history sampler.
+- :class:`RingConfig` — the elastic ring: vnodes, epoch-0 members and the
+  rebalance byte credits.
 - :class:`NodeConfig` — one node. It holds only the fields the port's
-  runtime honours; dfs_tpu's elastic ring and census history are absent,
-  not accepted and ignored. ``device`` is the port's own: ``None`` means
-  the CUDA card (raising without one), ``"cpu"`` the plain versions.
+  runtime honours. ``device`` is the port's own: ``None`` means the CUDA
+  card (raising without one), ``"cpu"`` the plain versions.
 """
 
 from __future__ import annotations
@@ -535,6 +537,84 @@ class TierConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class CensusConfig:
+    """Cluster census and capacity plane (:mod:`dfs_tpu_torch.obs.census`,
+    :mod:`dfs_tpu_torch.obs.history`), a copy of dfs_tpu's.
+
+    The census is pull-driven (``GET /census`` fans out the internal
+    ``get_census`` op and costs nothing until asked); these knobs bound
+    the embedded metrics history sampler, a fixed-memory two-resolution
+    ring of selected counters and gauges behind ``GET /metrics/history``
+    and the doctor's ``capacity_trend`` rule. The defaults keep ~1 h at
+    10 s and ~24 h at 5 min per series; ``history_interval_s=0`` turns
+    the sampler off (census queries still answer).
+    """
+
+    history_interval_s: float = 10.0  # fine-resolution sample period
+                                # (s); 0 = the history sampler is off
+    history_slots: int = 360    # fine buckets kept per series
+    history_coarse_every: int = 30   # fine steps per coarse bucket
+    history_coarse_slots: int = 288  # coarse buckets kept
+    max_listed: int = 64        # bounded per-category digest lists in
+                                # census findings
+
+    def __post_init__(self) -> None:
+        if self.history_interval_s < 0:
+            raise ValueError("history_interval_s must be >= 0")
+        if self.history_slots < 1 or self.history_coarse_slots < 1:
+            raise ValueError("history slots must be >= 1")
+        if self.history_coarse_every < 1:
+            raise ValueError("history_coarse_every must be >= 1")
+        if self.max_listed < 1:
+            raise ValueError("max_listed must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class RingConfig:
+    """Elastic membership plane (:mod:`dfs_tpu_torch.ring`), a copy of
+    dfs_tpu's.
+
+    ``vnodes=0`` (the default) compiles the boot peer list into the
+    static epoch-0 ring (cyclic mod-N replica sets); ``vnodes > 0`` runs
+    the weighted consistent-hash ring from boot. A live membership change
+    (``ring add/remove/drain``) on a static cluster promotes it to hash
+    mode at the default vnode count with the epoch bump.
+
+    ``members`` restricts which boot peers own digest space at epoch 0
+    ("" = all of them): the other peers of the address book are reachable
+    standbys, placed on only after a ``ring add``.
+
+    ``rebalance_credit_bytes`` bounds the online rebalancer: each node
+    moves at most this many payload bytes per second to new-epoch owners
+    (a token bucket on the repair push and pull paths). 0 = unthrottled.
+    """
+
+    vnodes: int = 0             # vnodes per unit weight; 0 = static
+    members: str = ""           # csv node ids owning digest space at
+                                # epoch 0; "" = every cluster peer
+    rebalance_credit_bytes: int = 8 * 1024 * 1024  # rebalance bytes/s
+                                # per node; 0 = unthrottled
+
+    def __post_init__(self) -> None:
+        if self.vnodes < 0:
+            raise ValueError("vnodes must be >= 0")
+        if self.rebalance_credit_bytes < 0:
+            raise ValueError("rebalance_credit_bytes must be >= 0")
+        if not isinstance(self.members, str):
+            raise ValueError("members must be a csv string of node ids")
+        if self.members and not all(
+                p.strip().isdigit() for p in self.members.split(",")):
+            raise ValueError(f"members must be a csv of node ids, "
+                             f"got {self.members!r}")
+
+    def member_ids(self) -> list[int] | None:
+        """Parsed epoch-0 member ids, or None for 'every peer'."""
+        if not self.members:
+            return None
+        return sorted({int(p.strip()) for p in self.members.split(",")})
+
+
+@dataclasses.dataclass(frozen=True)
 class NodeConfig:
     """One node of a port cluster (module docstring)."""
 
@@ -576,6 +656,12 @@ class NodeConfig:
     # hot/cold tiering plane: the default TierConfig() builds no ledger
     # and no worker
     tier: TierConfig = dataclasses.field(default_factory=TierConfig)
+    # elastic membership: the default RingConfig() compiles the boot peer
+    # list into the static epoch-0 ring
+    ring: RingConfig = dataclasses.field(default_factory=RingConfig)
+    # census and capacity plane: the history sampler's bounds and the
+    # census finding-list cap
+    census: CensusConfig = dataclasses.field(default_factory=CensusConfig)
 
     @property
     def self_addr(self) -> PeerAddr:

@@ -81,8 +81,30 @@ in the ChunkStore hook, and SIGKILL at the 11 crash points
 (``place.*`` in ``_place_batch``, ``upload.*`` in ``_finalize_upload``,
 ``demote.*`` in the demotion, ``sim.*`` in the similarity plane).
 
-What dfs_tpu builds only when configured — the elastic ring and the
-census history — is not ported.
+The elastic ring (:mod:`dfs_tpu_torch.ring`, ``NodeConfig.ring``) is
+wired where dfs_tpu wires it: the :class:`RingManager` holds the current
+and previous map, persists them to ``<data root>/node-<id>/ring.json`` and
+kicks a rebalance walk on every install; ``ring_admin`` (``POST /ring``)
+adds, drains, removes or reweights a member and pushes the new epoch to
+every peer with ``propose_ring``; a restarted node catches up with one
+``get_ring`` round. Placement uses the current epoch; reads walk the
+current owners, then the previous ones (the dual-read window, counted as
+``dualReadHits``), and EC reads add the previous stripe holders. The repair
+walk is the rebalancer: one designated mover per digest (the first alive
+previous-epoch holder) pushes under the ring's byte credits, the joiner's
+pulls are metered the same way, and the window closes
+(``finish_migration``) only after a walk that confirmed every
+current-epoch owner of every digest at an unchanged map pair. The
+tiering plane and ``delete_chunks`` stand still while the ring migrates.
+
+The census plane (:mod:`dfs_tpu_torch.obs.census`, ``NodeConfig.census``)
+answers ``GET /census``: every peer's bucketed CAS inventory
+(``get_census``), compared with the expectation from this node's
+manifests and ring, mismatched buckets drilled down. The history sampler
+(:mod:`dfs_tpu_torch.obs.history`) feeds ``GET /metrics/history`` and the
+doctor's trend rule, and journals ``disk_pressure`` when free space
+crosses 5%. ``GET /doctor`` fans out ``get_doctor`` snapshots and runs
+dfs_tpu's fifteen rules (:mod:`dfs_tpu_torch.obs.doctor`).
 """
 
 from __future__ import annotations
@@ -131,7 +153,8 @@ _OPS = frozenset({"store_chunks", "has_chunks", "announce", "tombstones",
                   "list_manifests", "get_chunk", "get_chunks",
                   "get_manifest", "delete", "delete_chunks", "health",
                   "get_filter", "filter_delta", "get_filters",
-                  "get_trace"})
+                  "get_trace", "get_ring", "propose_ring", "get_census",
+                  "get_doctor"})
 # the bulk ops: the internal admission gate bounds these only, so a health
 # probe never queues behind transfers and makes a busy node look dead
 _HEAVY_OPS = frozenset({"store_chunks", "get_chunk", "get_chunks"})
@@ -314,6 +337,7 @@ class StorageNodeServer:
         self.obs = Observability(cfg.obs, cfg.node_id,
                                  latency=self.latency, journal=journal)
         self._config_hash = _config_fingerprint(cfg)
+        self._started_at = time.time()
         # fault injection: None unless ChaosConfig.enabled, built right
         # after obs so injected faults journal trace-stamped; disk faults
         # ride the ChunkStore hook on the CAS worker threads
@@ -350,7 +374,14 @@ class StorageNodeServer:
             # CAS worker threads; has() answers from it first
             self.store.chunks.index = self.index
         self.ingest_stalls = Stopwatches()
-        self.ring = RingManager(cfg)
+        # the elastic ring: built after obs (epoch changes journal) and
+        # before the client (placement-bearing RPCs carry the epoch); the
+        # default config compiles the static epoch-0 ring
+        self.ring = RingManager(cfg, self.store.root, obs=self.obs)
+        self.ring.on_change = self._on_ring_change
+        # rebalance kicks and the boot catch-up: owned here, so stop()
+        # cancels and awaits them
+        self._ring_tasks: set[asyncio.Task] = set()
         self.cas = AsyncChunkStore(self.store.chunks,
                                    workers=cfg.ingest.cas_io_threads,
                                    obs=self.obs)
@@ -391,6 +422,20 @@ class StorageNodeServer:
 
             self.tier = TierPlane(cfg.tier, self.store.root / "tier",
                                   obs=self.obs)
+        # the census plane's history sampler: None with
+        # history_interval_s == 0 (census queries still answer)
+        self.history = None
+        if cfg.census.history_interval_s > 0:
+            from dfs_tpu_torch.obs.history import MetricsHistory
+
+            self.history = MetricsHistory(
+                cfg.census.history_interval_s, cfg.census.history_slots,
+                cfg.census.history_coarse_every,
+                cfg.census.history_coarse_slots)
+        self._history_task: asyncio.Task | None = None
+        # the last census this node coordinated (doctor material)
+        self._last_census: dict | None = None
+        self._disk_pressure = False
         self._repair_lock = asyncio.Lock()
         self.under_replicated: set[str] = set()  # digests needing repair
         self._ec_encode_device: str | None = None  # where EC last encoded
@@ -435,6 +480,14 @@ class StorageNodeServer:
             self.health.start()
         if self.sentinel is not None:
             self.sentinel.start()
+        if self.history is not None:
+            self._history_task = create_logged_task(
+                self._history_loop(), self.log, "census-history")
+        if self._peers():
+            # a (re)started node may have slept through epoch bumps: one
+            # get_ring round adopts the highest epoch any peer holds (the
+            # epoch carried on placement RPCs is the backstop)
+            self._spawn_ring_task(self._ring_catchup(), "ring-catchup")
         if self.tier is not None and self.cfg.tier.scan_interval_s > 0:
             # the demotion worker (scan_interval_s == 0: POST /tier only)
             self._tier_task = create_logged_task(
@@ -454,11 +507,15 @@ class StorageNodeServer:
                       self.fragmenter.name, self.frag_stats()["device"])
 
     async def stop(self) -> None:
-        for task in (self._filter_sync_task, self._tier_task,
-                     *self._tier_tasks):
-            if task is not None:
-                task.cancel()
+        owned = [t for t in (self._filter_sync_task, self._tier_task,
+                             self._history_task, *self._tier_tasks,
+                             *self._ring_tasks) if t is not None]
+        for task in owned:
+            task.cancel()
         self._filter_sync_task = self._tier_task = None
+        self._history_task = None
+        # awaited: no walk or sampler outlives the node
+        await asyncio.gather(*owned, return_exceptions=True)
         if self.tier is not None:
             # parting ledger snapshot, best-effort: losing it only
             # under-counts heat
@@ -478,13 +535,23 @@ class StorageNodeServer:
             # direction)
             await asyncio.to_thread(self.index.close)
         # peers keep pooled connections into this node open; close them
-        # or wait_closed() waits on a peer that has not spoken lately
-        for conn in list(self._inbound):
-            conn.close()
-        for srv in (self._internal_server, self._http_server):
-            if srv is not None:
-                srv.close()
-                await srv.wait_closed()
+        # or wait_closed() waits on a peer that has not spoken lately. The
+        # listeners close first; a connection accepted just before (a
+        # peer's boot catch-up) registers a moment later, so the inbound
+        # set is closed again until the servers are done
+        servers = [srv for srv in (self._internal_server, self._http_server)
+                   if srv is not None]
+        for srv in servers:
+            srv.close()
+        while True:
+            for conn in list(self._inbound):
+                conn.close()
+            try:
+                await asyncio.wait_for(asyncio.gather(
+                    *(srv.wait_closed() for srv in servers)), 0.5)
+                break
+            except asyncio.TimeoutError:
+                continue
         if self.obs.journal is not None:
             # last: the teardown above may still emit; close() drains the
             # queue and joins the writer thread, off the loop
@@ -493,6 +560,207 @@ class StorageNodeServer:
     def _peers(self) -> list:
         return [p for p in self.cfg.cluster.peers
                 if p.node_id != self.cfg.node_id]
+
+    # ------------------------------------------------------------------ #
+    # membership plane
+    # ------------------------------------------------------------------ #
+
+    def _spawn_ring_task(self, coro, name: str) -> None:
+        task = create_logged_task(coro, self.log, name)
+        self._ring_tasks.add(task)
+        task.add_done_callback(self._ring_tasks.discard)
+
+    def _on_ring_change(self) -> None:
+        """RingManager install hook: kick a rebalance walk at once (the
+        repair walk is the rebalancer) instead of waiting for the next
+        periodic repair."""
+        try:
+            asyncio.get_running_loop()
+        except RuntimeError:
+            return      # installed at boot, before start(): repair runs it
+        self._spawn_ring_task(self._rebalance_kick(), "rebalance-kick")
+
+    async def _rebalance_kick(self) -> None:
+        # the kick may be spawned inside a deadlined RPC's dispatch (an
+        # epoch adopted off a placement-bearing call): the walk must not
+        # inherit that request's budget
+        deadline.clear()
+        try:
+            await self.repair_once()
+        except Exception as e:  # noqa: BLE001 — the next repair retries
+            self.log.warning("rebalance kick failed: %s", e)
+
+    async def _ring_catchup(self) -> None:
+        """Boot catch-up: adopt the highest epoch any peer holds."""
+        best: dict | None = None
+        for peer in self._peers():
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "get_ring"}, retries=1)
+            except RpcError:
+                continue    # best-effort: epoch gossip converges the rest
+            ring = resp.get("ring")
+            if isinstance(ring, dict) \
+                    and isinstance(ring.get("epoch"), int) \
+                    and ring["epoch"] > self.ring.epoch \
+                    and (best is None or ring["epoch"] > best["epoch"]):
+                best = ring
+        if best is not None:
+            try:
+                self.ring.adopt(best, source="catchup")
+            except ValueError as e:
+                self.log.warning("ring catch-up rejected peer map: %s", e)
+
+    async def ring_admin(self, action: str, node_id: int | None = None,
+                         weight: float | None = None) -> dict:
+        """Admin membership change (``POST /ring``): build the epoch+1 map,
+        install it here, push it to every peer (best-effort: a peer that
+        misses it converges through the epoch on placement RPCs), and
+        answer the new map with the per-peer push results. A bad request
+        raises ValueError with dfs_tpu's text."""
+        cur = self.ring.current
+        weights = {m.node_id: m.weight for m in cur.members}
+        if action == "add":
+            if node_id is None:
+                raise ValueError("add needs nodeId")
+            if node_id not in {p.node_id for p in self.cfg.cluster.peers}:
+                raise ValueError(
+                    f"node {node_id} is not in the cluster address "
+                    "book (boot every process with it in --nodes/"
+                    "--cluster-config first)")
+            if weights.get(node_id, 0) > 0:
+                raise ValueError(f"node {node_id} is already a ring "
+                                 "member")
+            if weight is None:
+                # the joiner's disk headroom against the median member's
+                weight = await self._derive_add_weight(
+                    node_id, [m for m, w in weights.items() if w > 0])
+            weights[node_id] = float(weight)
+        elif action == "drain":
+            if node_id is None or node_id not in weights:
+                raise ValueError(f"node {node_id} is not a ring member")
+            weights[node_id] = 0.0
+        elif action == "remove":
+            if node_id is None or node_id not in weights:
+                raise ValueError(f"node {node_id} is not a ring member")
+            del weights[node_id]
+            if not weights:
+                raise ValueError("cannot remove the last ring member")
+        elif action == "reweight":
+            if node_id is None or node_id not in weights:
+                raise ValueError(f"node {node_id} is not a ring member")
+            if weight is None:
+                raise ValueError("reweight needs weight")
+            weights[node_id] = float(weight)
+        else:
+            raise ValueError(f"unknown ring action {action!r} "
+                             "(add/drain/remove/reweight)")
+        if not any(w > 0 for w in weights.values()):
+            raise ValueError("change would leave no active member")
+        new = self.ring.propose_next(weights)
+        self.ring.install(new, source=f"admin:{action}")
+        ring_dict = new.to_dict()
+
+        async def push(peer) -> tuple[int, bool]:
+            try:
+                await self.client.call(
+                    peer, {"op": "propose_ring", "ring": ring_dict},
+                    retries=2)
+                return peer.node_id, True
+            except RpcError:
+                return peer.node_id, False   # reported per peer
+
+        pushed = dict(await asyncio.gather(
+            *(push(p) for p in self._peers())))
+        return {"action": action, "epoch": new.epoch,
+                "ring": ring_dict, "pushed": pushed}
+
+    _ADD_WEIGHT_MIN = 0.25    # capacity-derived weight clamp: a tiny disk
+    _ADD_WEIGHT_MAX = 4.0     # still takes some share, a huge one never
+                              # dominates the map on day one
+
+    async def _derive_add_weight(self, node_id: int,
+                                 members: list[int]) -> float:
+        """Default weight of ``ring add``: the joiner's free disk bytes
+        over the median active member's, clamped to [0.25, 4.0]. Free
+        bytes come from the census ``disk`` block (``get_census``; this
+        node's own statvfs). Any failure falls back to 1.0."""
+        async def free_bytes(nid: int) -> float | None:
+            try:
+                if nid == self.cfg.node_id:
+                    disk = await asyncio.to_thread(self._disk_usage)
+                else:
+                    resp, _ = await self.client.call(
+                        self.cfg.cluster.peer(nid),
+                        {"op": "get_census"}, retries=1)
+                    disk = (resp.get("census") or {}).get("disk") or {}
+                free = disk.get("freeBytes")
+                return float(free) if isinstance(free, (int, float)) \
+                    and free > 0 else None
+            except (RpcError, KeyError):
+                return None       # degrades to the 1.0 fallback
+
+        target = await free_bytes(node_id)
+        if target is None:
+            return 1.0
+        frees = [f for f in await asyncio.gather(
+            *(free_bytes(m) for m in members)) if f is not None]
+        if not frees:
+            return 1.0
+        frees.sort()
+        median = frees[len(frees) // 2]
+        if median <= 0:
+            return 1.0
+        w = max(self._ADD_WEIGHT_MIN,
+                min(self._ADD_WEIGHT_MAX, target / median))
+        return round(w, 3)
+
+    async def ring_status(self, cluster: bool = True) -> dict:
+        """``GET /ring``: this node's membership view and (``cluster``)
+        every peer's epoch and migration state, partial on dead peers."""
+        out = {"nodeId": self.cfg.node_id,
+               "epoch": self.ring.epoch,
+               "mode": "static" if self.ring.current.vnodes == 0
+               else "hash",
+               "vnodes": self.ring.current.vnodes,
+               "members": self.ring.current.to_dict()["members"],
+               "active": self.ring.current.active_ids(),
+               "migrating": self.ring.migrating,
+               "previousEpoch": self.ring.previous.epoch
+               if self.ring.previous is not None else None,
+               "rebalance": self.ring.rebalance_stats()}
+        if not cluster:
+            return out
+
+        async def one(peer) -> tuple[int, dict | None]:
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "get_ring"}, retries=1)
+                ring = resp.get("ring") or {}
+                return peer.node_id, {
+                    "epoch": ring.get("epoch"),
+                    "migrating": bool(resp.get("migrating"))}
+            except RpcError:
+                return peer.node_id, None   # the partial-result signal
+
+        peers = dict(await asyncio.gather(
+            *(one(p) for p in self._peers())))
+        out["peers"] = {str(k): v for k, v in sorted(peers.items())}
+        out["peersFailed"] = sum(1 for v in peers.values() if v is None)
+        return out
+
+    def ring_stats(self) -> dict:
+        """``/metrics`` ``ring``: the RingConfig fields, then the live
+        epoch and rebalance state, as dfs_tpu's."""
+        r = self.cfg.ring
+        return {"vnodes": r.vnodes,
+                "members": r.members,
+                "rebalanceCreditBytes": r.rebalance_credit_bytes,
+                "epoch": self.ring.epoch,
+                "mode": "static" if self.ring.current.vnodes == 0
+                else "hash",
+                "active": self.ring.current.active_ids(),
+                "rebalance": self.ring.rebalance_stats()}
 
     # ------------------------------------------------------------------ #
     # dedup/index plane: filter gossip
@@ -652,13 +920,31 @@ class StorageNodeServer:
         if isinstance(repoch, int) and not isinstance(repoch, bool) \
                 and (repoch != ring.epoch
                      or (isinstance(rfp, str) and rfp != ring.fingerprint)):
-            # a placement-bearing op from a node with another ring: refused
-            # with ours, as dfs_tpu refuses it
+            # a placement-bearing op from a node with another ring (a
+            # lagging epoch, or another map at the same epoch): refused
+            # with ours, so the stale side converges and retries
+            self.ring.note_epoch_mismatch()
             self.counters.inc("ring_epoch_mismatches")
             return {"ok": False,
                     "error": f"ring epoch mismatch (have {ring.epoch}, "
                              f"got {repoch})",
                     "ringEpoch": ring.epoch, "ring": ring.to_dict()}, b""
+        if op == "get_ring":
+            # membership query (ring status, boot catch-up): ungated
+            return {"ok": True, "ring": self.ring.current.to_dict(),
+                    "previous": self.ring.previous.to_dict()
+                    if self.ring.previous is not None else None,
+                    "migrating": self.ring.migrating}, b""
+        if op == "propose_ring":
+            # epoch-versioned install (admin push, the stale-peer
+            # refresh); idempotent: a map at or below ours answers ok
+            try:
+                installed = self.ring.adopt(header.get("ring"),
+                                            source="propose")
+            except ValueError as e:
+                return {"ok": False, "error": f"bad ring map: {e}"}, b""
+            return {"ok": True, "epoch": self.ring.epoch,
+                    "installed": installed}, b""
         if op == "store_chunks":
             # hash echo: every digest recomputed from the received bytes,
             # off the loop with the writes
@@ -780,6 +1066,10 @@ class StorageNodeServer:
                     all(isinstance(d, str) and len(d) == 64
                         for d in digests)):
                 return {"ok": False, "error": "bad digests"}, b""
+            if self.ring.migrating:
+                # the dual-read window may need any replica
+                return {"ok": True, "removed": [],
+                        "refused": list(digests)}, b""
 
             def reclaim():
                 expected = self._expected_digests_here(set(digests))
@@ -803,6 +1093,22 @@ class StorageNodeServer:
             # ring scan, ungated like health
             return {"ok": True, "spans": self.obs.spans_for(
                 str(header.get("traceId", "")))}, b""
+        if op == "get_doctor":
+            # this node's diagnosis snapshot; ungated like get_trace
+            return {"ok": True, "doctor": await self.doctor_snapshot()}, b""
+        if op == "get_census":
+            # the bucketed CAS inventory; ``prefixes`` drills member
+            # lists of those buckets. Ungated; the scan runs on the CAS
+            # read pool
+            prefixes = header.get("prefixes")
+            if prefixes is not None and not (
+                    isinstance(prefixes, list)
+                    and all(isinstance(p, str) and len(p) ==
+                            self.store.chunks.PREFIX_HEX
+                            for p in prefixes)):
+                return {"ok": False, "error": "bad prefixes"}, b""
+            return {"ok": True,
+                    "census": await self.census_inventory(prefixes)}, b""
         if op == "health":
             return {"ok": True, "nodeId": self.cfg.node_id,
                     "chunks": await asyncio.to_thread(
@@ -868,7 +1174,7 @@ class StorageNodeServer:
         placement = None
         rf = None
         if ec_k:
-            ids = self.ring.current.member_ids()
+            ids = self.ring.node_ids()
             if ec_k + 2 > len(ids):
                 raise UploadError(
                     f"ec={ec_k} needs {ec_k + 2} nodes, ring has "
@@ -1207,8 +1513,10 @@ class StorageNodeServer:
         quorum check)."""
         if self.chaos is not None:
             self.chaos.maybe_crash("place.before_local_put")
+        # one map for the whole batch: an epoch adopted meanwhile must not
+        # split a batch between two maps
         ring = self.ring.current
-        ids = ring.member_ids()
+        ids = ring.active_ids()
         if self.index is not None and self.index.echo_cache is not None:
             # an epoch change since the last batch clears the cache
             self.index.echo_cache.note_epoch(ring.epoch)
@@ -1684,8 +1992,10 @@ class StorageNodeServer:
 
     async def _fetch_chunk(self, digest: str, length: int) -> bytes:
         """One chunk, locally or from any peer, verified against its
-        digest: owners first, then the rest of the address book, each
-        group believed-alive first."""
+        digest: current-epoch owners, then previous-epoch owners (the
+        dual-read window), then the rest of the address book (a drained
+        or removed node may hold the only copy), each group
+        believed-alive first."""
         data = await self.cas.get(digest)
         if data is not None:
             return data
@@ -1719,6 +2029,9 @@ class StorageNodeServer:
                 continue
             if len(data) == length and sha256_hex(data) == digest:
                 self.counters.inc("chunks_fetched_remote")
+                if self.ring.is_prev_only(digest, target, rf):
+                    # served by a previous-epoch owner mid-move
+                    self.ring.note_dual_read_hit()
                 return data
             self.log.warning("corrupt chunk %s from node %d", digest[:12],
                              target)
@@ -1732,6 +2045,7 @@ class StorageNodeServer:
         cancelled; every hedge takes a token. A replica's outcome is
         handled as in the serial walk."""
         hedge = self.serve.hedge
+        rf = self.cfg.cluster.replication_factor
 
         async def attempt(nid: int) -> bytes | None:
             """One replica's verified bytes, or None (miss, corrupt,
@@ -1754,8 +2068,10 @@ class StorageNodeServer:
                              digest[:12], nid)
             return None
 
-        def accept(data: bytes) -> bytes:
+        def accept(data: bytes, src: int) -> bytes:
             self.counters.inc("chunks_fetched_remote")
+            if self.ring.is_prev_only(digest, src, rf):
+                self.ring.note_dual_read_hit()
             return data
 
         i = 0
@@ -1766,7 +2082,7 @@ class StorageNodeServer:
             if backup_id is None:
                 data = await attempt(nid)
                 if data is not None:
-                    return accept(data)
+                    return accept(data, nid)
                 i += 1
                 continue
             task = asyncio.create_task(attempt(nid))
@@ -1786,14 +2102,14 @@ class StorageNodeServer:
                     if data is None:
                         data = task.result()
                     if data is not None:
-                        return accept(data)
+                        return accept(data, nid)
                     i += 1
                     continue
                 if not hedge.take():
                     # budget empty: wait the primary out
                     data = await task
                     if data is not None:
-                        return accept(data)
+                        return accept(data, nid)
                     i += 1
                     continue
                 hedge.note_fired()
@@ -1832,7 +2148,7 @@ class StorageNodeServer:
                     hedge.note_won()
                     self.obs.event("hedge_won", digest=digest[:12],
                                    primary=nid, backup=backup_id)
-                return accept(data)
+                return accept(data, src)
             i += 2                       # both replicas consumed
         raise DownloadError(f"Could not retrieve chunk {digest[:12]}…")
 
@@ -1955,16 +2271,25 @@ class StorageNodeServer:
             return out
         rf = self.cfg.cluster.replication_factor
         me = self.cfg.node_id
+        ring = self.ring
         # EC shards sit at their stripe holders, not at the digest's
-        # owners: ask those, then the handoff order the write side walked
-        pref = ec_placement_map(manifest, self.ring.current) \
+        # owners: ask those, then the handoff order the write side walked;
+        # mid-migration the previous epoch's holders join (dual read)
+        pref = ec_placement_map(manifest, ring.current) \
             if manifest is not None and manifest.ec is not None else {}
+        pref_prev = ec_placement_map(manifest, ring.previous) \
+            if pref and ring.previous is not None else {}
 
         def candidates_for(d: str) -> Sequence[int]:
             pinned = pref.get(d)
             if pinned:
-                return self.ring.current.handoff_order(pinned)
-            return self.ring.read_candidates(d, rf)
+                out = ring.handoff_order(pinned)
+                prev_pin = pref_prev.get(d)
+                if prev_pin:
+                    out = list(dict.fromkeys(list(out) + list(prev_pin)))
+                return out
+            # current owners, then previous-epoch owners (dual read)
+            return ring.read_candidates(d, rf)
 
         def group_remaining(exclude: set[int]) -> dict[int, list[str]]:
             groups: dict[int, list[str]] = {}
@@ -2032,6 +2357,9 @@ class StorageNodeServer:
                                 and len(b) == need[d]):
                             out[d] = b
                             self.counters.inc("chunks_fetched_remote")
+                            if ring.migrating and ring.is_prev_only(
+                                    d, src, rf):
+                                ring.note_dual_read_hit()
                 batch, size = [], 0
 
             for d in digests:
@@ -2582,7 +2910,8 @@ class StorageNodeServer:
         snap["frag"] = self.frag_stats()
         snap["durability"] = self.durability_stats()
         snap["retryBudget"] = self.client.retry_budget.stats()
-        snap["ring"] = self.ring.stats()
+        snap["ring"] = self.ring_stats()
+        snap["census"] = self.census_stats()
         snap["index"] = self.index_stats()
         snap["tier"] = self.tier_stats()
         snap["sim"] = self.sim_stats()
@@ -2617,6 +2946,339 @@ class StorageNodeServer:
         out["deltaChunks"] = self.store.chunks.delta_count()
         out["device"] = str(self.sim.sketcher.device)
         return out
+
+    # ------------------------------------------------------------------ #
+    # cluster doctor
+    # ------------------------------------------------------------------ #
+
+    def _disk_usage(self) -> dict:
+        """Blocking statvfs under the node's data root (call it through
+        ``asyncio.to_thread``); {} when it fails, read as unknown."""
+        import shutil
+
+        try:
+            u = shutil.disk_usage(self.store.root)
+            return {"totalBytes": u.total, "freeBytes": u.free}
+        except OSError:
+            return {}
+
+    async def doctor_snapshot(self) -> dict:
+        """This node's diagnosis snapshot, dfs_tpu's document: metric
+        summaries, recent journal incidents, disk headroom, config
+        fingerprint, wall clock, ring and tier views. Blocking reads run
+        off the loop."""
+        incidents: list[dict] = []
+        if self.obs.journal is not None:
+            tail = await asyncio.to_thread(self.obs.journal.tail, 0.0, 64)
+            incidents = tail.get("events", [])
+        obs_stats = self.obs.stats()
+        return {
+            "nodeId": self.cfg.node_id,
+            "now": time.time(),
+            "uptimeS": round(time.time() - self._started_at, 3),
+            "configHash": self._config_hash,
+            "chunks": await asyncio.to_thread(self.store.chunks.count),
+            "files": len(self.store.manifests.ids()),
+            "peersAlive": self.health.snapshot(),
+            "underReplicated": len(self.under_replicated),
+            "admission": self.serve.admission.stats(),
+            "hedge": self.serve.hedge.stats()
+            if self.serve.hedge is not None else {"enabled": False},
+            "cache": self.serve.cache.stats()
+            if self.serve.cache is not None else {"enabled": False},
+            "ingestStalls": self.ingest_stalls.snapshot(),
+            "cas": self.cas.stats(),
+            "sentinel": obs_stats["sentinel"],
+            "journal": obs_stats["journal"],
+            "rpcClient": obs_stats["rpcClient"],
+            "counters": self.counters.snapshot(),
+            "incidents": incidents,
+            "disk": await asyncio.to_thread(self._disk_usage),
+            # the capacity_trend rule's slope and the last census this
+            # node coordinated (the underreplication rule)
+            "capacity": self._capacity_summary(),
+            "census": self._last_census,
+            "index": {"enabled": False} if self.index is None else {
+                "enabled": True,
+                "syncS": self.cfg.index.filter_sync_s,
+                "peerAgeS": {str(p): round(a, 3) for p, a in
+                             sorted(self.index.peer_filters.ages()
+                                    .items())}},
+            # the epoch_mismatch and rebalance_stuck evidence
+            "ring": {"epoch": self.ring.epoch,
+                     "migrating": self.ring.migrating,
+                     **{k: v for k, v in
+                        self.ring.rebalance_stats().items()
+                        if k in ("sinceProgressS", "bytesMoved",
+                                 "dualReadHits")}},
+            "tier": {"enabled": False} if self.tier is None else {
+                "enabled": True,
+                "scanIntervalS": self.cfg.tier.scan_interval_s,
+                "sinceProgressS": round(
+                    time.monotonic() - self.tier.last_progress_at, 3),
+                "errors": self.tier.errors,
+                "scans": self.tier.scans},
+        }
+
+    async def doctor_report(self, cluster: bool = True) -> dict:
+        """``GET /doctor``: this node's snapshot and (``cluster``) every
+        peer's through ``get_doctor`` (one fast attempt each), then
+        dfs_tpu's rule table over them. A peer that cannot answer is a
+        ``dead_peer`` finding, never an error."""
+        from dfs_tpu_torch.obs.doctor import diagnose
+
+        snaps: dict[int, dict | None] = {
+            self.cfg.node_id: await self.doctor_snapshot()}
+        # clock_skew compares each snapshot against the moment it arrived
+        snaps[self.cfg.node_id]["receivedAt"] = time.time()
+        failed = 0
+        peers = self._peers() if cluster else []
+
+        async def one(peer) -> tuple[int, dict | None]:
+            try:
+                resp, _ = await self.client.call(
+                    peer, {"op": "get_doctor"}, retries=1)
+                d = resp.get("doctor")
+                if isinstance(d, dict):
+                    d["receivedAt"] = time.time()
+                    return peer.node_id, d
+                return peer.node_id, None
+            except RpcError:
+                return peer.node_id, None   # the dead_peer finding
+
+        for nid, snap in await asyncio.gather(*(one(p) for p in peers)):
+            snaps[nid] = snap
+            if snap is None:
+                failed += 1
+        now = time.time()
+        findings = diagnose(snaps, coordinator_now=now)
+        return {"coordinator": self.cfg.node_id, "now": now,
+                "peersFailed": failed,
+                "nodes": {str(k): v for k, v in sorted(snaps.items())},
+                "findings": findings}
+
+    # ------------------------------------------------------------------ #
+    # census and capacity plane
+    # ------------------------------------------------------------------ #
+
+    # per-bucket digest-list cap of a census drill-down
+    _CENSUS_LIST_CAP = 4096
+    # disk_pressure fires crossing below 5% free and re-arms above 10%
+    _DISK_PRESSURE_FRACTION = 0.05
+    # counters the history sampler tracks (rates come from differencing)
+    _HISTORY_COUNTERS = ("http_requests", "uploads", "downloads",
+                         "upload_bytes", "download_bytes",
+                         "chunks_stored", "bytes_stored", "dedup_hits",
+                         "replication_failures", "http_shed")
+
+    async def _history_loop(self) -> None:
+        interval = self.cfg.census.history_interval_s
+        while True:
+            await asyncio.sleep(interval)
+            try:
+                await self._history_sample_once()
+            except Exception as e:  # noqa: BLE001 — the next tick retries
+                self.log.warning("census history sample failed: %s", e)
+
+    async def _history_sample_once(self) -> None:
+        """One history tick: the selected counters and gauges into the
+        two-resolution ring; disk and CAS reads run off the loop."""
+        h = self.history
+        now = time.time()
+        c = self.counters.snapshot()
+        for k in self._HISTORY_COUNTERS:
+            h.observe(f"counter.{k}", c.get(k, 0), now)
+        h.observe("cas.pending", self.cas.pending, now)
+        h.observe("ingest.creditS",
+                  self.ingest_stalls.snapshot().get("creditS", 0.0), now)
+        cache = self.serve.cache
+        if cache is not None:
+            cs = cache.stats()
+            h.observe("cache.hits", cs["hits"], now)
+            h.observe("cache.misses", cs["misses"], now)
+            h.observe("cache.bytes", cs["bytes"], now)
+        calls = secs = 0
+        for _, _, row in self.obs.rpc_client.rows():
+            calls += row[0]
+            secs += row[5]
+        h.observe("rpc.clientCalls", calls, now)
+        h.observe("rpc.clientSeconds", secs, now)
+        h.observe("capacity.casBytes",
+                  await asyncio.to_thread(self.store.chunks.bytes_total),
+                  now)
+        h.observe("capacity.casChunks",
+                  await asyncio.to_thread(self.store.chunks.count), now)
+        disk = await asyncio.to_thread(self._disk_usage)
+        if disk:
+            h.observe("capacity.diskFreeBytes", disk["freeBytes"], now)
+            h.observe("capacity.diskTotalBytes", disk["totalBytes"], now)
+            frac = disk["freeBytes"] / max(1, disk["totalBytes"])
+            if frac < self._DISK_PRESSURE_FRACTION:
+                if not self._disk_pressure:
+                    self._disk_pressure = True
+                    self.obs.event("disk_pressure",
+                                   freeBytes=disk["freeBytes"],
+                                   totalBytes=disk["totalBytes"])
+            elif frac >= 2 * self._DISK_PRESSURE_FRACTION:
+                self._disk_pressure = False
+
+    def _capacity_summary(self) -> dict:
+        """The history's last capacity gauges and the CAS growth slope
+        (the doctor's capacity_trend material); never a scan."""
+        h = self.history
+        if h is None:
+            return {"enabled": False}
+        return {"enabled": True,
+                "casBytes": h.last("capacity.casBytes"),
+                "casChunks": h.last("capacity.casChunks"),
+                "diskFreeBytes": h.last("capacity.diskFreeBytes"),
+                "diskTotalBytes": h.last("capacity.diskTotalBytes"),
+                "growthBytesPerS": h.trend("capacity.casBytes")}
+
+    def census_stats(self) -> dict:
+        """``/metrics`` ``census``: the CensusConfig fields, the sampler's
+        state, the capacity summary and the last census."""
+        c = self.cfg.census
+        return {"historyIntervalS": c.history_interval_s,
+                "historySlots": c.history_slots,
+                "coarseEvery": c.history_coarse_every,
+                "coarseSlots": c.history_coarse_slots,
+                "maxListed": c.max_listed,
+                "history": self.history.stats()
+                if self.history is not None else {"enabled": False},
+                "capacity": self._capacity_summary(),
+                "lastCensus": self._last_census}
+
+    async def census_inventory(self, prefixes=None) -> dict:
+        """This node's census contribution: the bucketed CAS inventory
+        (one read-pool job), disk headroom and the serve cache's top-K
+        temperature; ``prefixes`` adds member lists of those buckets."""
+        inv = await self.cas.inventory(prefixes,
+                                       list_cap=self._CENSUS_LIST_CAP)
+        inv["nodeId"] = self.cfg.node_id
+        inv["disk"] = await asyncio.to_thread(self._disk_usage)
+        cache = self.serve.cache
+        inv["cacheTemperature"] = cache.temperature() \
+            if cache is not None else []
+        return inv
+
+    async def census_report(self, cluster: bool = True) -> dict:
+        """``GET /census``: every peer's ``get_census`` summary (one fast
+        attempt each, partial on dead peers), compared with the
+        expectation from this node's manifests and ring (the previous
+        epoch's owners join it mid-migration), the mismatched buckets
+        drilled down, then the replication histogram and bounded
+        under-replicated, orphaned and over-replicated lists, with the
+        capacity (``df``) section. Findings are journaled
+        (``census_underreplicated``, ``census_orphan``)."""
+        from dfs_tpu_torch.obs import census as census_mod
+
+        rf = self.cfg.cluster.replication_factor
+        cur_ring = self.ring.current
+        prev_ring = self.ring.previous
+        manifests = await asyncio.to_thread(self.store.manifests.list)
+        expected, cur_expected, lengths, logical = \
+            await asyncio.to_thread(census_mod.expected_state_ring,
+                                    manifests, cur_ring, prev_ring, rf)
+        peers = self._peers() if cluster else []
+        inventories: dict[int, dict | None] = {
+            self.cfg.node_id: await self.census_inventory()}
+
+        async def one(peer) -> tuple[int, dict | None]:
+            try:
+                inv = await self.client.get_census(peer, retries=1)
+                return peer.node_id, inv if isinstance(inv, dict) else None
+            except RpcError:
+                return peer.node_id, None   # counted in peersFailed
+
+        for nid, inv in await asyncio.gather(*(one(p) for p in peers)):
+            inventories[nid] = inv
+        failed = sum(1 for v in inventories.values() if v is None)
+
+        # drill only the buckets whose summary differs from expectation
+        exp_by_node = await asyncio.to_thread(
+            census_mod.summarize_expected, expected, lengths)
+        drill_want: dict[int, list[str]] = {}
+        for nid, inv in inventories.items():
+            if inv is None:
+                continue
+            mism = census_mod.diff_buckets(
+                exp_by_node.get(nid, {}), inv.get("buckets") or {})
+            if mism:
+                drill_want[nid] = mism[:census_mod.DRILL_BUCKET_CAP]
+
+        async def drill(nid: int, want: list[str]) -> tuple[int, dict]:
+            if nid == self.cfg.node_id:
+                inv = await self.cas.inventory(
+                    want, list_cap=self._CENSUS_LIST_CAP)
+                return nid, inv.get("listed") or {}
+            try:
+                inv = await self.client.get_census(
+                    self.cfg.cluster.peer(nid), prefixes=want, retries=1)
+                return nid, (inv or {}).get("listed") or {}
+            except RpcError:
+                return nid, {}    # reported as uncheckedBuckets
+
+        drilled: dict[int, dict] = {}
+        for nid, listed in await asyncio.gather(
+                *(drill(n, w) for n, w in drill_want.items())):
+            drilled[nid] = listed
+
+        report = await asyncio.to_thread(
+            census_mod.build_report, expected, lengths, inventories,
+            drilled, self.cfg.census.max_listed, cur_expected)
+        report["ringEpoch"] = cur_ring.epoch
+        report["migrating"] = prev_ring is not None
+
+        nodes_cap: dict[str, dict | None] = {}
+        cluster_bytes = cluster_chunks = 0
+        for nid in sorted(inventories):
+            inv = inventories[nid]
+            if inv is None:
+                nodes_cap[str(nid)] = None
+                continue
+            disk = inv.get("disk") or {}
+            nodes_cap[str(nid)] = {
+                "casBytes": inv.get("bytes", 0),
+                "casChunks": inv.get("chunks", 0),
+                "diskFreeBytes": disk.get("freeBytes"),
+                "diskTotalBytes": disk.get("totalBytes"),
+                "cacheTemperature": inv.get("cacheTemperature") or []}
+            cluster_bytes += inv.get("bytes", 0)
+            cluster_chunks += inv.get("chunks", 0)
+        unique_bytes = sum(lengths.values())
+        report["capacity"] = {
+            "nodes": nodes_cap,
+            "clusterCasBytes": cluster_bytes,
+            "clusterChunks": cluster_chunks,
+            "logicalBytes": logical,
+            "uniqueBytes": unique_bytes,
+            "dedupRatio": round(logical / unique_bytes, 6)
+            if unique_bytes else 0.0}
+        report["coordinator"] = self.cfg.node_id
+        report["now"] = time.time()
+        report["peersFailed"] = failed
+
+        if report["underReplicatedTotal"]:
+            self.obs.event(
+                "census_underreplicated",
+                count=report["underReplicatedTotal"],
+                sample=[f["digest"][:12]
+                        for f in report["underReplicated"][:4]])
+        if report["orphanedTotal"]:
+            self.obs.event(
+                "census_orphan", count=report["orphanedTotal"],
+                sample=[f["digest"][:12]
+                        for f in report["orphaned"][:4]])
+        self._last_census = {"at": report["now"],
+                             "underReplicated":
+                             report["underReplicatedTotal"],
+                             "orphaned": report["orphanedTotal"],
+                             "overReplicated":
+                             report["overReplicatedTotal"],
+                             "peersFailed": failed}
+        self.counters.inc("census_runs")
+        return report
 
     # ------------------------------------------------------------------ #
     # listing, delete, anti-entropy, repair, scrub
@@ -2743,20 +3405,34 @@ class StorageNodeServer:
         return adopted
 
     async def repair_once(self) -> int:
-        """One repair cycle, serialized: tombstone anti-entropy first (so a
-        deleted file is never pushed back), manifest anti-entropy second,
-        then restore this node's own missing copies (an EC shard by
-        decode when no node holds it), push each owner or stripe holder
-        what it lacks (verified by hash echo), move confirmed handoff
-        copies home (never an EC shard), and sweep aged orphans. Returns
-        the chunks repaired."""
+        """One repair cycle, serialized (the periodic loop and the
+        install-time rebalance kick must not interleave two walks):
+        tombstone anti-entropy first (so a deleted file is never pushed
+        back), manifest anti-entropy second, then restore this node's own
+        missing copies (an EC shard by decode when no node holds it), push
+        each owner or stripe holder what it lacks (verified by hash echo),
+        move confirmed handoff copies home (never an EC shard), and sweep
+        aged orphans. Returns the chunks repaired or moved.
+
+        It is also the online rebalancer, as in dfs_tpu: after an epoch
+        change the same walk places against the new owner map; during the
+        migration window each digest has one designated mover (the first
+        alive previous-epoch holder), every push and every pull of this
+        node's own share is charged against the ring's byte credits and
+        counted as moved, and a walk that confirmed every current-epoch
+        owner of every digest, with this node's own copies whole and the
+        maps unchanged since it began, closes the window."""
         async with self._repair_lock:
             return await self._repair_once_locked()
 
     async def _repair_once_locked(self) -> int:
         await self._tombstone_antientropy()
         await self._manifest_antientropy()
-        ring = self.ring.current
+        # one placement snapshot for the whole walk: a map adopted
+        # mid-walk takes effect next cycle and blocks finish_migration
+        cur = self.ring.current
+        prev = self.ring.previous
+        migrating = prev is not None
         rf = self.cfg.cluster.replication_factor
         me = self.cfg.node_id
         need: dict[int, list[tuple[str, int]]] = {}
@@ -2765,6 +3441,27 @@ class StorageNodeServer:
         own_missing_ec: list[tuple[Manifest, list[ChunkRef]]] = []
         ec_digests: set[str] = set()
         stray: dict[str, frozenset[int]] = {}
+        # previous-epoch holders of EC shards (the designated-mover order);
+        # replicated digests walk the previous ring on demand
+        prev_ec_holders: dict[str, tuple[int, ...]] = {}
+
+        def designated_mover(d: str) -> bool:
+            """Mid-migration exactly one node pushes a digest to its new
+            owners: the first alive previous-epoch holder (a digest no
+            previous holder survives for is pushed by whoever holds it).
+            Outside a migration every node pushes."""
+            if not migrating:
+                return True
+            holders = prev_ec_holders.get(d)
+            if holders is None:
+                holders = prev.owners(d, rf)
+            for p in holders:
+                if p == me:
+                    return True
+                if self.health.is_alive(p):
+                    return False
+            return True
+
         local_digests = set(await asyncio.to_thread(
             self.store.chunks.digests))
         for m in self.store.manifests.list():
@@ -2772,11 +3469,15 @@ class StorageNodeServer:
                 # EC shards live at their stripe holders, one copy each; a
                 # holder missing its shard regenerates it here by decode
                 # (the push loop below moves surviving copies only)
-                pl = ec_placement_map(m, ring)
+                pl = ec_placement_map(m, cur)
+                pl_prev = ec_placement_map(m, prev) if migrating else {}
                 miss: dict[str, int] = {}
                 for d, ln in ec_shard_items(m):
                     chunk_len[d] = ln
                     ec_digests.add(d)
+                    if migrating:
+                        prev_ec_holders.setdefault(
+                            d, tuple(pl_prev.get(d, ())))
                     for target in pl[d]:
                         if target != me:
                             need.setdefault(target, []).append((d, ln))
@@ -2790,7 +3491,7 @@ class StorageNodeServer:
                 continue
             for c in m.chunks:
                 chunk_len[c.digest] = c.length
-                targets = ring.owners(c.digest, rf)
+                targets = cur.owners(c.digest, rf)
                 for target in targets:
                     if target != me:
                         need.setdefault(target, []).append(
@@ -2801,38 +3502,62 @@ class StorageNodeServer:
                     stray[c.digest] = frozenset(targets)
 
         async def restore_missing(manifest: Manifest | None,
-                                  refs: list[ChunkRef]) -> int:
+                                  refs: list[ChunkRef]) -> tuple[int, bool]:
             """This node's missing copies, gathered in bounded batches
-            (with the manifest: EC shards decode) and put locally."""
+            (with the manifest: EC shards decode) and put locally. During
+            a migration each batch is charged against the byte credits
+            and counted as moved: the joiner's pull is the bulk of an
+            add. Returns (restored, every ref came back)."""
             n = 0
+            ok = True
             batch: list[ChunkRef] = []
             size = 0
-            for i, r in enumerate(refs):
+
+            async def flush() -> None:
+                nonlocal n, ok, batch, size
+                if not batch:
+                    return
+                if migrating:
+                    self.ring.note_credit_stall(
+                        await self.ring.credits.acquire(size))
+                got = await self._gather_chunks(manifest, chunks=batch,
+                                                strict=False)
+                items = list(got.items())
+                stored = await self.cas.put_many(items, verify=False)
+                for (d, _), newly in zip(items, stored):
+                    self.under_replicated.discard(d)
+                    if newly:
+                        self.counters.inc("chunks_stored")
+                n += len(items)
+                ok = ok and {r.digest for r in batch} <= set(got)
+                if migrating and got:
+                    self.ring.note_moved(
+                        sum(len(b) for b in got.values()), pushes=0)
+                batch, size = [], 0
+
+            for r in refs:
                 batch.append(r)
                 size += r.length
-                if size >= self._FETCH_BATCH_BYTES or i == len(refs) - 1:
-                    got = await self._gather_chunks(manifest, chunks=batch,
-                                                    strict=False)
-                    items = list(got.items())
-                    stored = await self.cas.put_many(items, verify=False)
-                    for (d, _), newly in zip(items, stored):
-                        self.under_replicated.discard(d)
-                        if newly:
-                            self.counters.inc("chunks_stored")
-                    n += len(items)
-                    batch, size = [], 0
-            return n
+                if size >= self._FETCH_BATCH_BYTES:
+                    await flush()
+            await flush()
+            return n, ok
 
         repaired = 0
+        own_restored = True       # did every own-copy restore succeed?
         if own_missing:
-            repaired += await restore_missing(
+            n_restored, own_restored = await restore_missing(
                 None, [ChunkRef(index=0, offset=0, length=ln, digest=d)
                        for d, ln in own_missing.items()])
+            repaired += n_restored
         for m, refs in own_missing_ec:
-            repaired += await restore_missing(m, refs)
+            n_restored, ok = await restore_missing(m, refs)
+            repaired += n_restored
+            own_restored = own_restored and ok
         verified: set[str] = set()
         # digest -> owners that CONFIRMED their copy this cycle: a stray
-        # local copy is deleted only once all its owners confirmed
+        # local copy is deleted only once all its owners confirmed, and the
+        # migration window closes only once every owner confirmed
         confirmed: dict[str, set[int]] = {}
         plane = self.index
         for node_id, wanted in need.items():
@@ -2868,11 +3593,20 @@ class StorageNodeServer:
                 for d in have:
                     confirmed.setdefault(d, set()).add(node_id)
                 to_push = sorted(set(digests) - have)
+                if migrating:
+                    # one mover per digest: a membership change moves each
+                    # byte once across the cluster, not once per node
+                    to_push = [d for d in to_push if designated_mover(d)]
                 local = dict(await self.cas.get_many(to_push))
                 payload = []
                 for d in to_push:
                     b = local.get(d)
                     if b is None:
+                        if d in ec_digests:
+                            # stripe-placed, not on the digest ring the
+                            # per-chunk walk follows; a shard no node holds
+                            # is its holder's decode job (own_missing_ec)
+                            continue
                         try:
                             b = await self._fetch_chunk(d, chunk_len[d])
                         except DownloadError:
@@ -2881,6 +3615,11 @@ class StorageNodeServer:
                 # serial slices: repair must not compete with live ingest
                 for part in self._slice_payloads(
                         payload, self._REPLICA_SLICE_BYTES):
+                    if migrating:
+                        # the rebalance byte credits bound migration pushes
+                        self.ring.note_credit_stall(
+                            await self.ring.credits.acquire(
+                                sum(len(b) for _, b in part)))
                     echoed = set(await self.client.store_chunks(
                         peer, "", part))
                     ok = {d for d, _ in part} & echoed
@@ -2888,6 +3627,10 @@ class StorageNodeServer:
                     verified |= ok
                     for d in ok:
                         confirmed.setdefault(d, set()).add(node_id)
+                    if migrating and ok:
+                        self.ring.note_moved(
+                            sum(len(b) for d, b in part if d in ok),
+                            pushes=1)
             except RpcError as e:
                 self.log.warning("repair push to node %d failed: %s",
                                  node_id, e)
@@ -2908,6 +3651,20 @@ class StorageNodeServer:
         if relocated:
             self.serve.drop_cached(relocated)
             self.counters.inc("relocated_chunks", len(relocated))
+        # migration completion: this walk probed every current-epoch owner
+        # of every digest this node's manifests reference; when each one
+        # confirmed its copy and this node's own copies are whole, the data
+        # reached its new homes and the dual-read window closes. A walk
+        # that skipped a dead peer or lost a push leaves it open, and a map
+        # adopted mid-walk makes the next cycle judge again
+        if migrating and self.ring.current is cur \
+                and self.ring.previous is prev:
+            complete = own_restored and all(
+                all(node_id in confirmed.get(d, ())
+                    for d, _ in wanted)
+                for node_id, wanted in need.items())
+            if complete:
+                self.ring.finish_migration()
         # chunks of aborted streams (placed, never committed): the hour of
         # grace keeps in-flight uploads safe
         swept = await asyncio.to_thread(self.store.gc, 3600.0)
@@ -3058,9 +3815,12 @@ class StorageNodeServer:
         async with plane.gate.slot():
             out = {"scanned": 0, "cold": 0, "demoted": 0,
                    "finished": 0, "skipped": None}
-            # (the static ring never migrates: dfs_tpu's "migrating" skip
-            # cannot arise)
-            if cfg.ec_k + 2 > len(self.ring.current.member_ids()):
+            if self.ring.migrating:
+                # a rebalance moves ownership under the dual-read window:
+                # demotion waits for stable ground
+                out["skipped"] = "migrating"
+                return out
+            if cfg.ec_k + 2 > len(self.ring.node_ids()):
                 out["skipped"] = "ring too small for ec stripes"
                 return out
             now = time.time()

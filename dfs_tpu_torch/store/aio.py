@@ -111,6 +111,18 @@ class AsyncChunkStore:
             self._wpool, lambda: self.store.put_batch(its, verify=verify),
             "cas.put_many")
 
+    async def inventory(self, list_prefixes=None,
+                        list_cap: int = 4096) -> dict:
+        """The bucketed census scan (:meth:`ChunkStore.inventory`) as one
+        read-pool job: a store-wide readdir and stat pass (or, with
+        ``list_prefixes``, a readdir of exactly those buckets) never runs
+        on the event loop."""
+        lp = list(list_prefixes) if list_prefixes else None
+        return await self._run(
+            self._rpool,
+            lambda: self.store.inventory(lp, list_cap=list_cap),
+            "cas.inventory")
+
     @property
     def pending(self) -> int:
         """Jobs submitted but not yet finished (queued + running)."""

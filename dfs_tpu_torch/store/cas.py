@@ -122,6 +122,7 @@ class ChunkStore:
         self._fsync = bool(fsync)
         self._fsyncs = 0
         self._count: int | None = None
+        self._bytes: int | None = None     # lazy; maintained by put/delete
         self._lock = threading.Lock()
         self._dirs: set[str] = set()
         self._tmp_seq = itertools.count()
@@ -377,6 +378,8 @@ class ChunkStore:
                 self._fsyncs += 1
             if self._count is not None:
                 self._count += 1
+            if self._bytes is not None:
+                self._bytes += len(data)
         if index is not None:
             index.maybe_flush()        # outside the ordering mutex
         return True
@@ -435,6 +438,8 @@ class ChunkStore:
         with self._lock:
             if self._count is not None:
                 self._count -= 1
+            if self._bytes is not None:
+                self._bytes -= blob_len
         if self.sim is not None:
             self.sim.note_delta_dropped(blob_len)
         if self.index is not None:
@@ -516,6 +521,8 @@ class ChunkStore:
                 # chunk; the reverse order could persist a stale "present"
                 self.index.note_delete(digest, defer_flush=True)
             try:
+                # size before the unlink, for the byte gauge
+                size = os.path.getsize(p)
                 os.unlink(p)
             except FileNotFoundError:
                 removed = False
@@ -525,6 +532,8 @@ class ChunkStore:
             with self._lock:
                 if self._count is not None:
                     self._count -= 1
+                if self._bytes is not None:
+                    self._bytes -= size
             if self.index is not None:
                 self.index.maybe_flush()   # outside the ordering mutex
             return True
@@ -575,6 +584,117 @@ class ChunkStore:
                 except OSError:
                     continue      # delta-stored, or deleted mid-scan
         return total
+
+    def bytes_total(self) -> int:
+        """CAS payload bytes, O(1) after the first call (the history
+        sampler's capacity gauge): primed by one :meth:`inventory` pass
+        outside the lock, then maintained by put and delete."""
+        with self._lock:
+            primed = self._bytes
+        if primed is None:
+            n = self.inventory()["bytes"]    # primes both gauges
+            with self._lock:
+                if self._bytes is None:
+                    self._bytes = n
+        with self._lock:
+            return self._bytes
+
+    # digest-prefix census buckets: 2 hex chars = 256 buckets, the on-disk
+    # fan-out; the bucket hash is the XOR of each member digest's leading
+    # 64 bits — order-free and computable from a manifest walk alone, so a
+    # coordinator compares expected membership against this summary
+    # without moving any digest list (obs/census.py)
+    PREFIX_HEX = 2
+    STAMP_HEX = 16
+
+    @staticmethod
+    def digest_stamp(digest: str) -> int:
+        return int(digest[:ChunkStore.STAMP_HEX], 16)
+
+    def inventory(self, list_prefixes=None, list_cap: int = 4096) -> dict:
+        """Bucketed CAS census, as dfs_tpu's: per digest-prefix bucket
+        ``[count, bytes, xor-hash]`` plus the store totals, in one readdir
+        and stat pass (run off the event loop through
+        :meth:`AsyncChunkStore.inventory`); it re-primes the count and
+        byte gauges. A delta-stored chunk counts its delta file's bytes,
+        and only while its chain reconstructs.
+
+        With ``list_prefixes`` the walk covers exactly those buckets and
+        returns only their sorted member lists (capped at ``list_cap``
+        each, ``listTruncated`` set when a cap bit) — the drill-down; the
+        summary keys stay present but zero and the gauges are untouched."""
+        if list_prefixes is not None:
+            listed: dict[str, list[str]] = {}
+            truncated = False
+            for prefix in sorted(set(list_prefixes)):
+                sub = self.root / prefix
+                pool = {d for d in (os.listdir(sub) if sub.is_dir() else [])
+                        if len(d) == 64 and set(d) <= _HEX}
+                if self._deltas_possible():
+                    dsub = Path(self._deltas_root) / prefix
+                    pool.update(
+                        d for d in (os.listdir(dsub) if dsub.is_dir()
+                                    else [])
+                        if len(d) == 64 and set(d) <= _HEX)
+                names = sorted(pool)
+                if len(names) > list_cap:
+                    names = names[:list_cap]
+                    truncated = True
+                listed[prefix] = names
+            return {"buckets": {}, "chunks": 0, "bytes": 0,
+                    "listed": listed, "listTruncated": truncated}
+        buckets: dict[str, list] = {}
+        total_n = total_b = 0
+        for sub in sorted(self.root.iterdir()) if self.root.is_dir() else []:
+            if not sub.is_dir() or len(sub.name) != self.PREFIX_HEX \
+                    or not set(sub.name) <= _HEX:
+                continue
+            b = [0, 0, 0]
+            for p in sub.iterdir():
+                d = p.name
+                if len(d) != 64 or not set(d) <= _HEX:
+                    continue      # crash-leaked .tmp-* and strays
+                try:
+                    size = p.stat().st_size
+                except OSError:
+                    continue      # lost the race to a concurrent delete
+                b[0] += 1
+                b[1] += size
+                b[2] ^= self.digest_stamp(d)
+            if b[0]:
+                buckets[sub.name] = b
+                total_n += b[0]
+                total_b += b[1]
+        if self._deltas_possible():
+            droot = Path(self._deltas_root)
+            for sub in sorted(droot.iterdir()) if droot.is_dir() else []:
+                if not sub.is_dir() or len(sub.name) != self.PREFIX_HEX \
+                        or not set(sub.name) <= _HEX:
+                    continue
+                for p in sub.iterdir():
+                    d = p.name
+                    if len(d) != 64 or not set(d) <= _HEX:
+                        continue
+                    if os.path.isfile(self._path_str(d)):
+                        continue  # mid-re-materialize: the raw pass has it
+                    if self.delta_depth(d) < 0:
+                        continue  # broken chain: absent for the census
+                    try:
+                        size = p.stat().st_size
+                    except OSError:
+                        continue
+                    b = buckets.setdefault(sub.name, [0, 0, 0])
+                    b[0] += 1
+                    b[1] += size
+                    b[2] ^= self.digest_stamp(d)
+                    total_n += 1
+                    total_b += size
+        with self._lock:
+            # the full scan is ground truth at scan time: every census
+            # heals whatever skew the gauges carried
+            self._count = total_n
+            self._bytes = total_b
+        return {"buckets": buckets, "chunks": total_n, "bytes": total_b}
 
     def fsync_count(self) -> int:
         with self._lock:

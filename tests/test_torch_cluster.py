@@ -291,8 +291,8 @@ def test_http_ranges_and_error_probes(tmp_path):
                 ("GET", "/metrics?format=prom", None, 200, None, None),
                 ("GET", "/trace?traceId=nothex", None, 400, None, None),
                 ("GET", "/chaos", None, 404, None, None),
-                ("GET", "/census", None, 404, None, None),
-                ("GET", "/doctor", None, 404, None, None),
+                ("GET", "/census", None, 200, None, None),
+                ("GET", "/doctor", None, 200, None, None),
                 ("DELETE", "/files?fileId=" + "0" * 64, None, 404, None,
                  None),
             ]

@@ -201,6 +201,26 @@ FRAMES = [
                              "name": "peer.store_chunks", "node": 2,
                              "t0": 1790000000.123456, "d": 0.25,
                              "peer": 1, "bytes": 4096}]}, b""),
+    # the membership and diagnosis ops, requests and replies
+    ({"op": "get_ring"}, b""),
+    ({"ok": True, "ring": RingMap.hashed({1: 1.0, 2: 0.5}, 3).to_dict(),
+      "previous": RingMap.static([1, 2], 2).to_dict(), "migrating": True},
+     b""),
+    ({"op": "propose_ring",
+      "ring": RingMap.hashed({1: 1.0, 4: 0.25}, 7, 16).to_dict()}, b""),
+    ({"ok": True, "epoch": 7, "installed": False}, b""),
+    ({"ok": False, "error": "ring epoch mismatch (have 2, got 1)",
+      "ringEpoch": 2, "ring": RingMap.hashed({1: 1.0}, 2).to_dict()}, b""),
+    ({"op": "get_census", "prefixes": ["00", "a7"]}, b""),
+    ({"ok": True, "census": {"buckets": {"a7": [2, 8192,
+                                                 12345678901234567]},
+                             "chunks": 2, "bytes": 8192, "nodeId": 3,
+                             "disk": {"totalBytes": 10, "freeBytes": 4},
+                             "cacheTemperature": []}}, b""),
+    ({"op": "get_doctor"}, b""),
+    ({"ok": True, "doctor": {"nodeId": 2, "now": 1790000000.5,
+                             "ring": {"epoch": 1, "migrating": False,
+                                      "sinceProgressS": None}}}, b""),
 ]
 
 
@@ -214,6 +234,54 @@ def test_frames_are_byte_identical(header, body):
     table, pb = wire.pack_chunks([("ab" * 32, b"xyz"), ("cd" * 32, b"")])
     assert (table, pb) == ref_wire.pack_chunks(
         [("ab" * 32, b"xyz"), ("cd" * 32, b"")])
+
+
+def test_new_op_replies_are_the_same_frames(tmp_path):
+    """get_ring, propose_ring and get_census answered by a dfs_tpu node
+    and a port node over one data root and one ring are the same frame
+    bytes; get_doctor answers with the same document keys."""
+    ports = _free_ports(6)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(3)]
+    ref = RefServer(RefNodeConfig(
+        node_id=1, cluster=RefCluster(peers=tuple(
+            RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+            for i, p, q in addrs), replication_factor=2),
+        data_root=tmp_path, fragmenter="cdc", cdc=RefCDC(**SIZES)))
+    ours = StorageNodeServer(NodeConfig(
+        node_id=1, cluster=ClusterConfig(peers=tuple(
+            PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+            for i, p, q in addrs), replication_factor=2),
+        data_root=tmp_path, cdc=CDCParams(**SIZES), device="cpu"))
+    body = corpus(4096, seed=5)
+    ours.store.chunks.put(hashlib.sha256(body).hexdigest(), body)
+    nxt = RingMap.hashed({1: 1.0, 2: 1.0, 3: 0.5}, 1, 16).to_dict()
+
+    async def go():
+        got = []
+        for n in (ours, ref):
+            n.ring.on_change = None
+            # statvfs moves under a shared disk: one fixed answer for both
+            n._disk_usage = lambda: {"totalBytes": 10, "freeBytes": 4}
+            frames = []
+            for header in ({"op": "get_ring"},
+                           {"op": "propose_ring", "ring": nxt},
+                           {"op": "propose_ring", "ring": nxt},
+                           {"op": "get_ring"},
+                           {"op": "get_census"},
+                           {"op": "get_census", "prefixes": ["zz"]},
+                           {"op": "get_census",
+                            "prefixes": [hashlib.sha256(body).hexdigest()
+                                         [:2]]}):
+                resp, rb = await n._dispatch(dict(header), b"")
+                frames.append(wire.encode_frame(resp, rb)[0])
+            doc, _ = await n._dispatch({"op": "get_doctor"}, b"")
+            got.append((frames, set(doc["doctor"])))
+        return got
+
+    (ours_frames, ours_keys), (ref_frames, ref_keys) = \
+        asyncio.run(go())
+    assert ours_frames == ref_frames
+    assert ours_keys == ref_keys
 
 
 def test_traced_frames_are_byte_identical_up_to_the_ids():
@@ -715,6 +783,160 @@ def test_file_demoted_by_one_kind_reads_and_promotes_on_the_other(
             for n in nodes.values():
                 _, got = await n.download(cm.file_id)
                 assert bytes(got) == cold
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+def _mixed_ring_cluster(tmp_path, n=4):
+    """Node 1 of dfs_tpu and port nodes 2..n, rf 2, a hashed ring over
+    1-3 (node 4 a standby), credits off, census sampler off."""
+    from dfs_tpu.config import CensusConfig as RefCensus
+    from dfs_tpu.config import RingConfig as RefRingConfig
+
+    from dfs_tpu_torch.config import CensusConfig, RingConfig
+
+    ports = _free_ports(2 * n)
+    addrs = [(i + 1, ports[2 * i], ports[2 * i + 1]) for i in range(n)]
+    ref = RefServer(RefNodeConfig(
+        node_id=1, cluster=RefCluster(peers=tuple(
+            RefPeer(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+            for i, p, q in addrs), replication_factor=2),
+        data_root=tmp_path, fragmenter="cdc-anchored", cdc=RefCDC(**SIZES),
+        health_probe_s=0, census=RefCensus(history_interval_s=0),
+        ring=RefRingConfig(vnodes=64, members="1,2,3",
+                           rebalance_credit_bytes=0)))
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i, host="127.0.0.1", port=p, internal_port=q)
+        for i, p, q in addrs), replication_factor=2)
+    nodes = {1: ref}
+    for i in range(2, n + 1):
+        nodes[i] = StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            cdc=CDCParams(**SIZES), health_probe_s=0, device="cpu",
+            census=CensusConfig(history_interval_s=0),
+            ring=RingConfig(vnodes=64, members="1,2,3",
+                            rebalance_credit_bytes=0)))
+    return nodes, addrs
+
+
+async def _mixed_converge(nodes, timeout=30.0):
+    import time as _time
+
+    end = _time.monotonic() + timeout
+    while _time.monotonic() < end:
+        for n in nodes.values():
+            await n.repair_once()
+        if not any(n.ring.migrating for n in nodes.values()):
+            return
+    raise AssertionError({i: n.ring.rebalance_stats()
+                          for i, n in nodes.items()})
+
+
+def _post_ring(port, body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/ring",
+                                 data=json.dumps(body).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _get_json(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return json.loads(r.read())
+
+
+def test_mixed_cluster_membership_change_both_ways(tmp_path):
+    """A ``POST /ring add`` at the dfs_tpu node is adopted by every port
+    node and the cluster rebalances; a ``drain`` at a port node is adopted
+    by the dfs_tpu node; after each, every node holds one epoch and one
+    fingerprint, every file reads identical from every node, and the
+    census is clean from a coordinator of either kind."""
+    nodes, addrs = _mixed_ring_cluster(tmp_path)
+    files = [corpus(30_000, seed=60 + i) for i in range(3)]
+
+    async def http(fn, *args):
+        return await asyncio.to_thread(fn, *args)
+
+    async def one_view(epoch):
+        fps = {n.ring.current.fingerprint for n in nodes.values()}
+        assert len(fps) == 1
+        assert {n.ring.epoch for n in nodes.values()} == {epoch}
+
+    async def clean(coord):
+        rep = await http(_get_json, addrs[coord - 1][1], "/census")
+        for k in ("underReplicatedTotal", "overReplicatedTotal",
+                  "orphanedTotal", "inFlightTotal", "peersFailed"):
+            assert rep[k] == 0, (coord, k, rep)
+
+    async def go():
+        for n in nodes.values():
+            await n.start()
+        try:
+            await asyncio.sleep(0.05)
+            ids = []
+            for i, body in enumerate(files):
+                c = NodeClient(port=addrs[i % 3][1], timeout_s=30)
+                ids.append((await http(c.upload, body, f"m{i}"))["fileId"])
+            out = await http(_post_ring, addrs[0][1],
+                             {"action": "add", "nodeId": 4, "weight": 1.0})
+            assert out["epoch"] == 1 and all(out["pushed"].values())
+            await _mixed_converge(nodes)
+            await one_view(1)
+            assert nodes[4].store.chunks.count() > 0
+            for nid, _, port in addrs:
+                c = NodeClient(port=addrs[nid - 1][1], timeout_s=30)
+                for fid, body in zip(ids, files):
+                    assert await http(c.download, fid) == body
+            await clean(2)       # a port coordinator
+            await clean(1)       # the dfs_tpu coordinator
+            out = await http(_post_ring, addrs[2][1],
+                             {"action": "drain", "nodeId": 4})
+            assert out["epoch"] == 2 and all(out["pushed"].values())
+            await _mixed_converge(nodes)
+            for n in nodes.values():
+                await n.repair_once()
+            await one_view(2)
+            assert nodes[4].store.chunks.count() == 0
+            await clean(1)
+            await clean(3)
+            for fid, body in zip(ids, files):
+                c = NodeClient(port=addrs[0][1], timeout_s=30)
+                assert await http(c.download, fid) == body
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
+def test_mixed_cluster_stale_side_converges_on_first_placement(tmp_path):
+    """An epoch installed on one node only (no push) spreads through the
+    placement-bearing RPCs either way: a port node's upload teaches the
+    dfs_tpu node, and the dfs_tpu node's upload teaches the port nodes."""
+    nodes, addrs = _mixed_ring_cluster(tmp_path, n=3)
+
+    async def go():
+        for n in nodes.values():
+            await n.start()
+        try:
+            await asyncio.sleep(0.05)
+            for n in nodes.values():
+                n.ring.on_change = None
+            for epoch, first in ((1, 2), (2, 1)):
+                src = nodes[first]
+                w = {1: 1.0, 2: 1.0, 3: 1.0 - 0.25 * epoch}
+                src.ring.install(src.ring.propose_next(w), source="test")
+                body = corpus(20_000, seed=70 + epoch)
+                m, _ = await src.upload(body, f"s{epoch}")
+                assert {n.ring.epoch for n in nodes.values()} == {epoch}
+                assert len({n.ring.current.fingerprint
+                            for n in nodes.values()}) == 1
+                for n in nodes.values():
+                    assert bytes((await n.download(m.file_id))[1]) == body
         finally:
             for n in nodes.values():
                 await n.stop()

@@ -2,8 +2,8 @@
 imports JAX or anything of dfs_tpu, a process that uses the port — the
 single-device and the sharded walk, and a node served over HTTP with the
 similarity plane, the serving tier, the index and tiering, chaos, a
-traced request stitched and journaled, and a device-trace capture —
-never loads either, and without CUDA the entry points raise instead of running
+traced request stitched and journaled, the ring, census, history and
+doctor routes, and a device-trace capture — never loads either, and without CUDA the entry points raise instead of running
 on the CPU."""
 
 import ast
@@ -74,12 +74,15 @@ with tempfile.TemporaryDirectory() as d:
     import dfs_tpu_torch.chaos, dfs_tpu_torch.obs.journal  # noqa: F401
     import dfs_tpu_torch.obs.prom, dfs_tpu_torch.obs.sentinel  # noqa: F401
     import dfs_tpu_torch.obs.stitch  # noqa: F401
+    import dfs_tpu_torch.obs.census, dfs_tpu_torch.obs.doctor  # noqa: F401
+    import dfs_tpu_torch.obs.history, dfs_tpu_torch.ring.manager  # noqa: F401
     from dfs_tpu_torch.obs import new_trace_id
     from dfs_tpu_torch.utils.trace import device_trace
     from dfs_tpu_torch.utils import deadline
     from dfs_tpu_torch.cli.client import NodeClient
-    from dfs_tpu_torch.config import (ChaosConfig, ClusterConfig,
-                                      IndexConfig, NodeConfig, ServeConfig,
+    from dfs_tpu_torch.config import (CensusConfig, ChaosConfig,
+                                      ClusterConfig, IndexConfig,
+                                      NodeConfig, RingConfig, ServeConfig,
                                       SimConfig, TierConfig)
     from dfs_tpu_torch.node.runtime import StorageNodeServer
     socks = [socket.socket() for _ in range(2)]
@@ -99,7 +102,9 @@ with tempfile.TemporaryDirectory() as d:
             serve=ServeConfig(cache_bytes=1 << 20, readahead_batches=2,
                               download_slots=2, hedge_budget_per_s=5.0),
             index=IndexConfig(enabled=True), tier=TierConfig(enabled=True),
-            chaos=ChaosConfig(enabled=True, seed=13)))
+            chaos=ChaosConfig(enabled=True, seed=13),
+            ring=RingConfig(vnodes=16),
+            census=CensusConfig(history_interval_s=0.05)))
         await srv.start()
         try:
             c = NodeClient(port=ports[0], timeout_s=30)
@@ -121,6 +126,13 @@ with tempfile.TemporaryDirectory() as d:
             assert "upload.fragment" in {s["name"] for s in spans}
             assert (await asyncio.to_thread(c.events))["events"]
             assert "# EOF" in await asyncio.to_thread(c.metrics_prom)
+            assert (await asyncio.to_thread(c.census))[
+                "underReplicatedTotal"] == 0
+            assert (await asyncio.to_thread(c.doctor))["peersFailed"] == 0
+            assert (await asyncio.to_thread(c.ring_status))["mode"] == "hash"
+            await asyncio.sleep(0.2)
+            assert "capacity.casBytes" in (
+                await asyncio.to_thread(c.history))["series"]
             srv.chaos.set(serve_delay_s=0.0)
             with device_trace(str(Path(d) / "prof")):
                 assert await asyncio.to_thread(c.download, fid3)
