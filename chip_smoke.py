@@ -132,6 +132,29 @@ drives the paths end to end and checks each against the NumPy oracle:
   traced upload stitched at node 1, no ``epoch_mismatch`` or
   ``rebalance_stuck`` from the doctor; every node's ``ring.rebalance``
   printed; the phase within 180 s;
+- ``cluster_client``: resumable uploads and the smart client as users run
+  them (dfs_tpu's ``bench_client.py`` full mode): 3 ``serve --chaos
+  --index --index-filter-sync 0.5 --index-background-compact
+  --index-echo-cache 4096`` processes (rf 2, write quorum 2, fsync on) and
+  the port's ``SmartClient`` in this process, chunking on ``cuda:0``.
+  (a) 8 x 4 MiB (``random.Random(19)``) up through node 1 (the first two
+  tables against the oracle), the filters synced, one contiguous 1% region
+  xor-mutated, everything again through a fresh client at node 2: the
+  payload sent <= 3% of the replicated corpus, the mutated file identical
+  through node 3's legacy read; (b) 6 x 2 MiB (seed 47; cut from 4 MiB to
+  keep the run inside its limit) read through node 1's relay and then
+  striped, with ``rpc_delay_s`` 0.1 on every node: a
+  speedup of at least 2; (c) client hedging 20/s, 0.05-0.5 s, one peer's
+  filter replica set to all ones at the client, ``serve_delay_s`` 0.25 on
+  node 3, 8 MiB (seed 83) up and down: identical from every node's legacy
+  read, every chunk verified at the client, false positives seen; (d) the
+  legacy client, a client pinned to the legacy path (same fileId) and the
+  smart path reading the legacy upload; kernels 1-4 counted in this
+  process from (a) to the end of (d); (e) ``upload --resume`` of (c)'s
+  body with 8 MiB (seed 84) appended through the CLI at node 2 (sent <=
+  60%, fileId = sha256, identical), ``upload --smart`` and ``download
+  --smart`` of 4 MiB through the CLI, and a ``POST /commit`` naming a
+  digest nobody holds: 409, no manifest. Within 120 s;
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -141,6 +164,12 @@ drives the paths end to end and checks each against the NumPy oracle:
 
 Each path runs with the launch counters set to 0 just before it and read
 just after; a kernel of the path that never launched fails the run.
+Kernels 1 and 5 are held against their plain versions (which walk the
+region's 2048 blocks in Python, ~40 s each) by a child process,
+``chip_smoke.py --strip-refs OUT``, and read before the kernels table.
+That child, ``cluster_sim`` and ``cluster_index_tier`` run side by side
+(nothing compares those phases' seconds; their device work runs in the
+nodes' processes); every other phase runs alone.
 
     python3 chip_smoke.py            # from the repository root; one card
 
@@ -156,12 +185,15 @@ of JAX or of the dfs_tpu package.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
 import hashlib
 import http.client
 import json
 import os
+import random
+import re
 import signal
 import socket
 import statistics
@@ -227,6 +259,18 @@ RING_PAYLOAD, RING_RATE, RING_WARM_S = 48_000, 4.0, 4.0
 RING_KILL_DELAY_S = 0.25
 RING_CONVERGE_S = 90.0
 RING_PHASE_BOUND_S = 180.0
+# cluster_client: dfs_tpu's bench_client.py full mode — 3 serve processes
+# (scripts/chaos_harness.py boots every node with --chaos) with its index
+# flags, its corpora (random.Random(seed).randbytes) and gates; the smart
+# client runs in this process and chunks on cuda:0
+CLIENT_NODES = 3
+CLIENT_FLAGS = ("--chaos", "--index", "--index-filter-sync", "0.5",
+                "--index-background-compact", "--index-echo-cache", "4096")
+CLIENT_FILE_BYTES = 4 * 1024 * 1024
+# (b)'s files: 2 MiB, cut from bench_client.py's 4 MiB so the whole run
+# keeps a margin under its time limit
+CLIENT_STRIPED_BYTES = 2 * 1024 * 1024
+CLIENT_PHASE_BOUND_S = 120.0
 # the tracing-off twin of the cluster phase's upload
 OBS_OFF_FLAGS = ("--trace-ring", "0", "--journal-bytes", "0",
                  "--sentinel-interval", "0")
@@ -282,7 +326,9 @@ LAUNCHES_PATH = {"strip_chunk_states": "e2e", "repack_lanes": "e2e",
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # one write a line: two phases may emit from their own threads
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def check(cond: bool, what: str) -> None:
@@ -390,14 +436,25 @@ def path_launches(kernels, path: str, needed) -> dict:
     return counts
 
 
+_ports_lock = threading.Lock()
+_ports_given: set[int] = set()
+
+
 def _free_ports(n: int) -> list[int]:
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
-    return ports
+    """``n`` ports free now and not handed out before in this run (two
+    clusters may start side by side)."""
+    with _ports_lock:
+        socks, ports = [], []
+        while len(ports) < n:
+            socks.append(socket.socket())
+            socks[-1].bind(("127.0.0.1", 0))
+            port = socks[-1].getsockname()[1]
+            if port not in _ports_given:
+                ports.append(port)
+                _ports_given.add(port)
+        for s in socks:
+            s.close()
+        return ports
 
 
 def _http(port: int, method: str, path: str, body=None,
@@ -2081,6 +2138,7 @@ def cluster_ring_phase(root: Path, np, params) -> dict:
                                                       BLOCK_BYTES)]
     out: dict = {"phase": "cluster_ring", "nodes": RING_NODES,
                  "flags": list(RING_FLAGS), "bytes": RING_BYTES}
+    os.sync()           # the earlier phases' writeback is not this phase's
     t_phase = time.perf_counter()
     with serve_cluster(root, ".chip_smoke_ring_", RING_FLAGS,
                        nodes=RING_NODES) as c:
@@ -2299,6 +2357,358 @@ def cluster_ring_phase(root: Path, np, params) -> dict:
     return launches
 
 
+def _randbytes(n_files: int, file_bytes: int, seed: int) -> list:
+    """bench_client.py's corpora: ``random.Random(seed).randbytes``."""
+    rng = random.Random(seed)
+    return [rng.randbytes(file_bytes) for _ in range(n_files)]
+
+
+def _cli(root: Path, cwd: str, port: int, *argv: str) -> tuple[str, float]:
+    """One ``python -m dfs_tpu_torch.cli.main`` run against ``port``, as a
+    user runs it: (stdout, seconds). A non-zero exit fails the run."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "dfs_tpu_torch.cli.main", "--port",
+         str(port), "--timeout", "300", *argv], cwd=cwd,
+        env=dict(os.environ, PYTHONPATH=str(root)), capture_output=True,
+        text=True, timeout=300)
+    check(r.returncode == 0, f"cli {argv} exited {r.returncode}: "
+          f"{r.stderr[-800:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def cluster_client_phase(root: Path, np, params, kernels) -> dict:
+    """The ``cluster_client`` phase (module docstring): bench_client.py's
+    four gates with the port's SmartClient in this process, then the
+    resumed upload and the ``--smart`` commands through the CLI and a
+    refused commit. Returns this process's kernel launches from step (a)
+    to the end of step (d)."""
+    from dfs_tpu_torch.cli.client import NodeClient
+    from dfs_tpu_torch.client import SmartClient
+    from dfs_tpu_torch.config import ClientConfig
+    from dfs_tpu_torch.ops import cdc_anchored as A
+
+    t_phase = time.perf_counter()
+    out: dict = {"phase": "cluster_client", "nodes": CLIENT_NODES,
+                 "flags": list(CLIENT_FLAGS)}
+
+    def smart(port: int, **kw) -> SmartClient:
+        kw.setdefault("fallback", False)
+        return SmartClient(port=port, cfg=ClientConfig(**kw),
+                           timeout_s=300.0)
+
+    def table_of(port: int, fid: str) -> list:
+        doc = _get_json(port, f"/manifest?fileId={fid}")
+        return [(c["offset"], c["length"], c["digest"])
+                for c in doc["chunks"]]
+
+    with serve_cluster(root, ".chip_smoke_client_", CLIENT_FLAGS,
+                       nodes=CLIENT_NODES) as cl:
+        port = cl.port
+        legacy = {i: NodeClient(port=p, timeout_s=300.0)
+                  for i, p in port.items()}
+        out["start_s"] = cl.start_s
+
+        # (a) dedup_reupload: 8 x 4 MiB up through node 1, the filters
+        # synced, one contiguous 1% region xor-mutated, everything again
+        # through a fresh client at node 2
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        corpus = _randbytes(8, CLIENT_FILE_BYTES, 19)
+        total = sum(len(b) for b in corpus)
+        c1 = smart(port[1])
+        for i, data in enumerate(corpus):
+            info = c1.upload(data, name=f"base{i}.bin")
+            check(info["dataPlane"] == "smart", f"(a) upload {i}: {info}")
+            if i < 2:
+                check(table_of(port[1], info["fileId"])
+                      == A.chunk_file_anchored_np(
+                          np.frombuffer(data, np.uint8), params),
+                      f"(a) upload {i}: table != numpy oracle")
+        up1_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        while not _peers_synced(port)[0]:
+            check(time.perf_counter() - t1 < 30, "(a) filters never synced")
+            time.sleep(0.3)
+        sync_s = time.perf_counter() - t1
+        region = total // 100
+        mid = len(corpus) // 2
+        mut = bytearray(corpus[mid])
+        start = len(mut) // 3
+        for i in range(start, min(len(mut), start + region)):
+            mut[i] ^= 0xA5
+        corpus[mid] = bytes(mut)
+        t1 = time.perf_counter()
+        c2 = smart(port[2])
+        for i, data in enumerate(corpus):
+            info = c2.upload(data, name=f"re{i}.bin")
+            check(info["dataPlane"] == "smart", f"(a) re-upload {i}: {info}")
+        up2_s = time.perf_counter() - t1
+        sent = c2.counters["transferredBytes"]
+        ratio = sent / (2 * total)
+        same = legacy[3].download(hashlib.sha256(corpus[mid]).hexdigest()) \
+            == corpus[mid]
+        out["a"] = {"corpus_bytes": total, "mutated_bytes": region,
+                    "payload_sent": sent, "sent_ratio": ratio,
+                    "budget_ratio": 0.03, "legacy_identical": same,
+                    "verify_rpcs": c2.counters["verifyRpcs"],
+                    "probe_rpcs": c2.counters["probeRpcs"],
+                    "dedup_skipped_bytes": c2.counters["dedupSkippedBytes"],
+                    "upload_s": up1_s, "filter_sync_s": sync_s,
+                    "reupload_s": up2_s,
+                    "seconds": time.perf_counter() - t0}
+        emit({"phase": "cluster_client:a", **out["a"]})
+        check(ratio <= 0.03, f"(a) re-upload sent {ratio:.4f} of the "
+              "replicated corpus (> 0.03)")
+        check(same, "(a) the mutated file differs through node 3")
+
+        # (b) striped_speedup: 0.1 s on every storage-plane RPC of every
+        # node; the files read through node 1's relay, then striped
+        t0 = time.perf_counter()
+        files = _randbytes(6, CLIENT_STRIPED_BYTES, 47)
+        cs = smart(port[1])
+        fids = [cs.upload(d, name=f"s{i}.bin")["fileId"]
+                for i, d in enumerate(files)]
+        for p in port.values():
+            _chaos(p, {"rpc_delay_s": 0.1})
+        try:
+            t1 = time.perf_counter()
+            for fid, want in zip(fids, files):
+                check(legacy[1].download(fid) == want,
+                      "(b) relay download differs")
+            t_legacy = time.perf_counter() - t1
+            reader = smart(port[1])
+            t1 = time.perf_counter()
+            for fid, want in zip(fids, files):
+                check(reader.download(fid) == want,
+                      "(b) striped download differs")
+            t_smart = time.perf_counter() - t1
+        finally:
+            for p in port.values():
+                _chaos(p, {"rpc_delay_s": 0.0})
+        speedup = t_legacy / max(t_smart, 1e-9)
+        out["b"] = {"files": len(files), "file_bytes": CLIENT_STRIPED_BYTES,
+                    "legacy_s": t_legacy, "striped_s": t_smart,
+                    "speedup": speedup, "floor": 2.0,
+                    "smart_downloads": reader.counters["smartDownloads"],
+                    "seconds": time.perf_counter() - t0}
+        emit({"phase": "cluster_client:b", **out["b"]})
+        check(reader.counters["smartDownloads"] == len(files),
+              "(b) a striped read fell back")
+        check(speedup >= 2.0, f"(b) striped speedup {speedup:.2f} < 2.0")
+
+        # (c) verified_stale_and_slow: client hedging on, one peer's filter
+        # replica all ones at the client, node 3 serving 0.25 s late
+        t0 = time.perf_counter()
+        data_c = _randbytes(1, 8 * 1024 * 1024, 83)[0]
+        cc = smart(port[1], hedge_budget_per_s=20.0, hedge_floor_s=0.05,
+                   hedge_cap_s=0.5)
+        cc.upload(_randbytes(1, 64 * 1024, 5)[0], name="warm.bin")
+        check(bool(cc._filters), "(c) the client fetched no filters")
+        victim = sorted(cc._filters)[0]
+        buf = cc._filters[victim]["bloom"].buf
+        buf[:] = b"\xff" * len(buf)
+        _chaos(port[CLIENT_NODES], {"serve_delay_s": 0.25})
+        try:
+            info = cc.upload(data_c, name="fresh.bin")
+            check(info["dataPlane"] == "smart", f"(c) upload: {info}")
+            got = cc.download(info["fileId"])
+        finally:
+            _chaos(port[CLIENT_NODES], {"serve_delay_s": 0.0})
+        fid_c = info["fileId"]
+        every = all(legacy[i].download(fid_c) == data_c for i in port)
+        out["c"] = {"chunks": info["chunks"], "victim": victim,
+                    "identical_smart": got == data_c,
+                    "identical_every_node": every,
+                    "chunks_verified": cc.counters["chunksVerified"],
+                    "filter_fp": cc.counters["filterFp"],
+                    "healed_chunks": cc.counters["healedChunks"],
+                    "hedge": cc._hedge.stats(),
+                    "seconds": time.perf_counter() - t0}
+        emit({"phase": "cluster_client:c", **out["c"]})
+        check(got == data_c and every, "(c) bytes differ")
+        check(cc.counters["chunksVerified"] >= info["chunks"],
+              "(c) not every chunk verified at the client")
+        check(cc.counters["filterFp"] > 0, "(c) the stale filter never hit")
+
+        # (d) interop: the legacy client, a client pinned to the legacy
+        # path, and the smart path reading what the legacy path wrote
+        t0 = time.perf_counter()
+        data_d = _randbytes(1, 300 * 1024, 7)[0]
+        info = legacy[1].upload(data_d, "legacy.bin")
+        legacy_ok = legacy[1].download(info["fileId"]) == data_d
+        pinned = SmartClient(port=port[2], cfg=ClientConfig(),
+                             timeout_s=300.0)
+        pinned._boot = False
+        info2 = pinned.upload(data_d, "pinned.bin")
+        pinned_ok = info2["dataPlane"] == "legacy" \
+            and info2["fileId"] == info["fileId"] \
+            and pinned.download(info2["fileId"]) == data_d
+        cross = smart(port[3]).download(info["fileId"]) == data_d
+        launches = path_launches(kernels, "cluster_client",
+                                 ("strip_chunk_states", "repack_lanes",
+                                  "bswap_transpose", "select_walk"))
+        out["d"] = {"legacy_ok": legacy_ok, "pinned_ok": pinned_ok,
+                    "cross_read_ok": cross,
+                    "seconds": time.perf_counter() - t0}
+        emit({"phase": "cluster_client:d", **out["d"],
+              "launches": launches})
+        check(legacy_ok and pinned_ok and cross, f"(d) interop {out['d']}")
+
+        # (e) the CLI: a resumed upload of (c)'s body with 8 MiB appended,
+        # --smart up and down, then a commit naming a digest nobody holds
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_cli_",
+                                         dir=root) as wd:
+            f = Path(wd) / "resume.bin"
+            body_e = data_c + _randbytes(1, 8 * 1024 * 1024, 84)[0]
+            f.write_bytes(body_e)
+            g = Path(wd) / "smart.bin"
+            body_g = _randbytes(1, 4 * 1024 * 1024, 85)[0]
+            g.write_bytes(body_g)
+            fid_g = hashlib.sha256(body_g).hexdigest()
+
+            def smart_round_trip():
+                up = _cli(root, wd, port[1], "upload", "--smart", str(g))
+                return up, _cli(root, wd, port[3], "download", "--smart",
+                                fid_g, "--out", "dl")
+
+            # the resume at node 2 runs beside the --smart upload at node 1
+            # and its --smart download at node 3 (two users; each process
+            # mostly starts up)
+            with concurrent.futures.ThreadPoolExecutor(2) as ex:
+                resume = ex.submit(_cli, root, wd, port[2], "upload",
+                                   "--resume", str(f))
+                smart_rt = ex.submit(smart_round_trip)
+                (text, resume_s) = resume.result()
+                ((text_up, smart_up_s),
+                 (text_down, smart_down_s)) = smart_rt.result()
+            m = re.search(r"fileId=([0-9a-f]{64}) chunks=(\d+) "
+                          r"clientSent=(\d+)B of (\d+)B", text)
+            check(m is not None, f"(e) resume output: {text!r}")
+            sent_e = int(m.group(3))
+            check(m.group(1) == hashlib.sha256(body_e).hexdigest(),
+                  "(e) resume fileId != sha256")
+            check(sent_e <= 0.6 * len(body_e),
+                  f"(e) resume sent {sent_e} of {len(body_e)} B")
+            check(legacy[1].download(m.group(1)) == body_e,
+                  "(e) resumed file differs")
+            check(text_up.startswith("Uploaded (smart): "),
+                  f"(e) --smart upload: {text_up!r}")
+            check(text_down.startswith("dataPlane=smart"),
+                  f"(e) --smart download: {text_down!r}")
+            check((Path(wd) / "dl" / "smart.bin").read_bytes() == body_g,
+                  "(e) --smart round trip differs")
+        ghost = hashlib.sha256(b"held by nobody").hexdigest()
+        fid_x = hashlib.sha256(b"ghost stream").hexdigest()
+        meta = json.dumps({"fileId": fid_x, "size": 10,
+                           "chunks": [[0, 10, ghost]]}).encode()
+        st, _, text = _http(port[1], "POST", "/commit?name=ghost.bin",
+                            body=len(meta).to_bytes(4, "big") + meta,
+                            timeout=60)
+        st_m = _http(port[1], "GET", f"/manifest?fileId={fid_x}",
+                     timeout=60)[0]
+        out["e"] = {"resume_bytes": len(body_e), "resume_client_sent": sent_e,
+                    "resume_sent_ratio": sent_e / len(body_e),
+                    "resume_s": resume_s, "smart_up_s": smart_up_s,
+                    "smart_down_s": smart_down_s, "ghost_commit": st,
+                    "ghost_manifest": st_m,
+                    "seconds": time.perf_counter() - t0}
+        emit({"phase": "cluster_client:e", **out["e"]})
+        check(st == 409, f"(e) ghost commit answered {st}: {text[:200]}")
+        check(st_m == 404, f"(e) ghost manifest answered {st_m}")
+        counters = {i: {k: m_.get(k) for k in (
+            "uploads_committed", "uploads_resumed", "probe_failures",
+            "commit_probe_failures")} for i, m_ in
+            ((i, _metrics(p)) for i, p in port.items())}
+    out["node_counters"] = counters
+    out["seconds"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    emit({"phase": "cluster_client", "seconds": out["seconds"],
+          "start_s": out["start_s"], "node_counters": counters,
+          "launches": launches, "bound_s": CLIENT_PHASE_BOUND_S})
+    check(out["seconds"] <= CLIENT_PHASE_BOUND_S,
+          f"cluster_client took {out['seconds']:.1f} s "
+          f"(bound {CLIENT_PHASE_BOUND_S} s)")
+    return launches
+
+
+def region_inputs(rng, dev, np) -> types.SimpleNamespace:
+    """One 64 MiB region (``rng``'s first draw) at the default parameters,
+    through the port's own plain anchor pass: the words, the chain's shape,
+    the anchor tiles and the walk's scalars."""
+    import torch
+
+    from dfs_tpu_torch.ops import cdc_anchored as A
+
+    params = A.AnchoredCdcParams()
+    region = rng.integers(0, 256, size=REGION_BYTES, dtype=np.uint8)
+    words = A.words_tensor(A.region_buffer(region, np.zeros(8, np.uint8),
+                                           params)).to(dev)
+    shape = A.make_chain_fn(params, words.shape[0], 128, "tight").shape
+    tiles = A.anchor_tiles(words, params, shape["m_words"])
+    scal = torch.tensor([0, REGION_BYTES, 1], dtype=torch.int32, device=dev)
+    return types.SimpleNamespace(params=params, words=words, shape=shape,
+                                 tiles=tiles, scal=scal)
+
+
+def strip_refs(out_path: str) -> int:
+    """``chip_smoke.py --strip-refs OUT``, the child process ``main``
+    starts beside the cluster phases: kernels 1 and 5 against their plain
+    versions on the region's full-shape inputs (the plain versions walk
+    the 2048 blocks in Python, ~40 s each, one timed run). Kernels 2-4
+    make the inputs, as on the main path (``main`` holds them to their
+    plain versions). Writes the errors and the plain times to
+    ``out_path`` as JSON."""
+    import numpy as np
+    import torch
+
+    from dfs_tpu_torch.ops import cdc_anchored as A
+    from dfs_tpu_torch.ops.layout import bswap_transpose
+    from dfs_tpu_torch.ops.repack import repack_lanes
+    from dfs_tpu_torch.ops.select import select_walk
+    from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
+                                                strip_chunk_states_plain,
+                                                strip_states,
+                                                strip_states_plain,
+                                                zero_dead_states)
+
+    dev = torch.device("cuda", 0)
+    r = region_inputs(np.random.default_rng(SEED), dev, np)
+    p, cp = r.params, r.params.chunk
+    b_k = select_walk(r.tiles, r.scal, r.shape["cap"], p.seg_min, p.seg_max)
+    (_, _, w_off, sh8, real_blocks, _, _, _) = A.descriptors(
+        b_k, r.scal[0], r.shape["s_pad"])
+    t_k = bswap_transpose(repack_lanes(r.words, w_off, sh8,
+                                       cp.strip_blocks * 16))
+    args = (t_k, real_blocks, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
+    out_k = strip_chunk_states(*args)
+    s_k = strip_states(t_k, out_k[0])
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    out_p, k1_ms = timed(lambda: strip_chunk_states_plain(*args))
+    k1_err = max(max_abs_err(out_k[0], out_p[0]),
+                 max_abs_err(out_k[1], out_p[1]),
+                 max_abs_err(out_k[2], zero_dead_states(out_p[2],
+                                                        out_p[0])))
+    del out_p
+    s_p, k5_ms = timed(lambda: strip_states_plain(t_k, out_k[0]))
+    k5_err = max_abs_err(s_k, zero_dead_states(s_p, out_k[0]))
+    Path(out_path).write_text(json.dumps({
+        "strip_chunk_states": {"err": k1_err, "plain_ms": k1_ms},
+        "strip_states": {"err": k5_err, "plain_ms": k5_ms}}))
+    return 0
+
+
 def device_trace_phase(body: bytes, table: list, kernels) -> dict:
     """Step (f) of ``cluster_chaos``: one ``AnchoredCudaFragmenter.chunk``
     of the 64 MiB body inside ``device_trace`` and an ``upload.fragment``
@@ -2360,10 +2770,7 @@ def main() -> int:
     from dfs_tpu_torch.ops.select import select_walk, select_walk_plain
     from dfs_tpu_torch.ops.sha256_strip import (live_state_rows,
                                                 strip_chunk_states,
-                                                strip_chunk_states_plain,
-                                                strip_states,
-                                                strip_states_plain,
-                                                zero_dead_states)
+                                                strip_states)
     from dfs_tpu_torch.parallel import sharded_cdc as S
     from dfs_tpu_torch.parallel.mesh import make_mesh
 
@@ -2388,17 +2795,13 @@ def main() -> int:
 
     # ---- one 64 MiB region at the default parameters, through the
     # port's own plain anchor pass and descriptors ----
-    params = A.AnchoredCdcParams()
-    cp = params.chunk
     rng = np.random.default_rng(SEED)
-    region = rng.integers(0, 256, size=REGION_BYTES, dtype=np.uint8)
-    words = A.words_tensor(A.region_buffer(region, np.zeros(8, np.uint8),
-                                           params)).to(dev)
-    shape = A.make_chain_fn(params, words.shape[0], 128, "tight").shape
+    reg = region_inputs(rng, dev, np)
+    params, words, shape, tiles, scal = (reg.params, reg.words, reg.shape,
+                                         reg.tiles, reg.scal)
+    cp = params.chunk
     m_words, cap, s_pad = shape["m_words"], shape["cap"], shape["s_pad"]
     lane_words = cp.strip_blocks * 16
-    tiles = A.anchor_tiles(words, params, m_words)
-    scal = torch.tensor([0, REGION_BYTES, 1], dtype=torch.int32, device=dev)
     torch.cuda.synchronize()
     rows = []
 
@@ -2481,27 +2884,22 @@ def main() -> int:
                f"full shape: [{s_pad}, {lane_words}] -> transposed")
     del t_p
 
-    # K1: Gear candidates + selection + SHA-256, full shape both ways (the
-    # plain version walks the 2048 blocks in Python: one timed run).
-    # cutflag and since exact on every row; states exact on the live rows
-    # and 0 on the dead ones (the plain states with their dead rows zeroed)
+    # K1 and K5 at full shape: timed here; held against their plain
+    # versions (which walk the 2048 blocks in Python, ~40 s each) by the
+    # child process ``strip_refs`` on the same inputs, started beside the
+    # cluster phases and read before the table. cutflag and since exact on
+    # every row; states exact on the live rows and 0 on the dead ones (the
+    # plain states with their dead rows zeroed); K5's states == K1's here
     args = (t_k, real_blocks, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
     out_k = strip_chunk_states(*args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out_p = strip_chunk_states_plain(*args)
-    end.record()
-    end.synchronize()
-    k1_plain_ms = start.elapsed_time(end)
     cf_k = out_k[0]
     live = live_state_rows(cf_k)
     dead_rows = int((~live).sum())
-    err = max(max_abs_err(out_k[0], out_p[0]), max_abs_err(out_k[1], out_p[1]),
-              max_abs_err(out_k[2], zero_dead_states(out_p[2], out_p[0])))
     live_blocks = int(real_blocks.sum())
     longest = int(out_k[1].max())
+    s_k = strip_states(t_k, cf_k)
+    check(max_abs_err(s_k, out_k[2]) == 0,
+          "strip_states disagrees with strip_chunk_states' states")
 
     def chain_info(ms):
         floor_ms = longest * CHAIN_CYCLES_PER_COMPRESSION / BOOST_HZ * 1e3
@@ -2511,36 +2909,18 @@ def main() -> int:
                 "live_rows": int(live.sum()), "dead_rows": dead_rows}
 
     k1_t = kernel_times(lambda: strip_chunk_states(*args), single_reps=10)
-    kernel_row("strip_chunk_states", err, k1_t, k1_plain_ms,
-               nbytes(t_k, real_blocks, *out_k),
-               live_blocks * K1_OPS_PER_BLOCK,
-               f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
-               f"({live_blocks} live); states on live rows, dead rows 0",
-               **chain_info(k1_t["ms"]))
-    del out_p
-
-    # K5: the strip scan with K1's cuts at the same pass-B shape — against
-    # its plain version on the live rows (one timed run: 2048 blocks in
-    # Python) and against K1's states, bit for bit, dead rows included
-    s_k = strip_states(t_k, cf_k)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    s_p = strip_states_plain(t_k, cf_k)
-    end.record()
-    end.synchronize()
-    k5_plain_ms = start.elapsed_time(end)
-    check(max_abs_err(s_k, out_k[2]) == 0,
-          "strip_states disagrees with strip_chunk_states' states")
     k5_t = kernel_times(lambda: strip_states(t_k, cf_k), single_reps=10)
-    kernel_row("strip_states", max_abs_err(s_k, zero_dead_states(s_p, cf_k)),
-               k5_t, k5_plain_ms, nbytes(t_k, cf_k, s_k),
-               live_blocks * K5_OPS_PER_BLOCK,
-               f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
-               f"({live_blocks} live), K1's cutflag; states on live rows, "
-               "dead rows 0; states == K1's", **chain_info(k5_t["ms"]))
-    del s_p, s_k
+    strip_rows = [
+        ("strip_chunk_states", k1_t, nbytes(t_k, real_blocks, *out_k),
+         live_blocks * K1_OPS_PER_BLOCK,
+         f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
+         f"({live_blocks} live); states on live rows, dead rows 0"),
+        ("strip_states", k5_t, nbytes(t_k, cf_k, s_k),
+         live_blocks * K5_OPS_PER_BLOCK,
+         f"full shape: {s_pad} lanes x {cp.strip_blocks} blocks "
+         f"({live_blocks} live), K1's cutflag; states on live rows, "
+         "dead rows 0; states == K1's")]
+    del s_k
 
     # where one region's time goes, stage by stage (device time, one event
     # pair per call as in earlier runs, so the columns stay comparable)
@@ -2651,20 +3031,46 @@ def main() -> int:
     launches["cluster_obs_off"] = timed_phase(
         "cluster_obs_off", cluster_obs_off_phase, root, blocks, oracle,
         len(body), cluster_upload_s)
-    launches["cluster_sim"] = timed_phase(
-        "cluster_sim", cluster_sim_phase, root, ec_body, ec_table, params,
-        np)
+    # the ring phase, bound to 180 s, runs early, before the phases that
+    # write and delete the most
+    launches["cluster_ring"] = timed_phase(
+        "cluster_ring", cluster_ring_phase, root, np, params)
     launches["cluster_serve"] = timed_phase(
         "cluster_serve", cluster_serve_phase, root, body, blocks, oracle,
         cluster_download_s)
-    launches["cluster_index_tier"] = timed_phase(
-        "cluster_index_tier", cluster_index_tier_phase, root, ec_body,
-        ec_table, params, np)
+    # cluster_sim and cluster_index_tier run side by side, and the K1/K5
+    # plain references in a child beside them: nothing compares these
+    # phases' seconds, and their device work is in the nodes' processes
+    refs_path = Path(tempfile.mkdtemp(prefix=".chip_smoke_refs_",
+                                      dir=root)) / "strip_refs.json"
+    refs_proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--strip-refs",
+         str(refs_path)], cwd=root)
+    atexit.register(lambda: refs_proc.poll() is None and refs_proc.kill())
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        sim = ex.submit(timed_phase, "cluster_sim", cluster_sim_phase, root,
+                        ec_body, ec_table, params, np)
+        tier = ex.submit(timed_phase, "cluster_index_tier",
+                         cluster_index_tier_phase, root, ec_body, ec_table,
+                         params, np)
+        launches["cluster_sim"] = sim.result()
+        launches["cluster_index_tier"] = tier.result()
     launches["cluster_chaos"] = timed_phase(
         "cluster_chaos", cluster_chaos_phase, root, ec_body, ec_table, np,
         stage_ms["whole_chain"])
-    launches["cluster_ring"] = timed_phase(
-        "cluster_ring", cluster_ring_phase, root, np, params)
+    launches["cluster_client"] = timed_phase(
+        "cluster_client", cluster_client_phase, root, np, params, kernels)
+    t0 = time.perf_counter()
+    check(refs_proc.wait(timeout=900) == 0,
+          f"the strip_refs child exited {refs_proc.returncode}")
+    refs = json.loads(refs_path.read_text())
+    refs_path.unlink()
+    refs_path.parent.rmdir()
+    phase_s["strip_refs_wait"] = time.perf_counter() - t0
+    for name, t, in_bytes, ops, note in strip_rows:
+        kernel_row(name, refs[name]["err"], t, refs[name]["plain_ms"],
+                   in_bytes, ops, note, **chain_info(t["ms"]),
+                   plain_in_child_beside_clusters=True)
     launches["device_trace"] = timed_phase(
         "device_trace", device_trace_phase, ec_body, ec_table, kernels)
 
@@ -2733,4 +3139,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--strip-refs":
+        sys.exit(strip_refs(sys.argv[2]))
     sys.exit(main())

@@ -70,9 +70,29 @@ list), rooted fresh or adopted from an ``X-Dfs-Trace: <trace32hex>-
 its latency recorded under the span name, the trace id as the bucket's
 exemplar.
 
-Every other route answers 404: dfs_tpu's ``/chunking``, ``/dataplane``,
-``/commit``, ``/missing`` and ``/upload_resume`` are not ported yet.
-Query strings are URL-decoded; a malformed fileId is a 400.
+The resumable upload and the smart client's routes, with dfs_tpu's
+frames and answers:
+
+    GET    /chunking             {"fragmenter", "describe"}: the chunking
+                                 parameters a client reproduces the
+                                 boundaries with (404 "Fragmenter not
+                                 resume-describable" without them)
+    GET    /dataplane            ring map, peers' addresses, rf, write
+                                 quorum, chunking and filter state
+    POST   /missing              a JSON list of digests -> {"missing":
+                                 [...]}, those held nowhere reachable
+    POST   /upload_resume?name=  [u32 json length][json {fileId, size,
+                                 chunks, provided}][the provided payloads
+                                 in listed order] -> 201
+    POST   /commit?name=         [u32 json length][json {fileId, size,
+                                 chunks}]: the chunks are already at their
+                                 owners -> 201, or 409 when some are held
+                                 nowhere
+
+Both bodies take the upload admission gate before they are read; 411
+without a Content-Length, 413 too big, 400 on a bad frame or fileId, 409
+on chunks the cluster lacks. Every other route answers 404. Query
+strings are URL-decoded; a malformed fileId is a 400.
 """
 
 from __future__ import annotations
@@ -101,15 +121,18 @@ MAX_BODY = 4 * 1024 * 1024 * 1024
 STREAM_BODY_BYTES = 64 * 1024 * 1024
 # the routes ServeConfig.default_deadline_s applies to (the client data
 # plane); an explicit X-Dfs-Deadline header is honoured on any route
-_DEADLINE_DEFAULT_ROUTES = frozenset({"/download", "/upload", "/manifest",
-                                      "/files"})
+_DEADLINE_DEFAULT_ROUTES = frozenset({"/download", "/upload",
+                                      "/upload_resume", "/missing",
+                                      "/chunking", "/manifest", "/files",
+                                      "/commit"})
 # routes whose fixed path may name a span; any other path is "http.other",
 # so a client's path never mints span or histogram names
 _TRACED_ROUTES = frozenset({"/status", "/files", "/metrics", "/manifest",
                             "/upload", "/download", "/scrub", "/repair",
                             "/trace", "/events", "/chaos", "/tier",
                             "/doctor", "/census", "/metrics/history",
-                            "/ring"})
+                            "/ring", "/chunking", "/missing",
+                            "/upload_resume", "/dataplane", "/commit"})
 
 
 def _head(status: int, length: int, content_type: str,
@@ -480,6 +503,32 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
         if m is None:
             return plain(404, "File not found")
         return _resp(200, m.to_json().encode(), "application/json")
+    if method == "GET" and path == "/chunking":
+        try:
+            desc = node.fragmenter.describe()
+        except NotImplementedError:
+            return plain(404, "Fragmenter not resume-describable")
+        return as_json(200, {"fragmenter": node.fragmenter.name,
+                             "describe": desc})
+    if method == "GET" and path == "/dataplane":
+        return as_json(200, node.dataplane_info())
+    if method == "POST" and path in ("/commit", "/upload_resume"):
+        return await _handle_framed(node, reader, path, query,
+                                    content_length)
+    if method == "POST" and path == "/missing":
+        if content_length is None:
+            return plain(411, "Length Required")
+        if content_length > 64 * 1024 * 1024:
+            return plain(413, "Payload Too Large")
+        try:
+            digests = json.loads(await reader.readexactly(content_length))
+            if (not isinstance(digests, list)
+                    or not all(isinstance(d, str) for d in digests)):
+                raise ValueError("want a JSON list of digest strings")
+        except (ValueError, UnicodeDecodeError) as e:
+            return plain(400, f"Bad digest list: {e}")
+        return as_json(200,
+                       {"missing": await node.missing_digests(digests)})
     if method == "POST" and path == "/upload":
         ec_k = 0
         if query.get("ec"):
@@ -579,6 +628,79 @@ async def _route(node: "StorageNodeServer", reader: asyncio.StreamReader,
         return plain(200 if found else 404,
                      "Deleted" if found else "File not found")
     return plain(404, "Not found")
+
+
+def _parse_frame(raw: bytes, with_payloads: bool):
+    """``[u32 json length][json]`` and, for a resume, the provided
+    payloads after it in listed order: (table, fileId, size, provided).
+    Raises KeyError/ValueError/TypeError on a bad frame."""
+    jlen = int.from_bytes(raw[:4], "big")
+    meta = json.loads(raw[4:4 + jlen])
+    off = 4 + jlen
+    if not with_payloads and off != len(raw):
+        raise ValueError("trailing bytes after table")
+    table = [(int(o), int(ln), str(dg)) for o, ln, dg in meta["chunks"]]
+    provided: dict[str, bytes] = {}
+    if with_payloads:
+        lengths = {dg: ln for _, ln, dg in table}
+        for dg in meta["provided"]:
+            ln = lengths[dg]
+            provided[dg] = raw[off:off + ln]
+            off += ln
+        if off != len(raw):
+            raise ValueError("payload section length mismatch")
+    return table, str(meta["fileId"]), int(meta["size"]), provided
+
+
+async def _handle_framed(node: "StorageNodeServer",
+                         reader: asyncio.StreamReader, path: str,
+                         query: dict, content_length: int | None) -> bytes:
+    """``POST /commit`` (the table alone: the smart client striped the
+    payloads to their owners) and ``POST /upload_resume`` (the table and
+    the payloads the cluster lacked). The upload gate is taken before the
+    body is read."""
+    from dfs_tpu_torch.comm.rpc import DeadlineExpired
+    from dfs_tpu_torch.node.runtime import DeadlineExceeded, UploadError
+    from dfs_tpu_torch.serve import ShedError
+
+    resume = path == "/upload_resume"
+    if content_length is None:
+        return plain(411, "Length Required")
+    if content_length > (MAX_BODY if resume else 64 * 1024 * 1024):
+        return plain(413, "Payload Too Large")
+    gate = node.serve.admission.upload
+    try:
+        await gate.acquire()
+    except ShedError as e:
+        return _shed(node, e)
+    try:
+        raw = await reader.readexactly(content_length)
+        try:
+            table, file_id, size, provided = _parse_frame(raw, resume)
+        except (KeyError, ValueError, TypeError) as e:
+            what = "resume" if resume else "commit"
+            return plain(400, f"Bad {what} frame: {e}")
+        if not is_hex_digest(file_id):
+            return plain(400, "Bad fileId")
+        name = query.get("name", "")
+        try:
+            if resume:
+                manifest, stats = await node.upload_resume(
+                    table, name, file_id, size, provided)
+            else:
+                manifest, stats = await node.commit_manifest(
+                    table, name, file_id, size)
+        except (DeadlineExpired, DeadlineExceeded) as e:
+            return _deadline_503(node, e)
+        except UploadError as e:
+            # 409: chunks the cluster lacks (the client falls back to a
+            # full upload); 400: a bad table; 500: placement failed
+            return plain(e.status, str(e))
+        return as_json(201, {"fileId": manifest.file_id,
+                             "name": manifest.name, "size": manifest.size,
+                             "chunks": manifest.total_chunks, **stats})
+    finally:
+        gate.release()
 
 
 async def _handle_upload(node: "StorageNodeServer",

@@ -1,6 +1,8 @@
 """Synchronous HTTP client of one node (a copy of the parts of dfs_tpu's
 ``cli/client.py`` that the port's routes serve), on urllib. A
-``trace_id`` on upload or download rides the ``X-Dfs-Trace`` header."""
+``trace_id`` on upload or download rides the ``X-Dfs-Trace`` header.
+``upload_resume`` chunks the body in this process, on the CUDA card
+unless ``device="cpu"`` is asked for."""
 
 from __future__ import annotations
 
@@ -78,10 +80,69 @@ class NodeClient:
         return json.loads(self._request("POST", f"/upload?{q}",
                                         body=iter(blocks)))
 
+    def chunking(self) -> dict:
+        return json.loads(self._request("GET", "/chunking"))
+
+    def missing(self, digests: list[str]) -> list[str]:
+        body = json.dumps(digests).encode()
+        return json.loads(self._request(
+            "POST", "/missing", body=body))["missing"]
+
+    def upload_resume(self, data: bytes, name: str,
+                      trace_id: str | None = None, device=None) -> dict:
+        """Resumable upload: chunk locally with the node's advertised
+        parameters (on ``device``: None is the CUDA card, raising without
+        one; "cpu" the plain versions), ask which digests the cluster
+        lacks, and send only those payloads with the table. Returns the
+        node's reply plus ``clientBytesSent``. A node without a
+        describable fragmenter gets a plain upload; a 409 (a chunk
+        vanished between the probe and the resume) falls back to one."""
+        from dfs_tpu_torch.fragmenter.base import fragmenter_from_description
+        from dfs_tpu_torch.utils.hashing import sha256_hex
+
+        try:
+            desc = self.chunking()
+        except RuntimeError:
+            out = self.upload(data, name, trace_id=trace_id)
+            out["clientBytesSent"] = len(data)
+            return out
+        frag = fragmenter_from_description(desc["describe"], device=device)
+        refs = frag.chunk(data)
+        by_digest = {c.digest: c for c in refs}        # first occurrence
+        missing = set(self.missing(list(by_digest)))
+        provided = [(d, data[c.offset:c.offset + c.length])
+                    for d, c in by_digest.items() if d in missing]
+        meta = json.dumps({
+            "fileId": sha256_hex(data),
+            "size": len(data),
+            "chunks": [[c.offset, c.length, c.digest] for c in refs],
+            "provided": [d for d, _ in provided]}).encode()
+        body = (len(meta).to_bytes(4, "big") + meta
+                + b"".join(b for _, b in provided))
+        q = urllib.parse.urlencode({"name": name})
+        try:
+            out = json.loads(self._request(
+                "POST", f"/upload_resume?{q}", body=body,
+                headers=self._trace_headers(trace_id)))
+        except RuntimeError as e:
+            if "HTTP 409" not in str(e):
+                raise
+            out = self.upload(data, name, trace_id=trace_id)
+            out["clientBytesSent"] = len(body) + len(data)
+            return out
+        out["clientBytesSent"] = len(body)
+        return out
+
     def download(self, file_id: str, trace_id: str | None = None) -> bytes:
         q = urllib.parse.urlencode({"fileId": file_id})
         return self._request("GET", f"/download?{q}",
                              headers=self._trace_headers(trace_id))
+
+    def download_range(self, file_id: str, start: int, end: int) -> bytes:
+        """Bytes [start, end) through an HTTP Range request (206)."""
+        q = urllib.parse.urlencode({"fileId": file_id})
+        return self._request("GET", f"/download?{q}",
+                             headers={"Range": f"bytes={start}-{end - 1}"})
 
     def manifest(self, file_id: str) -> dict:
         q = urllib.parse.urlencode({"fileId": file_id})

@@ -20,13 +20,19 @@ subcommands talk HTTP to one.
     python -m dfs_tpu_torch.cli.main --port 7101 ring add 4
     python -m dfs_tpu_torch.cli.main --port 7101 ring drain 4
     python -m dfs_tpu_torch.cli.main --port 7101 census   # also df, doctor
+    python -m dfs_tpu_torch.cli.main --port 7101 upload --resume f.bin
+    python -m dfs_tpu_torch.cli.main --port 7101 upload --smart f.bin
+    python -m dfs_tpu_torch.cli.main --port 7102 download --smart <fileId>
+    python -m dfs_tpu_torch.cli.main --port 7101 menu     # interactive
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
-non-zero unless ``--device cpu`` asks for the plain versions. Tracing, the
-journal and the sentinel are on by default (``--trace-ring 0
+non-zero unless ``--device cpu`` asks for the plain versions. So do
+``upload --resume`` and ``upload --smart``, which chunk in the client's
+own process; ``download --smart`` never chunks and needs no card.
+Tracing, the journal and the sentinel are on by default (``--trace-ring 0
 --journal-bytes 0 --sentinel-interval 0`` turns them off). Subcommands:
 serve, status, list, upload, download, delete, metrics, events, trace,
-doctor, census, df, ring.
+doctor, census, df, ring, menu.
 """
 
 from __future__ import annotations
@@ -49,6 +55,45 @@ from dfs_tpu_torch.config import (CDCParams, CensusConfig, ChaosConfig,
 def _client(args) -> NodeClient:
     return NodeClient(host=args.host, port=args.port,
                       timeout_s=args.timeout)
+
+
+def _smart_client(args):
+    """``--smart``: the SmartClient built from the ``--client-*`` knobs,
+    chunking on ``--device``; it degrades to the coordinator path unless
+    ``--client-no-fallback``."""
+    from dfs_tpu_torch.client import SmartClient
+    from dfs_tpu_torch.config import ClientConfig
+
+    cfg = ClientConfig(
+        window=args.client_window,
+        stripe=args.client_stripe,
+        hedge_budget_per_s=args.client_hedge_budget,
+        hedge_floor_s=args.client_hedge_floor,
+        hedge_cap_s=args.client_hedge_cap,
+        filter_max_age_s=args.client_filter_max_age,
+        echo_cache_entries=args.client_echo_cache,
+        fallback=not args.client_no_fallback,
+    )
+    return SmartClient(host=args.host, port=args.port, cfg=cfg,
+                       timeout_s=args.timeout, device=_client_device(args))
+
+
+def _client_device(args):
+    """Where a client subcommand chunks: None (the card) or "cpu"."""
+    return None if getattr(args, "device", "cuda") == "cuda" else args.device
+
+
+def _no_card(args, what: str) -> bool:
+    """True, after printing the missing-card message, when ``what`` would
+    chunk on a card that is not there."""
+    from dfs_tpu_torch import resolve_device
+
+    try:
+        resolve_device(_client_device(args))
+    except RuntimeError as e:
+        print(f"{what}: {e}", file=sys.stderr)
+        return True
+    return False
 
 
 def node_config(args) -> NodeConfig:
@@ -239,9 +284,41 @@ def _maybe_trace_id(args) -> str | None:
 
 def cmd_upload(args) -> int:
     path = Path(args.file)
+    data = path.read_bytes()
+    ec = getattr(args, "ec", 0)
     trace_id = _maybe_trace_id(args)
-    info = _client(args).upload(path.read_bytes(), name=path.name,
-                                ec=args.ec, trace_id=trace_id)
+    if getattr(args, "smart", False):
+        if ec or getattr(args, "resume", False):
+            print("--smart is mutually exclusive with --ec/--resume "
+                  "(the SDK has its own dedup probe; EC needs the "
+                  "whole-body coordinator path)", file=sys.stderr)
+            return 2
+        if _no_card(args, "upload --smart"):
+            return 2
+        info = _smart_client(args).upload(data, name=path.name)
+        print(f"Uploaded ({info['dataPlane']}): fileId={info['fileId']} "
+              f"chunks={info['chunks']} "
+              f"clientSent={info['clientBytesSent']}B of {len(data)}B")
+        return 0
+    if getattr(args, "resume", False):
+        if ec:
+            print("--ec and --resume are mutually exclusive "
+                  "(parity stripes need the whole-body upload path)",
+                  file=sys.stderr)
+            return 2
+        if _no_card(args, "upload --resume"):
+            return 2
+        # chunk here, ask what is missing, send only that
+        info = _client(args).upload_resume(data, name=path.name,
+                                           trace_id=trace_id,
+                                           device=_client_device(args))
+        tr = f" traceId={trace_id}" if trace_id else ""
+        print(f"Uploaded (resume): fileId={info['fileId']} "
+              f"chunks={info['chunks']} "
+              f"clientSent={info['clientBytesSent']}B of {len(data)}B{tr}")
+        return 0
+    info = _client(args).upload(data, name=path.name, ec=ec,
+                                trace_id=trace_id)
     extra = (f" ecParity={info['ecParityBytes']}B"
              if "ecParityBytes" in info else "")
     if trace_id:
@@ -255,7 +332,13 @@ def cmd_upload(args) -> int:
 def cmd_download(args) -> int:
     c = _client(args)
     trace_id = _maybe_trace_id(args)
-    data = c.download(args.file_id, trace_id=trace_id)
+    if getattr(args, "smart", False):
+        sc = _smart_client(args)
+        data = sc.download(args.file_id)
+        plane = "legacy" if sc.counters["legacyDownloads"] else "smart"
+        print(f"dataPlane={plane}")
+    else:
+        data = c.download(args.file_id, trace_id=trace_id)
     if trace_id:
         print(f"traceId={trace_id}")
     name = args.file_id
@@ -418,6 +501,103 @@ def cmd_ring(args) -> int:
                           (out.get('pushed') or {}).items(),
                           key=lambda kv: int(kv[0]))))
     return 0
+
+
+def cmd_menu(args) -> int:
+    """The interactive loop of dfs_tpu's client: 0 Exit, 1 Test server,
+    2 List files, 3 Upload file, 4 Download file. An error in one choice
+    is printed and the loop goes on; end of input exits 0."""
+    while True:
+        print("\n=== Distributed File Storage (CUDA) ===\n"
+              "0. Exit\n1. Test server\n2. List files\n"
+              "3. Upload file\n4. Download file")
+        try:
+            choice = input("> ").strip()
+        except EOFError:
+            return 0
+        try:
+            if choice == "0":
+                return 0
+            elif choice == "1":
+                args.port = _ask_port(args.port)
+                print(_client(args).status())
+            elif choice == "2":
+                args.port = _ask_port(args.port)
+                cmd_list(args)
+            elif choice == "3":
+                args.port = _ask_port(args.port)
+                directory = input("Directory [.]: ").strip() or "."
+                files = sorted(p for p in Path(directory).iterdir()
+                               if p.is_file())
+                if not files:
+                    print("(no files)")
+                    continue
+                for i, p in enumerate(files, 1):
+                    print(f"{i}. {p.name} ({p.stat().st_size} bytes)")
+                idx = int(input("File #: ")) - 1
+                args.file = str(files[idx])
+                cmd_upload(args)
+            elif choice == "4":
+                args.port = _ask_port(args.port)
+                files = _client(args).list_files()
+                for i, f in enumerate(files, 1):
+                    print(f"{i}. {f.name}")
+                if not files:
+                    print("(no files)")
+                    continue
+                idx = int(input("File #: ")) - 1
+                args.file_id = files[idx].file_id
+                args.out = None
+                cmd_download(args)
+            else:
+                print("Invalid option")
+        except Exception as e:  # noqa: BLE001 - one choice's error
+            print(f"Error: {e}")
+
+
+def _ask_port(default: int) -> int:
+    """The port prompt; empty or not a number keeps ``default``."""
+    raw = input(f"Node port [{default}]: ").strip()
+    try:
+        return int(raw) if raw else default
+    except ValueError:
+        return default
+
+
+def _add_client_flags(p) -> None:
+    """``--device`` and the ``--smart`` data plane's knobs
+    (ClientConfig)."""
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where upload --resume and --smart chunk: the "
+                        "CUDA card (default; fails without one) or the "
+                        "plain versions on the CPU; a download never "
+                        "chunks")
+    p.add_argument("--smart", action="store_true",
+                   help="use the SDK data plane: chunk and hash here, "
+                        "consult peer-existence filters, stripe straight "
+                        "to the rf ring owners, one-call commit; falls "
+                        "back to the coordinator path on old servers or "
+                        "a refused commit")
+    p.add_argument("--client-window", type=int, default=2,
+                   help="store slices in flight per peer")
+    p.add_argument("--client-stripe", type=int, default=4,
+                   help="concurrent read batches across owners")
+    p.add_argument("--client-hedge-budget", type=float, default=0.0,
+                   help="hedged read budget (fires/s); 0 = no "
+                        "client-side hedging")
+    p.add_argument("--client-hedge-floor", type=float, default=0.05,
+                   help="minimum hedge delay (s)")
+    p.add_argument("--client-hedge-cap", type=float, default=1.0,
+                   help="maximum hedge delay (s)")
+    p.add_argument("--client-filter-max-age", type=float, default=30.0,
+                   help="peer-existence filter freshness bound (s); "
+                        "older replicas degrade to probes")
+    p.add_argument("--client-echo-cache", type=int, default=4096,
+                   help="echo-confirmed existence cache entries per peer "
+                        "(0 = always run the trust probe)")
+    p.add_argument("--client-no-fallback", action="store_true",
+                   help="raise instead of degrading to the legacy "
+                        "coordinator path")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -706,6 +886,8 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("list").set_defaults(fn=cmd_list)
     up = sub.add_parser("upload")
     up.add_argument("file")
+    up.add_argument("--resume", action="store_true",
+                    help="probe the cluster and send only missing chunks")
     up.add_argument("--ec", type=int, default=0, metavar="K",
                     help="erasure-code with K data shards + P/Q parity "
                          "per stripe (needs K+2 cluster nodes; any two "
@@ -713,6 +895,7 @@ def build_parser() -> argparse.ArgumentParser:
     up.add_argument("--trace", action="store_true",
                     help="tag the request with a fresh trace id "
                          "(printed) for `trace <id>` inspection")
+    _add_client_flags(up)
     up.set_defaults(fn=cmd_upload)
     down = sub.add_parser("download")
     down.add_argument("file_id")
@@ -720,6 +903,7 @@ def build_parser() -> argparse.ArgumentParser:
     down.add_argument("--trace", action="store_true",
                       help="tag the request with a fresh trace id "
                            "(printed) for `trace <id>` inspection")
+    _add_client_flags(down)
     down.set_defaults(fn=cmd_download)
     rm = sub.add_parser("delete")
     rm.add_argument("file_id")
@@ -775,6 +959,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="slow-span threshold (s); default: the node's "
                          "configured slow_span_s")
     tr.set_defaults(fn=cmd_trace)
+    sub.add_parser("menu").set_defaults(fn=cmd_menu)
     return ap
 
 

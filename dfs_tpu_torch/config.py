@@ -23,6 +23,9 @@
 - :class:`CensusConfig` — the census and the metrics-history sampler.
 - :class:`RingConfig` — the elastic ring: vnodes, epoch-0 members and the
   rebalance byte credits.
+- :class:`ClientConfig` — the smart client's knobs (``SmartClient``,
+  ``upload``/``download --smart``); not a node setting, and without a
+  device field: the client's device is a constructor argument.
 - :class:`NodeConfig` — one node. It holds only the fields the port's
   runtime honours. ``device`` is the port's own: ``None`` means the CUDA
   card (raising without one), ``"cpu"`` the plain versions.
@@ -612,6 +615,52 @@ class RingConfig:
         if not self.members:
             return None
         return sorted({int(p.strip()) for p in self.members.split(",")})
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientConfig:
+    """The smart client's data plane (:mod:`dfs_tpu_torch.client`), a copy
+    of dfs_tpu's, field for field.
+
+    The client chunks and hashes locally with the cluster's parameters,
+    reads the cluster's ring and peer-existence filters, stripes payloads
+    straight to the rf ring owners and commits with one coordinator call.
+    Every knob is a ``--client-*`` flag of ``upload``/``download`` and a
+    key of ``SmartClient.stats()``. Defaults: striping on, client-side
+    hedging off, the legacy fallback on.
+    """
+
+    window: int = 2             # upload slices in flight per owner; 1 =
+                                # serial slices
+    stripe: int = 4             # peers a striped download reads from
+                                # concurrently; 1 = effectively serial
+    hedge_budget_per_s: float = 0.0  # client hedge token refill per
+                                # second; 0 = client-side hedging off
+    hedge_floor_s: float = 0.05  # minimum client hedge delay
+    hedge_cap_s: float = 1.0    # maximum client hedge delay
+    filter_max_age_s: float = 30.0  # peer-existence filters older than
+                                # this are refetched before an upload;
+                                # 0 = refetch every upload
+    echo_cache_entries: int = 4096  # per-peer LRU of digests whose hash
+                                # echo this client saw confirmed; 0 = a
+                                # verify round on every re-upload
+    fallback: bool = True       # degrade to the legacy coordinator path
+                                # (old servers, unreachable owners, a
+                                # refused commit); False = raise instead
+
+    def __post_init__(self) -> None:
+        if self.window < 1:
+            raise ValueError("window must be >= 1")
+        if self.stripe < 1:
+            raise ValueError("stripe must be >= 1")
+        if self.hedge_budget_per_s < 0:
+            raise ValueError("hedge_budget_per_s must be >= 0")
+        if self.hedge_floor_s < 0 or self.hedge_cap_s < self.hedge_floor_s:
+            raise ValueError("need 0 <= hedge_floor_s <= hedge_cap_s")
+        if self.filter_max_age_s < 0:
+            raise ValueError("filter_max_age_s must be >= 0")
+        if self.echo_cache_entries < 0:
+            raise ValueError("echo_cache_entries must be >= 0")
 
 
 @dataclasses.dataclass(frozen=True)

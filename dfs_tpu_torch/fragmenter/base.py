@@ -32,6 +32,13 @@ class Fragmenter(abc.ABC):
         """Upper bound on how far chunks_stream's reporting can lag the
         bytes it has consumed (None = unbounded)."""
 
+    def describe(self) -> dict:
+        """A JSON-able description from which another process rebuilds
+        this fragmenter's chunk boundaries bit-exactly (the resumable
+        upload and the smart client chunk with it); kinds map back through
+        :func:`fragmenter_from_description`. Subclasses override."""
+        raise NotImplementedError(f"{self.name} is not resume-describable")
+
     def manifest(self, data: bytes, name: str,
                  file_id: str | None = None) -> Manifest:
         """The manifest for ``data``. Without ``file_id`` the id is derived
@@ -111,3 +118,39 @@ def get_fragmenter(kind: str, *, cdc_params=None, frag=None,
     from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
 
     return AnchoredCudaFragmenter(params, device=device)
+
+
+def params_from_description(desc: dict):
+    """The :class:`AnchoredCdcParams` a ``describe()`` output names, built
+    without touching a device. ``fixed``, ``cdc`` and any other kind raise
+    ValueError; a missing field raises KeyError."""
+    kind = desc.get("kind")
+    if kind == "cdc-anchored":
+        from dfs_tpu_torch.ops.cdc_anchored import AnchoredCdcParams
+        from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
+
+        c = desc["chunk"]
+        return AnchoredCdcParams(
+            chunk=AlignedCdcParams(
+                min_blocks=int(c["min_blocks"]),
+                avg_blocks=int(c["avg_blocks"]),
+                max_blocks=int(c["max_blocks"]),
+                strip_blocks=int(c["strip_blocks"]),
+                seed=int(c["seed"])),
+            seg_min=int(desc["seg_min"]), seg_max=int(desc["seg_max"]),
+            seg_mask=int(desc["seg_mask"]), seed=int(desc["seed"]))
+    raise ValueError(f"undescribable fragmenter kind {kind!r}")
+
+
+def fragmenter_from_description(desc: dict, device=None) -> Fragmenter:
+    """Rebuild a chunk-compatible fragmenter from ``describe()`` output —
+    dfs_tpu's counterpart, for the kinds the port chunks. An anchored
+    description gives :class:`AnchoredCudaFragmenter` on ``device`` (None:
+    the CUDA card, raising without one; "cpu": the plain versions); its
+    chunk table equals the describing engine's byte for byte, whichever
+    package described it. Other kinds raise as
+    :func:`params_from_description` does."""
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+
+    return AnchoredCudaFragmenter(params_from_description(desc),
+                                  device=device)

@@ -105,6 +105,14 @@ manifests and ring, mismatched buckets drilled down. The history sampler
 doctor's trend rule, and journals ``disk_pressure`` when free space
 crosses 5%. ``GET /doctor`` fans out ``get_doctor`` snapshots and runs
 dfs_tpu's fifteen rules (:mod:`dfs_tpu_torch.obs.doctor`).
+
+Resumable uploads and the smart client (:mod:`dfs_tpu_torch.client`) use
+four more entry points: ``missing_digests`` (``POST /missing``),
+``upload_resume`` (a client's chunk table plus only the missing payloads),
+``commit_manifest`` (the single-hop commit: durable copies re-counted at
+write quorum, below-quorum chunks healed, absent ones answered 409) and
+``dataplane_info`` (``GET /dataplane``: ring, peers, rf and the chunking
+description).
 """
 
 from __future__ import annotations
@@ -1440,6 +1448,282 @@ class StorageNodeServer:
         await self._finalize_upload(manifest)
         self.counters.inc("upload_bytes", total)
         return manifest, stats
+
+    # ------------------------------------------------------------------ #
+    # resume, the single-hop commit, the smart client's bootstrap
+    # ------------------------------------------------------------------ #
+
+    async def missing_digests(self, digests: list[str]) -> list[str]:
+        """Which of ``digests`` the cluster holds nowhere reachable: the
+        resumable upload's probe. The local CAS first (one batched
+        ``has_many`` on the read pool), then one ``has_chunks`` per peer
+        over each digest's dual-read candidates; digests a peer's filter
+        rules out are never asked of it. Filter positives are still
+        probed: a false positive answered "held" would make the client
+        skip bytes and trip the resume's 409."""
+        cand = [d for d in dict.fromkeys(digests) if is_hex_digest(d)]
+        mask = await self.cas.has_many(cand)
+        missing = [d for d, h in zip(cand, mask) if not h]
+        if not missing:
+            return []
+        rf = self.cfg.cluster.replication_factor
+        found: set[str] = set()
+        by_peer: dict[int, list[str]] = {}
+        for d in missing:
+            # mid-rebalance the bytes may sit at previous owners only
+            for t in self.ring.read_candidates(d, rf):
+                if t != self.cfg.node_id:
+                    by_peer.setdefault(t, []).append(d)
+        plane = self.index
+        if plane is not None and plane.local_filter is not None:
+            trimmed: dict[int, list[str]] = {}
+            for nid, ds in by_peer.items():
+                if plane.peer_filters.state(nid) is None:
+                    trimmed[nid] = ds       # no replica: probe as is
+                    continue
+                keep = [d for d in ds
+                        if plane.peer_filters.contains(nid, d)
+                        is not False]
+                plane.probes_skipped += len(ds) - len(keep)
+                if keep:
+                    trimmed[nid] = keep
+                elif ds:
+                    plane.probe_rpcs_skipped += 1
+            by_peer = trimmed
+
+        async def probe(nid: int, ds: list[str]) -> None:
+            try:
+                resp, _ = await self.client.call(
+                    self.cfg.cluster.peer(nid),
+                    {"op": "has_chunks", "digests": ds}, retries=1)
+                found.update(resp.get("have", []))
+            except RpcError:
+                # an unanswered probe only makes the client resend bytes
+                # the cluster has; counted, since it erases the resume win
+                self.counters.inc("probe_failures")
+
+        await asyncio.gather(*(probe(n, ds) for n, ds in by_peer.items()))
+        return [d for d in missing if d not in found]
+
+    @staticmethod
+    def _check_tiling(table: list[tuple[int, int, str]], size: int) -> None:
+        """A chunk table must tile [0, size) contiguously with hex
+        digests (400 otherwise)."""
+        expect = 0
+        for off, ln, dg in table:
+            if off != expect or ln < 0 or not is_hex_digest(dg):
+                raise UploadError("malformed chunk table", status=400)
+            expect = off + ln
+        if expect != size:
+            raise UploadError("chunk table does not tile the stream",
+                              status=400)
+
+    async def upload_resume(self, table: list[tuple[int, int, str]],
+                            name: str, file_id: str, size: int,
+                            provided: dict[str, bytes]
+                            ) -> tuple[Manifest, dict]:
+        """An upload from a client's chunk table plus only the payloads the
+        cluster lacked (``GET /chunking``, chunk locally, ``POST
+        /missing``, ``POST /upload_resume``). Every provided payload is
+        hashed; the rest must be held locally or fetchable from replicas
+        (else a 409 naming them: the client falls back to a full upload);
+        the assembled stream must hash to ``file_id``, as a regular
+        upload's fileId = sha256(body)."""
+        if not name:
+            name = f"file-{file_id[:8]}"
+        self._check_tiling(table, size)
+        hexes = await asyncio.to_thread(
+            sha256_many_hex, list(provided.values()))
+        for d, h in zip(provided, hexes):
+            if d != h:
+                raise UploadError(f"provided chunk {d[:12]}… hash mismatch",
+                                  status=400)
+        refs = [ChunkRef(index=i, offset=off, length=ln, digest=dg)
+                for i, (off, ln, dg) in enumerate(table)]
+        manifest = Manifest(file_id=file_id, name=name, size=size,
+                            fragmenter=self.fragmenter.name,
+                            chunks=tuple(refs))
+        # assembled in batches: the whole-stream hash and the placement;
+        # bytes come from `provided`, the local CAS or replicas
+        stats = self._new_upload_stats()
+        stats["bytes"] = sum(len(b) for b in provided.values())
+        hasher = sha256_new()
+        seen: set[str] = set()
+        ledger = self._new_trust_ledger()
+        batch: list = []
+        bsize = 0
+        for c in refs:
+            batch.append(c)
+            bsize += c.length
+            if bsize >= self._FETCH_BATCH_BYTES or c is refs[-1]:
+                got = dict(provided)
+                need = [x for x in batch if x.digest not in got]
+                if need:
+                    # digest-verified like every read: a rotten local copy
+                    # heals from a replica
+                    got.update(await self._fetch_verified(
+                        manifest, need, strict=False))
+                absent = [x.digest for x in batch if x.digest not in got]
+                if absent:
+                    raise UploadError(
+                        "resume missing chunks: "
+                        + ",".join(d[:12] for d in absent), status=409)
+                payloads = [got[x.digest] for x in batch]
+                await asyncio.to_thread(
+                    lambda ps=payloads: [hasher.update(p) for p in ps])
+                place = [(x.digest, got[x.digest]) for x in batch
+                         if x.digest not in seen]
+                seen.update(d for d, _ in place)
+                await self._place_batch(file_id, place, stats,
+                                        ledger=ledger)
+                batch, bsize = [], 0
+        if hasher.hexdigest() != file_id:
+            raise UploadError("resumed stream does not hash to fileId",
+                              status=400)
+        stats["uniqueChunks"] = len(seen)
+        if stats["minCopies"] is None:
+            stats["minCopies"] = self.cfg.cluster.replication_factor
+        if ledger:
+            await self._verify_trusted(file_id, ledger, stats)
+        await self._finalize_upload(manifest)
+        self.counters.inc("uploads_resumed")
+        self.counters.inc("upload_bytes", size)
+        return manifest, stats
+
+    async def commit_manifest(self, table: list[tuple[int, int, str]],
+                              name: str, file_id: str, size: int
+                              ) -> tuple[Manifest, dict]:
+        """The single-hop commit: the smart client striped every payload
+        to its ring owners (each slice hash-echoed); this one coordinator
+        call turns that into an acked file with a regular upload's ack:
+        every chunk confirmed at write quorum by real ``has_chunks``
+        rounds (a stale filter or a lying client cannot make a phantom
+        copy), below-quorum chunks re-placed through the batch path, then
+        the fsync'd manifest. Chunks held nowhere reachable answer 409.
+
+        ``file_id`` is the client's claim of sha256(stream): every chunk
+        was verified at store time and every read re-verifies it, so a
+        wrong claim can mis-name the file, never corrupt bytes."""
+        if not name:
+            name = f"file-{file_id[:8]}"
+        self._check_tiling(table, size)
+        refs = [ChunkRef(index=i, offset=off, length=ln, digest=dg)
+                for i, (off, ln, dg) in enumerate(table)]
+        manifest = Manifest(file_id=file_id, name=name, size=size,
+                            fragmenter=self.fragmenter.name,
+                            chunks=tuple(refs))
+        stats = self._new_upload_stats()
+        stats["bytes"] = size
+        ring = self.ring.current
+        ids = ring.active_ids()
+        rf = self.cfg.cluster.replication_factor
+        quorum = min(self.cfg.write_quorum, rf, len(ids))
+        plane = self.index
+        cache = plane.echo_cache if plane is not None else None
+        digests = list(dict.fromkeys(dg for _, _, dg in table))
+        copies = {d: 0 for d in digests}
+        mask = await self.cas.has_many(digests)
+        for d, h in zip(digests, mask):
+            if h:
+                copies[d] += 1
+        # one real has_chunks round per owner peer, first-party evidence
+        by_peer: dict[int, list[str]] = {}
+        for d in digests:
+            for t in ring.owners(d, rf):
+                if t != self.cfg.node_id:
+                    by_peer.setdefault(t, []).append(d)
+
+        async def probe(nid: int, ds: list[str]) -> set[str]:
+            try:
+                resp, _ = await self.client.call(
+                    self.cfg.cluster.peer(nid),
+                    {"op": "has_chunks", "digests": ds},
+                    retries=None if self.health.is_alive(nid) else 1)
+                self.health.mark_alive(nid)
+                return set(resp.get("have", []))
+            except DeadlineExpired:
+                raise
+            except RpcError as e:
+                if isinstance(e, RpcUnreachable):
+                    self.health.mark_dead(nid)
+                self.counters.inc("commit_probe_failures")
+                return set()
+
+        with self.obs.span("upload.commit_verify", latency=True):
+            peers = sorted(by_peer)
+            results = await asyncio.gather(
+                *(probe(n, by_peer[n]) for n in peers))
+        for nid, have in zip(peers, results):
+            for d in by_peer[nid]:
+                if d in have:
+                    copies[d] += 1
+                    if cache is not None:
+                        cache.confirm(nid, d)
+        confirmed = {d: n for d, n in copies.items() if n >= quorum}
+        stats["dedupSkippedBytes"] = sum(
+            ln for _, ln, dg in table if dg in confirmed)
+        below = set(d for d in digests if d not in confirmed)
+        if below:
+            # heal before the ack: the bytes from the local CAS or any
+            # replica (the client may have reached some owners), placed
+            # through the batch path; absent everywhere -> 409, no ack
+            self.obs.event("commit_replace", chunks=len(below))
+            need: list = []
+            for c in refs:
+                if c.digest in below:
+                    below.discard(c.digest)
+                    need.append(c)
+            fetched = await self._fetch_verified(manifest, need,
+                                                 strict=False)
+            absent = [c.digest for c in need if c.digest not in fetched]
+            if absent:
+                raise UploadError(
+                    "commit missing chunks: "
+                    + ",".join(d[:12] for d in absent), status=409)
+            await self._place_batch(
+                file_id, [(c.digest, fetched[c.digest]) for c in need],
+                stats)
+        stats["uniqueChunks"] = len(digests)
+        batch_min = min(confirmed.values(), default=rf)
+        stats["minCopies"] = batch_min if stats["minCopies"] is None \
+            else min(stats["minCopies"], batch_min)
+        stats["degraded"] = stats["degraded"] or batch_min < rf
+        await self._finalize_upload(manifest)
+        self.counters.inc("uploads_committed")
+        self.counters.inc("upload_bytes", size)
+        return manifest, stats
+
+    def dataplane_info(self) -> dict:
+        """``GET /dataplane``: what a smart client needs to run the data
+        plane itself — the ring map, the peers' addresses, rf and write
+        quorum, the fragmenter's description (its chunk boundaries match
+        the cluster's bit-exactly) and the filter state."""
+        out = {"nodeId": self.cfg.node_id,
+               "epoch": self.ring.epoch,
+               "fingerprint": self.ring.current.fingerprint,
+               "ring": self.ring.current.to_dict(),
+               "migrating": self.ring.migrating,
+               "replicationFactor": self.cfg.cluster.replication_factor,
+               "writeQuorum": self.cfg.write_quorum,
+               "peers": [{"nodeId": p.node_id, "host": p.host,
+                          "port": p.port,
+                          "internalPort": p.internal_port}
+                         for p in self.cfg.cluster.peers],
+               "filters": {"enabled": False}}
+        try:
+            out["chunking"] = {"fragmenter": self.fragmenter.name,
+                               "describe": self.fragmenter.describe()}
+        except NotImplementedError:
+            out["chunking"] = None     # the client takes the legacy path
+        if self.index is not None and self.index.local_filter is not None:
+            fstats = self.index.local_filter.stats()
+            out["filters"] = {
+                "enabled": True,
+                "generation": fstats["generation"],
+                "version": fstats["version"],
+                "peerAges": {str(p): round(a, 3) for p, a in
+                             self.index.peer_filters.ages().items()}}
+        return out
 
     @staticmethod
     def _new_upload_stats() -> dict:

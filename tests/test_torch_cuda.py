@@ -514,6 +514,63 @@ def test_serving_tier_cluster_on_card(dev, tmp_path):
     asyncio.run(asyncio.wait_for(go(), timeout=120))
 
 
+def test_smart_client_chunks_on_card(dev, tmp_path):
+    """A default-device SmartClient (no ``device``: the card) uploads 3 MiB
+    through two CPU nodes at the default chunk sizes: kernels 1-4 launch
+    in this process, the committed table equals the oracle, and the
+    striped download is identical."""
+    import asyncio
+    import json
+    import socket
+
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.client import SmartClient
+    from dfs_tpu_torch.config import (ClientConfig, ClusterConfig,
+                                      NodeConfig, PeerAddr)
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+
+    socks = [socket.socket() for _ in range(4)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    cluster = ClusterConfig(peers=tuple(
+        PeerAddr(node_id=i + 1, host="127.0.0.1", port=ports[2 * i],
+                 internal_port=ports[2 * i + 1]) for i in range(2)),
+        replication_factor=2)
+    body_np = corpus(3 * 1024 * 1024, seed=17)
+    body = body_np.tobytes()
+    want = A.chunk_file_anchored_np(body_np, A.AnchoredCdcParams())
+
+    async def go():
+        nodes = {i: StorageNodeServer(NodeConfig(
+            node_id=i, cluster=cluster, data_root=tmp_path,
+            health_probe_s=0, device="cpu")) for i in (1, 2)}
+        for n in nodes.values():
+            await n.start()
+        try:
+            c = SmartClient(port=ports[0], cfg=ClientConfig(fallback=False))
+            kernels.reset_launch_counts()
+            info = await asyncio.to_thread(c.upload, body, "card.bin")
+            counts = kernels.launch_counts()
+            assert info["dataPlane"] == "smart"
+            for k in ("strip_chunk_states", "repack_lanes",
+                      "bswap_transpose", "select_walk"):
+                assert counts[k] > 0, counts
+            doc = json.loads(nodes[2].store.manifests.load(
+                info["fileId"]).to_json())
+            assert [(x["offset"], x["length"], x["digest"])
+                    for x in doc["chunks"]] == want
+            assert await asyncio.to_thread(c.download,
+                                           info["fileId"]) == body
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
 def test_tier_demotion_encodes_on_card(dev, tmp_path):
     """Five nodes chunking on the card with the index and tiering planes
     on: a scan demotes the unread file to k=3 EC, its P+Q encoded on the

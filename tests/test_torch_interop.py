@@ -7,7 +7,10 @@ directly. With four port nodes, erasure-coded files cross both ways. An
 expired wire deadline is dropped by either kind, and the serving tier's
 cache and single-flight count the same on one read sequence. A traced
 upload through either kind stitches one trace across both, and the
-frames a traced client sends are byte-identical up to the random ids."""
+frames a traced client sends are byte-identical up to the random ids.
+dfs_tpu's SmartClient and the port's each run the single-hop upload and
+the striped download against a port cluster, a dfs_tpu cluster and a
+mixed one, with the same chunk tables and identical bytes."""
 
 import asyncio
 import hashlib
@@ -937,6 +940,69 @@ def test_mixed_cluster_stale_side_converges_on_first_placement(tmp_path):
                             for n in nodes.values()}) == 1
                 for n in nodes.values():
                     assert bytes((await n.download(m.file_id))[1]) == body
+        finally:
+            for n in nodes.values():
+                await n.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
+
+
+@pytest.mark.parametrize("client", ["dfs_tpu", "port"])
+@pytest.mark.parametrize("ref_ids", [(), (1, 2, 3), (1,)],
+                         ids=["port_cluster", "dfs_tpu_cluster", "mixed"])
+def test_smart_clients_cross_both_ways(tmp_path, client, ref_ids):
+    """A smart upload at node 1 commits through that node's kind, a second
+    client at node 2 re-uploads through the filters without sending a
+    byte, every node's legacy read and the smart read give the same bytes,
+    and the committed table is the oracle's; the legacy upload's file
+    reads back through the smart path too."""
+    from dfs_tpu.client import SmartClient as RefSmart
+    from dfs_tpu.config import ClientConfig as RefClientConfig
+
+    from dfs_tpu_torch.client import SmartClient
+    from dfs_tpu_torch.config import ClientConfig
+
+    nodes = _mixed(3, tmp_path, {"index": _ref_index()},
+                   {"index": _index()}, ref_ids=ref_ids)
+    body, plain = corpus(60_000, seed=81), corpus(30_000, seed=82)
+
+    def make(nid):
+        port = nodes[nid].cfg.cluster.peer(nid).port
+        if client == "dfs_tpu":
+            return RefSmart(port=port, cfg=RefClientConfig(fallback=False))
+        return SmartClient(port=port, cfg=ClientConfig(fallback=False),
+                           device="cpu")
+
+    async def go():
+        for n in nodes.values():
+            await n.start()
+        try:
+            c1 = make(1)
+            info = await asyncio.to_thread(c1.upload, body, "s.bin")
+            assert info["dataPlane"] == "smart"
+            assert info["fileId"] == hashlib.sha256(body).hexdigest()
+            assert c1.counters["transferredBytes"] == 2 * len(body)
+            for n in nodes.values():
+                await n._filter_sync_once()
+            c2 = make(2)
+            again = await asyncio.to_thread(c2.upload, body, "s2.bin")
+            assert again["fileId"] == info["fileId"]
+            assert c2.counters["transferredBytes"] == 0
+            want = chunk_file_anchored_np(np.frombuffer(body, np.uint8),
+                                          _anchored_params(CDCParams(**SIZES)))
+            for nid, n in nodes.items():
+                doc = json.loads(n.store.manifests.load(
+                    info["fileId"]).to_json())
+                assert [(x["offset"], x["length"], x["digest"])
+                        for x in doc["chunks"]] == want
+                _, got = await n.download(info["fileId"])
+                assert bytes(got) == body
+            assert await asyncio.to_thread(c2.download,
+                                           info["fileId"]) == body
+            m, _ = await nodes[3].upload(plain, "plain.bin")
+            assert await asyncio.to_thread(c1.download, m.file_id) == plain
+            assert c1.counters["smartDownloads"] == 1
+            assert c1.counters["fallbacks"] == c2.counters["fallbacks"] == 0
         finally:
             for n in nodes.values():
                 await n.stop()

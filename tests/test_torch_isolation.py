@@ -3,8 +3,10 @@ imports JAX or anything of dfs_tpu, a process that uses the port — the
 single-device and the sharded walk, and a node served over HTTP with the
 similarity plane, the serving tier, the index and tiering, chaos, a
 traced request stitched and journaled, the ring, census, history and
-doctor routes, and a device-trace capture — never loads either, and without CUDA the entry points raise instead of running
-on the CPU."""
+doctor routes, a smart-client upload and download, a resumed upload, and
+a device-trace capture — never loads either, and without CUDA the entry
+points (the client's chunking included) raise instead of running on the
+CPU."""
 
 import ast
 import os
@@ -134,6 +136,19 @@ with tempfile.TemporaryDirectory() as d:
             assert "capacity.casBytes" in (
                 await asyncio.to_thread(c.history))["series"]
             srv.chaos.set(serve_delay_s=0.0)
+            # the smart client and the resumed upload, chunking on the CPU
+            from dfs_tpu_torch.client import SmartClient
+            from dfs_tpu_torch.config import ClientConfig
+            sc = SmartClient(port=ports[0], cfg=ClientConfig(fallback=False),
+                             device="cpu")
+            info = await asyncio.to_thread(sc.upload, near[5:], "s")
+            assert info["dataPlane"] == "smart"
+            assert await asyncio.to_thread(sc.download,
+                                           info["fileId"]) == near[5:]
+            got = await asyncio.to_thread(c.upload_resume, body[3:], "u",
+                                          None, "cpu")
+            assert await asyncio.to_thread(c.download,
+                                           got["fileId"]) == body[3:]
             with device_trace(str(Path(d) / "prof")):
                 assert await asyncio.to_thread(c.download, fid3)
         finally:
@@ -173,6 +188,81 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    _client_entry_points_raise_without_cuda(tmp_path)
+
+
+def _client_entry_points_raise_without_cuda(tmp_path):
+    """The client's chunking defaults to the card too: against a running
+    CPU node, ``fragmenter_from_description``, ``SmartClient.upload``,
+    ``NodeClient.upload_resume`` and ``upload --smart/--resume`` (without
+    ``--device cpu``) raise or exit non-zero with the CUDA message, and
+    none of them answers with a legacy upload; a smart download, which
+    never chunks, runs without a card."""
+    import asyncio
+    import contextlib
+    import io
+    import socket
+
+    from dfs_tpu_torch.cli.client import NodeClient
+    from dfs_tpu_torch.cli.main import main
+    from dfs_tpu_torch.client import SmartClient
+    from dfs_tpu_torch.config import ClusterConfig, NodeConfig
+    from dfs_tpu_torch.fragmenter.base import fragmenter_from_description
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    f = tmp_path / "f.bin"
+    f.write_bytes(b"q" * 5000)
+
+    async def go():
+        srv = StorageNodeServer(NodeConfig(
+            node_id=1, cluster=ClusterConfig.localhost(1, ports[0],
+                                                       ports[1], 1),
+            data_root=tmp_path / "srv", health_probe_s=0, device="cpu"))
+        await srv.start()
+        try:
+            c = NodeClient(port=ports[0], timeout_s=30)
+            desc = (await asyncio.to_thread(c.chunking))["describe"]
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fragmenter_from_description(desc)
+            sc = SmartClient(port=ports[0])
+            for _ in range(2):           # the second call raises too
+                with pytest.raises(RuntimeError, match="CUDA"):
+                    await asyncio.to_thread(sc.upload, b"x" * 5000, "x")
+            assert sc.counters["fallbacks"] == 0
+            assert sc.counters["legacyUploads"] == 0
+            with pytest.raises(RuntimeError, match="CUDA"):
+                await asyncio.to_thread(c.upload_resume, b"x" * 5000, "x")
+            for flag in ("--smart", "--resume"):
+                err = io.StringIO()
+                with contextlib.redirect_stderr(err):
+                    rc = await asyncio.to_thread(
+                        main, ["--port", str(ports[0]), "upload", flag,
+                               str(f)])
+                assert rc != 0 and "CUDA" in err.getvalue()
+            assert srv.list_files() == []
+            # a striped read never chunks: it needs no card
+            fid = (await asyncio.to_thread(c.upload, b"r" * 5000,
+                                           "r"))["fileId"]
+            sc = SmartClient(port=ports[0])
+            assert await asyncio.to_thread(sc.download, fid) == b"r" * 5000
+            assert sc.counters["smartDownloads"] == 1
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = await asyncio.to_thread(
+                    main, ["--port", str(ports[0]), "download", "--smart",
+                           fid, "--out", str(tmp_path / "dl")])
+            assert rc == 0 and "dataPlane=smart" in out.getvalue()
+            assert (tmp_path / "dl" / "r").read_bytes() == b"r" * 5000
+        finally:
+            await srv.stop()
+
+    asyncio.run(asyncio.wait_for(go(), timeout=60))
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

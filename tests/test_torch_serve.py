@@ -211,7 +211,11 @@ def test_batch_prefetcher_order_matches_reference():
 
         async def fetch(b):
             calls.append(b)
-            await asyncio.sleep(0.001 * (5 - b % 5))
+            # bare yields, not timers: their order depends only on the
+            # loop's ready queue, so both modules see one schedule however
+            # loaded the host is
+            for _ in range(5 - b % 5):
+                await asyncio.sleep(0)
             return b * 10
 
         batches = list(range(8))
