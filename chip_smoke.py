@@ -155,6 +155,27 @@ drives the paths end to end and checks each against the NumPy oracle:
   60%, fileId = sha256, identical), ``upload --smart`` and ``download
   --smart`` of 4 MiB through the CLI, and a ``POST /commit`` naming a
   digest nobody holds: 409, no manifest. Within 120 s;
+- ``cluster_sidecar``: the chunk+hash sidecar as users run it (dfs_tpu's
+  ``dfs.Sidecar`` gRPC contract, served by the port's own HTTP/2 stack).
+  (a) A ``SidecarServer(fragmenter="auto")`` in this process on
+  ``cuda:0``: Health, ChunkHash, ChunkHashStream and ChunkHashDuplex
+  through the port's ``SidecarClient`` on the 64 MiB EC body, the 128 MiB
+  body streamed through ChunkHashStream by the port's C++ client
+  (``native/sidecar_client.cpp``, POSIX sockets only; its host seconds and
+  GiB/s beside ``e2e``'s in-process fragment GiB/s), Health, ChunkHash and
+  ChunkHashDuplex through the C++ client on the EC body: every table equal
+  to the oracle, fileId from the digests; a duplex of the EC body repeated
+  without end, cancelled after its first batch, then one more call
+  served. (b) One ``serve --nodes 1
+  --replication-factor 1 --sidecar-port`` process delegating to (a)'s
+  server: the EC body uploaded chunked and with Content-Length (manifest
+  equal to the oracle, fileId = sha256, download identical), ``/chunking``
+  equal to Health's ``describe``, and the node's own K1-K4 launches 0.
+  (c) The ``sidecar`` subcommand as a process, started with (b) at the
+  phase's start: its Health names ``cdc-anchored-cuda`` with the walk's
+  window, a 2 MiB ChunkHash equals the oracle, and SIGTERM ends it with
+  exit 0 within 10 s. K1-K4 launched in this process over (a) and (b)
+  (path ``cluster_sidecar``). Within 90 s;
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -271,6 +292,9 @@ CLIENT_FILE_BYTES = 4 * 1024 * 1024
 # keeps a margin under its time limit
 CLIENT_STRIPED_BYTES = 2 * 1024 * 1024
 CLIENT_PHASE_BOUND_S = 120.0
+# cluster_sidecar: the phase's time bound and the CLI sidecar's ChunkHash
+SIDECAR_PHASE_BOUND_S = 90.0
+SIDECAR_CLI_BYTES = 2 * 1024 * 1024
 # the tracing-off twin of the cluster phase's upload
 OBS_OFF_FLAGS = ("--trace-ring", "0", "--journal-bytes", "0",
                  "--sentinel-interval", "0")
@@ -2633,6 +2657,246 @@ def cluster_client_phase(root: Path, np, params, kernels) -> dict:
     return launches
 
 
+def cluster_sidecar_phase(root: Path, body: bytes, oracle: list,
+                          ec_body: bytes, ec_table: list, params,
+                          fragment_gib_s: float, np, kernels) -> dict:
+    """The ``cluster_sidecar`` phase (module docstring). Returns this
+    process's kernel launches over steps (a) and (b)."""
+    from dfs_tpu_torch.native import build_sidecar_client
+    from dfs_tpu_torch.ops import cdc_anchored as A
+    from dfs_tpu_torch.ops.cdc_v2 import file_id_from_digests
+    from dfs_tpu_torch.sidecar import SidecarClient, SidecarServer
+
+    t_phase = time.perf_counter()
+    needed = ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+              "select_walk")
+    ec_fid = file_id_from_digests([d for _, _, d in ec_table])
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs: dict[str, subprocess.Popen] = {}
+
+    def rows(chunks) -> list:
+        return [(c["offset"], c["length"], c["digest"]) for c in chunks]
+
+    def cpp(*argv: str) -> tuple[list, float]:
+        t0 = time.perf_counter()
+        r = subprocess.run([str(binary), "127.0.0.1", str(srv.port), *argv],
+                           capture_output=True, timeout=300)
+        check(r.returncode == 0, f"sidecar_client {argv[1:]} exited "
+              f"{r.returncode}: {r.stderr[-500:]!r}")
+        return ([json.loads(ln) for ln in r.stdout.splitlines()
+                 if ln.strip()], time.perf_counter() - t0)
+
+    srv = SidecarServer(port=0, fragmenter="auto")
+    srv.start()
+    ports = _free_ports(3)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_sidecar_",
+                                     dir=root) as wd:
+        wd = Path(wd)
+        logs = {k: open(wd / f"{k}.log", "wb") for k in ("serve", "cli")}
+        try:
+            # (b)'s node and (c)'s sidecar start now: their start-up
+            # overlaps (a)
+            t_start = time.perf_counter()
+            procs["serve"] = subprocess.Popen(
+                [sys.executable, "-m", "dfs_tpu_torch.cli.main", "serve",
+                 "--node-id", "1", "--nodes", "1", "--replication-factor",
+                 "1", "--write-quorum", "1", "--base-port", str(ports[0]),
+                 "--base-internal-port", str(ports[1]), "--data-root",
+                 str(wd / "data"), "--repair-interval", "0",
+                 "--sidecar-port", str(srv.port)], cwd=root, env=env,
+                stdout=logs["serve"], stderr=subprocess.STDOUT)
+            procs["cli"] = subprocess.Popen(
+                [sys.executable, "-m", "dfs_tpu_torch.cli.main", "sidecar",
+                 "--sidecar-port", str(ports[2])], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=logs["cli"], text=True)
+            cli_up: dict = {}
+
+            def read_listening() -> None:
+                cli_up["line"] = procs["cli"].stdout.readline()
+                cli_up["s"] = time.perf_counter() - t_start
+
+            reader = threading.Thread(target=read_listening, daemon=True)
+            reader.start()
+
+            # (a) the port's client on the EC body, then the C++ client
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            binary = build_sidecar_client()
+            build_s = time.perf_counter() - t0
+            c = SidecarClient(srv.port)
+            health = c.health()
+            check(health["fragmenter"] == "cdc-anchored-cuda"
+                  and health["window"] == srv.fragmenter.stream_span(),
+                  f"(a) Health {health}")
+            ec_blocks = [ec_body[i:i + 4 * BLOCK_BYTES]
+                         for i in range(0, len(ec_body), 4 * BLOCK_BYTES)]
+            client_s = {}
+            t0 = time.perf_counter()
+            unary = c.chunk_hash(ec_body)
+            client_s["ChunkHash"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            stream = c.chunk_hash_stream(iter(ec_blocks))
+            client_s["ChunkHashStream"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            duplex = list(c.chunk_hash_duplex(iter(ec_blocks)))
+            client_s["ChunkHashDuplex"] = time.perf_counter() - t0
+            for what, table, fid in (
+                    ("ChunkHash", unary["chunks"], unary["fileId"]),
+                    ("ChunkHashStream", stream["chunks"], stream["fileId"]),
+                    ("ChunkHashDuplex",
+                     [x for m in duplex[:-1] for x in m["chunks"]],
+                     duplex[-1]["fileId"])):
+                check(rows(table) == ec_table and fid == ec_fid,
+                      f"(a) SidecarClient {what}: table != oracle")
+            body_f, ec_f = wd / "body.bin", wd / "ec.bin"
+            body_f.write_bytes(body)
+            ec_f.write_bytes(ec_body)
+            (table,), stream_s = cpp(str(body_f), "ChunkHashStream")
+            check(rows(table["chunks"]) == oracle
+                  and table["size"] == len(body),
+                  "(a) C++ ChunkHashStream of the body: table != oracle")
+            (h,), _ = cpp(str(ec_f), "Health")
+            check(h == health, f"(a) C++ Health {h}")
+            (table,), _ = cpp(str(ec_f), "ChunkHash")
+            check(rows(table["chunks"]) == ec_table
+                  and table["fileId"] == ec_fid,
+                  "(a) C++ ChunkHash: table != oracle")
+            lines, duplex_s = cpp(str(ec_f), "ChunkHashDuplex")
+            check(rows(x for ln in lines[:-1] for x in ln["chunks"])
+                  == ec_table and lines[-1]["done"]
+                  and lines[-1]["fileId"] == ec_fid,
+                  "(a) C++ ChunkHashDuplex: table != oracle")
+            # a duplex left after its first batch (the body repeated
+            # without end: the walk is mid-stream), then one more call
+            def endless():
+                while True:
+                    yield from ec_blocks
+
+            replies = c.chunk_hash_duplex(endless())
+            check(bool(next(replies)["chunks"]), "(a) no first batch")
+            replies.close()
+            t0 = time.perf_counter()
+            while srv.buffered() and time.perf_counter() - t0 < 30:
+                time.sleep(0.05)
+            check(srv.buffered() == [], "(a) the cancelled call stayed open")
+            after = c.chunk_hash(ec_body[:3 * 1024 * 1024])
+            check(rows(after["chunks"]) == A.chunk_file_anchored_np(
+                np.frombuffer(ec_body[:3 * 1024 * 1024], np.uint8), params),
+                "(a) the call after the cancel: table != oracle")
+            out_a = {"client_methods_s": client_s, "cpp_build_s": build_s,
+                     "cpp_stream_bytes": len(body), "cpp_stream_s": stream_s,
+                     "cpp_stream_gib_s": len(body) / stream_s / 2**30,
+                     "e2e_fragment_gib_s": fragment_gib_s,
+                     "cpp_duplex_s": duplex_s, "window": health["window"],
+                     "duplex_batches": len(duplex) - 1,
+                     "cancelled_then_served": True,
+                     "peak_stream_buffered": srv.peak_buffered,
+                     "oracle_equal": True}
+            emit({"phase": "cluster_sidecar:a", **out_a})
+
+            # (b) a node delegating its chunking to (a)'s server
+            t0 = time.perf_counter()
+            while True:
+                check(procs["serve"].poll() is None,
+                      f"(b) serve exited {procs['serve'].returncode}")
+                try:
+                    if _http(ports[0], "GET", "/status", timeout=5)[0] \
+                            == 200:
+                        break
+                except OSError:
+                    pass
+                check(time.perf_counter() - t_start < 300,
+                      "(b) serve did not answer /status")
+                time.sleep(0.3)
+            serve_up_s = time.perf_counter() - t_start
+            sha = hashlib.sha256(ec_body).hexdigest()
+            t1 = time.perf_counter()
+            up1 = _upload(ports[0], iter(
+                [ec_body[i:i + BLOCK_BYTES]
+                 for i in range(0, len(ec_body), BLOCK_BYTES)]),
+                "sidecar-chunked.bin", chunked=True)
+            chunked_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            up2 = _upload(ports[0], ec_body, "sidecar-whole.bin")
+            whole_s = time.perf_counter() - t1
+            check(up1["fileId"] == up2["fileId"] == sha,
+                  "(b) fileId != sha256(body)")
+            man = _get_json(ports[0], f"/manifest?fileId={sha}")
+            check(rows(man["chunks"]) == ec_table,
+                  "(b) manifest != oracle")
+            check(man["fragmenter"] == "sidecar:cdc-anchored-cuda",
+                  f"(b) manifest fragmenter {man['fragmenter']}")
+            t1 = time.perf_counter()
+            st, _, got = _http(ports[0], "GET", f"/download?fileId={sha}")
+            download_s = time.perf_counter() - t1
+            check(st == 200 and got == ec_body, "(b) download differs")
+            chunking = _get_json(ports[0], "/chunking")
+            check(chunking["describe"] == health["describe"],
+                  f"(b) /chunking {chunking}")
+            node_launches = _metrics(ports[0])["frag"]["launches"]
+            check(all(v == 0 for v in node_launches.values()),
+                  f"(b) the node launched kernels itself: {node_launches}")
+            launches = path_launches(kernels, "cluster_sidecar", needed)
+            out_b = {"serve_up_s": serve_up_s, "chunked_upload_s": chunked_s,
+                     "whole_upload_s": whole_s, "download_s": download_s,
+                     "manifest_oracle_equal": True, "file_id_ok": True,
+                     "download_identical": True,
+                     "chunking_equals_describe": True,
+                     "node_launches": node_launches}
+            emit({"phase": "cluster_sidecar:b", **out_b,
+                  "launches": launches})
+
+            # (c) the subcommand: Health, a 2 MiB ChunkHash, SIGTERM
+            reader.join(timeout=300)
+            line = cli_up.get("line", "")
+            check(line.startswith(f"sidecar listening on 127.0.0.1:"
+                                  f"{ports[2]} (fragmenter="
+                                  "cdc-anchored-cuda)"),
+                  f"(c) sidecar printed {line!r}")
+            cli_up_s = cli_up["s"]
+            cc = SidecarClient(ports[2])
+            h = cc.health()
+            check(h["fragmenter"] == "cdc-anchored-cuda"
+                  and h["window"] == srv.fragmenter.stream_span(),
+                  f"(c) Health {h}")
+            part = body[:SIDECAR_CLI_BYTES]
+            check(rows(cc.chunk_hash(part)["chunks"])
+                  == A.chunk_file_anchored_np(np.frombuffer(part, np.uint8),
+                                              params),
+                  "(c) ChunkHash: table != oracle")
+            t1 = time.perf_counter()
+            procs["cli"].send_signal(signal.SIGTERM)
+            rc = procs["cli"].wait(timeout=10)
+            stop_s = time.perf_counter() - t1
+            check(rc == 0, f"(c) sidecar exited {rc} on SIGTERM")
+            emit({"phase": "cluster_sidecar:c", "up_s": cli_up_s,
+                  "window": h["window"], "chunk_hash_bytes": len(part),
+                  "sigterm_exit": rc, "stop_s": stop_s,
+                  "oracle_equal": True})
+        except BaseException:
+            for k, f in logs.items():
+                f.flush()
+                tail = (wd / f"{k}.log").read_bytes()[-3000:]
+                print(f"--- {k} log tail ---\n"
+                      f"{tail.decode('utf-8', 'replace')}", file=sys.stderr)
+            raise
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=60)
+            for f in logs.values():
+                f.close()
+            srv.stop()
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "cluster_sidecar", "seconds": seconds,
+          "bound_s": SIDECAR_PHASE_BOUND_S, "launches": launches})
+    check(seconds <= SIDECAR_PHASE_BOUND_S,
+          f"cluster_sidecar took {seconds:.1f} s "
+          f"(bound {SIDECAR_PHASE_BOUND_S} s)")
+    return launches
+
+
 def region_inputs(rng, dev, np) -> types.SimpleNamespace:
     """One 64 MiB region (``rng``'s first draw) at the default parameters,
     through the port's own plain anchor pass: the words, the chain's shape,
@@ -3060,6 +3324,9 @@ def main() -> int:
         stage_ms["whole_chain"])
     launches["cluster_client"] = timed_phase(
         "cluster_client", cluster_client_phase, root, np, params, kernels)
+    launches["cluster_sidecar"] = timed_phase(
+        "cluster_sidecar", cluster_sidecar_phase, root, body, oracle,
+        ec_body, ec_table, params, BODY_BYTES / frag_s / 2**30, np, kernels)
     t0 = time.perf_counter()
     check(refs_proc.wait(timeout=900) == 0,
           f"the strip_refs child exited {refs_proc.returncode}")

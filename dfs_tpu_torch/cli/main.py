@@ -24,15 +24,21 @@ subcommands talk HTTP to one.
     python -m dfs_tpu_torch.cli.main --port 7101 upload --smart f.bin
     python -m dfs_tpu_torch.cli.main --port 7102 download --smart <fileId>
     python -m dfs_tpu_torch.cli.main --port 7101 menu     # interactive
+    python -m dfs_tpu_torch.cli.main sidecar --sidecar-port 50151
+    python -m dfs_tpu_torch.cli.main serve --node-id 1 \
+        --sidecar-port 50151 ...                    # chunking delegated
 
 ``serve`` runs the node's chunking on the CUDA card; without one it exits
 non-zero unless ``--device cpu`` asks for the plain versions. So do
 ``upload --resume`` and ``upload --smart``, which chunk in the client's
 own process; ``download --smart`` never chunks and needs no card.
+``sidecar`` serves the chunking engine over gRPC (dfs_tpu's ``dfs.Sidecar``
+contract); ``--fragmenter fixed`` and ``cdc`` are host strategies that run
+no kernel.
 Tracing, the journal and the sentinel are on by default (``--trace-ring 0
 --journal-bytes 0 --sentinel-interval 0`` turns them off). Subcommands:
-serve, status, list, upload, download, delete, metrics, events, trace,
-doctor, census, df, ring, menu.
+serve, sidecar, status, list, upload, download, delete, metrics, events,
+trace, doctor, census, df, ring, menu.
 """
 
 from __future__ import annotations
@@ -113,8 +119,10 @@ def node_config(args) -> NodeConfig:
     return NodeConfig(
         node_id=args.node_id, cluster=cluster,
         data_root=Path(args.data_root), fragmenter=args.fragmenter,
+        sidecar_port=args.sidecar_port,
         cdc=CDCParams(min_size=args.min_chunk, avg_size=args.avg_chunk,
                       max_size=args.max_chunk),
+        fixed_parts=args.fixed_parts,
         frag=FragmenterConfig(devices=args.cdc_devices,
                               region_bytes=args.cdc_region_bytes,
                               staging_buffers=args.cdc_staging_buffers),
@@ -254,6 +262,36 @@ def cmd_serve(args) -> int:
         asyncio.run(run())
     except KeyboardInterrupt:
         pass
+    return 0
+
+
+def cmd_sidecar(args) -> int:
+    """Serve the chunking engine as the ``dfs.Sidecar`` gRPC service
+    until SIGINT or SIGTERM (exit 0)."""
+    import signal
+    import threading
+
+    from dfs_tpu_torch.sidecar import SidecarServer
+
+    try:
+        srv = SidecarServer(
+            port=args.sidecar_port, fragmenter=args.fragmenter,
+            cdc_params=CDCParams(min_size=args.min_chunk,
+                                 avg_size=args.avg_chunk,
+                                 max_size=args.max_chunk),
+            device=None if args.device == "cuda" else args.device)
+    except RuntimeError as e:        # no card (resolve_device's message)
+        print(f"sidecar: {e}", file=sys.stderr)
+        return 2
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    srv.start()
+    print(f"sidecar listening on 127.0.0.1:{srv.port} "
+          f"(fragmenter={srv.fragmenter.name})", flush=True)
+    while not stop.wait(0.5):
+        pass
+    srv.stop()
     return 0
 
 
@@ -564,14 +602,17 @@ def _ask_port(default: int) -> int:
         return default
 
 
-def _add_client_flags(p) -> None:
-    """``--device`` and the ``--smart`` data plane's knobs
-    (ClientConfig)."""
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where upload --resume and --smart chunk: the "
-                        "CUDA card (default; fails without one) or the "
-                        "plain versions on the CPU; a download never "
-                        "chunks")
+_FRAGMENTERS = ["auto", "cdc-anchored-cuda", "fixed", "cdc"]
+
+
+def _add_client_flags(p, device: bool) -> None:
+    """The ``--smart`` data plane's knobs (ClientConfig) and, where the
+    command chunks (``upload``), ``--device``."""
+    if device:
+        p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                       help="where upload --resume and --smart chunk: the "
+                            "CUDA card (default; fails without one) or "
+                            "the plain versions on the CPU")
     p.add_argument("--smart", action="store_true",
                    help="use the SDK data plane: chunk and hash here, "
                         "consult peer-existence filters, stripe straight "
@@ -625,9 +666,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="where the chunking runs: the CUDA card "
                             "(default; fails without one) or the plain "
                             "versions on the CPU")
-    serve.add_argument("--fragmenter", default="auto",
-                       choices=["auto", "cdc-anchored-cuda"],
-                       help="both: the anchored CDC + SHA-256 chain")
+    serve.add_argument("--fragmenter", default="auto", choices=_FRAGMENTERS,
+                       help="auto, cdc-anchored-cuda: the anchored CDC + "
+                            "SHA-256 chain on --device; fixed, cdc: host "
+                            "strategies (no kernel)")
     serve.add_argument("--cdc-devices", type=int, default=0,
                        help="window-batched walk over N device slots "
                             "(0/1 = single-device; chunks identical)")
@@ -639,6 +681,9 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--min-chunk", type=int, default=2048)
     serve.add_argument("--avg-chunk", type=int, default=8192)
     serve.add_argument("--max-chunk", type=int, default=65536)
+    serve.add_argument("--fixed-parts", type=int, default=5,
+                       help="the fixed strategy's part count (reference "
+                            "parity: TOTAL_NODES=5)")
     serve.add_argument("--connect-timeout", type=float, default=2.0,
                        help="per-attempt peer connect timeout (s)")
     serve.add_argument("--request-timeout", type=float, default=10.0,
@@ -687,6 +732,9 @@ def build_parser() -> argparse.ArgumentParser:
     serve.add_argument("--hedge-budget", type=float, default=0.0,
                        help="hedge token-bucket refill per second; "
                             "0 disables hedged reads (the default)")
+    serve.add_argument("--sidecar-port", type=int, default=None,
+                       help="delegate chunk+hash to a running sidecar "
+                            "process (overrides --fragmenter)")
     serve.add_argument("--ingest-window", type=int, default=2,
                        help="placement batches in flight while streaming")
     serve.add_argument("--ingest-flush-bytes", type=int,
@@ -882,6 +930,18 @@ def build_parser() -> argparse.ArgumentParser:
                             "execution reaches it")
     serve.set_defaults(fn=cmd_serve)
 
+    sc = sub.add_parser("sidecar", help="run the chunk+hash sidecar service")
+    sc.add_argument("--sidecar-port", type=int, default=50151)
+    sc.add_argument("--fragmenter", default="auto", choices=_FRAGMENTERS)
+    sc.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where auto and cdc-anchored-cuda chunk: the CUDA "
+                         "card (default; fails without one) or the plain "
+                         "versions on the CPU")
+    sc.add_argument("--min-chunk", type=int, default=2048)
+    sc.add_argument("--avg-chunk", type=int, default=8192)
+    sc.add_argument("--max-chunk", type=int, default=65536)
+    sc.set_defaults(fn=cmd_sidecar)
+
     sub.add_parser("status").set_defaults(fn=cmd_status)
     sub.add_parser("list").set_defaults(fn=cmd_list)
     up = sub.add_parser("upload")
@@ -895,7 +955,7 @@ def build_parser() -> argparse.ArgumentParser:
     up.add_argument("--trace", action="store_true",
                     help="tag the request with a fresh trace id "
                          "(printed) for `trace <id>` inspection")
-    _add_client_flags(up)
+    _add_client_flags(up, device=True)
     up.set_defaults(fn=cmd_upload)
     down = sub.add_parser("download")
     down.add_argument("file_id")
@@ -903,7 +963,7 @@ def build_parser() -> argparse.ArgumentParser:
     down.add_argument("--trace", action="store_true",
                       help="tag the request with a fresh trace id "
                            "(printed) for `trace <id>` inspection")
-    _add_client_flags(down)
+    _add_client_flags(down, device=False)
     down.set_defaults(fn=cmd_download)
     rm = sub.add_parser("delete")
     rm.add_argument("file_id")

@@ -39,7 +39,8 @@ import urllib.parse
 from dfs_tpu_torch.cli.client import NodeClient
 from dfs_tpu_torch.comm.rpc import InternalClient, RpcError, RpcRemoteError
 from dfs_tpu_torch.config import ClientConfig, PeerAddr
-from dfs_tpu_torch.fragmenter.base import params_from_description
+from dfs_tpu_torch.fragmenter.base import (fragmenter_from_description,
+                                           params_from_description)
 from dfs_tpu_torch.index import EchoCache
 from dfs_tpu_torch.index.filter import BlockedBloomFilter
 from dfs_tpu_torch.ring import RingMap
@@ -115,7 +116,7 @@ class SmartClient:
         self._ringview: _ClientRingView | None = None
         self._peers: dict[int, PeerAddr] = {}
         self._rf = 1
-        self._params = None
+        self._desc: dict | None = None     # the node's describe(), checked
         self._frag = None
         # filter replicas: node_id -> {"bloom", "gen", "fetchedAt",
         # "baseAgeS"}, fetched in one get_filters call and refetched when
@@ -156,40 +157,40 @@ class SmartClient:
         self._install_boot(boot)
 
     def _install_boot(self, boot: dict) -> None:
-        params = None
+        desc = None
         chunking = boot.get("chunking")
         if chunking and chunking.get("describe"):
             # only the kind and fields are read here: the fragmenter, and
             # the device it needs, wait for the first upload (a download
             # never chunks)
             try:
-                params = params_from_description(chunking["describe"])
+                params_from_description(chunking["describe"])
+                desc = chunking["describe"]
             except (ValueError, KeyError):
-                params = None   # an engine the port cannot chunk: legacy
+                desc = None     # an engine the port cannot chunk: legacy
         self._ringview = _ClientRingView(RingMap.from_dict(boot["ring"]))
         self._peers = {int(p["nodeId"]): PeerAddr(
             node_id=int(p["nodeId"]), host=str(p["host"]),
             port=int(p["port"]), internal_port=int(p["internalPort"]))
             for p in boot["peers"]}
         self._rf = int(boot["replicationFactor"])
-        self._params = params
+        self._desc = desc
         self._boot = boot
 
     def _smart_ready(self) -> bool:
         self._bootstrap()
-        return bool(self._boot) and self._params is not None \
+        return bool(self._boot) and self._desc is not None \
             and self._ringview is not None
 
     def _fragmenter(self):
-        """The chunking engine on ``device``, built on the first upload.
-        Without a card its RuntimeError is not caught: it reaches the
-        caller and never becomes a legacy upload."""
+        """The node's chunking engine, built on the first upload: the
+        anchored chain on ``device``, or a host strategy (``fixed``,
+        ``cdc``) that needs no device. Without a card the anchored
+        engine's RuntimeError is not caught: it reaches the caller and
+        never becomes a legacy upload."""
         if self._frag is None:
-            from dfs_tpu_torch.fragmenter.cdc_anchored import \
-                AnchoredCudaFragmenter
-
-            self._frag = AnchoredCudaFragmenter(self._params,
-                                                device=self.device)
+            self._frag = fragmenter_from_description(self._desc,
+                                                     device=self.device)
         return self._frag
 
     def _note_fallback(self, reason: str) -> None:

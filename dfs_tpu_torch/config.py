@@ -3,7 +3,8 @@
 
 - :class:`CDCParams` — operator chunk sizing (``--min/avg/max-chunk``);
   ``fragmenter.base._anchored_params`` maps it onto the anchored grid
-  exactly as dfs_tpu does, so the same flags cut the same chunks.
+  exactly as dfs_tpu does, so the same flags cut the same chunks; the
+  ``cdc`` host strategy uses it as it stands (Gear table seed and mask).
 - :class:`PeerAddr`, :class:`ClusterConfig` — membership and replication.
 - :class:`FragmenterConfig` — how the chunk-and-hash chain runs.
 - :class:`IngestConfig` — the pipelined write path's bounds.
@@ -37,15 +38,29 @@ import dataclasses
 import json
 from pathlib import Path
 
+# the uint32 Gear hash with shift 1 forgets bytes older than 32 positions
+# (they shift out mod 2**32): the rolling ``cdc`` strategy's window, and
+# the halo a tile of its bitmap needs from the tile before
+GEAR_WINDOW = 32
+GEAR_HALO = GEAR_WINDOW - 1
+
 
 @dataclasses.dataclass(frozen=True)
 class CDCParams:
     """Content-defined-chunking sizes in bytes (``avg_size`` a power of
-    two). The anchored strategy quantizes them to its 64-byte grid."""
+    two) and the Gear table's seed. The anchored strategy quantizes the
+    sizes to its 64-byte grid; the ``cdc`` strategy cuts where
+    ``(gear_hash & mask) == 0`` at ``min_size`` or more, or at
+    ``max_size``. ``WINDOW`` is dfs_tpu's constant field (it also keeps
+    the two packages' config fingerprints equal)."""
 
     min_size: int = 2048
     avg_size: int = 8192
     max_size: int = 65536
+    seed: int = 0x9E3779B9
+
+    WINDOW: int = dataclasses.field(default=GEAR_WINDOW, init=False,
+                                    repr=False)
 
     def __post_init__(self) -> None:
         if self.avg_size & (self.avg_size - 1):
@@ -55,6 +70,10 @@ class CDCParams:
             raise ValueError(
                 f"need 0 < min ({self.min_size}) <= avg ({self.avg_size})"
                 f" <= max ({self.max_size})")
+
+    @property
+    def mask(self) -> int:
+        return self.avg_size - 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -671,9 +690,13 @@ class NodeConfig:
     cluster: ClusterConfig
     data_root: Path
     fragmenter: str = "auto"        # "auto" | "cdc-anchored-cuda"
+                                    # | "fixed" | "cdc"
+    sidecar_port: int | None = None  # delegate chunk+hash to a sidecar
+                                     # process (overrides `fragmenter`)
     cdc: CDCParams = dataclasses.field(default_factory=CDCParams)
     frag: FragmenterConfig = dataclasses.field(
         default_factory=FragmenterConfig)
+    fixed_parts: int = 5            # the fixed strategy's part count
     connect_timeout_s: float = 2.0
     request_timeout_s: float = 10.0
     retries: int = 3

@@ -63,6 +63,25 @@ class Fragmenter(abc.ABC):
             chunks=tuple(chunks))
 
 
+class MaterializingFragmenter(Fragmenter):
+    """A host strategy streamed as dfs_tpu's base class streams it: the
+    blocks are joined and chunked whole (``fixed`` needs the total size
+    for its split), so the reporting lag is unbounded and
+    :meth:`stream_span` is None — a sidecar advertises ``window`` 0."""
+
+    def stream_span(self) -> int | None:
+        return None
+
+    def chunks_stream(self, blocks, store=None):
+        data = b"".join(blocks)
+        chunks = self.chunk(data)
+        if store is not None:
+            for c in chunks:
+                store(c.digest, data[c.offset:c.offset + c.length])
+        if chunks:
+            yield chunks
+
+
 def _aligned_from_cdc(cdc_params):
     """CDCParams byte sizes -> 64-byte block units (quantized), the strip
     grown to hold one max-size chunk — dfs_tpu's ``_aligned_from_cdc``."""
@@ -99,14 +118,30 @@ def _anchored_params(cdc_params):
 
 
 def get_fragmenter(kind: str, *, cdc_params=None, frag=None,
-                   device=None) -> Fragmenter:
+                   device=None, fixed_parts: int = 5) -> Fragmenter:
     """Factory keyed by ``NodeConfig.fragmenter``. ``"auto"`` (the serve
     default) and ``"cdc-anchored-cuda"`` both give the anchored chain on
     ``device`` (None: the CUDA card; "cpu": the plain versions) —
     :class:`AnchoredCudaFragmenter`, or with ``frag.devices > 1`` the
     window-batched :class:`ShardedAnchoredCudaFragmenter`. Unlike
     dfs_tpu's ``auto``, it never picks the CPU by itself: without CUDA it
-    raises unless ``device="cpu"`` was asked for."""
+    raises unless ``device="cpu"`` was asked for. ``"fixed"``
+    (``fixed_parts`` parts) and ``"cdc"`` (the Gear rolling hash at
+    ``cdc_params``) are host strategies a user names on purpose: they run
+    no kernel and take no device; the multi-device rolling walk is not
+    ported, so ``"cdc"`` with ``frag.devices > 1`` raises."""
+    if kind == "fixed":
+        from dfs_tpu_torch.fragmenter.fixed import FixedFragmenter
+
+        return FixedFragmenter(parts=fixed_parts)
+    if kind == "cdc":
+        if frag is not None and frag.devices > 1:
+            raise ValueError("fragmenter 'cdc' runs on the host only: the "
+                             "multi-device rolling walk is not ported")
+        from dfs_tpu_torch.config import CDCParams
+        from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
+
+        return CpuCdcFragmenter(cdc_params or CDCParams())
     if kind not in ("auto", "cdc-anchored-cuda"):
         raise ValueError(f"unknown fragmenter {kind!r}")
     params = _anchored_params(cdc_params)
@@ -121,10 +156,20 @@ def get_fragmenter(kind: str, *, cdc_params=None, frag=None,
 
 
 def params_from_description(desc: dict):
-    """The :class:`AnchoredCdcParams` a ``describe()`` output names, built
-    without touching a device. ``fixed``, ``cdc`` and any other kind raise
-    ValueError; a missing field raises KeyError."""
+    """The parameters a ``describe()`` output names, built without
+    touching a device: :class:`AnchoredCdcParams` for ``cdc-anchored``,
+    :class:`CDCParams` for ``cdc``, the part count for ``fixed``. Any
+    other kind raises ValueError; a missing field raises KeyError."""
     kind = desc.get("kind")
+    if kind == "fixed":
+        return int(desc["parts"])
+    if kind == "cdc":
+        from dfs_tpu_torch.config import CDCParams
+
+        return CDCParams(min_size=int(desc["min_size"]),
+                         avg_size=int(desc["avg_size"]),
+                         max_size=int(desc["max_size"]),
+                         seed=int(desc["seed"]))
     if kind == "cdc-anchored":
         from dfs_tpu_torch.ops.cdc_anchored import AnchoredCdcParams
         from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
@@ -144,13 +189,22 @@ def params_from_description(desc: dict):
 
 def fragmenter_from_description(desc: dict, device=None) -> Fragmenter:
     """Rebuild a chunk-compatible fragmenter from ``describe()`` output —
-    dfs_tpu's counterpart, for the kinds the port chunks. An anchored
-    description gives :class:`AnchoredCudaFragmenter` on ``device`` (None:
-    the CUDA card, raising without one; "cpu": the plain versions); its
-    chunk table equals the describing engine's byte for byte, whichever
-    package described it. Other kinds raise as
-    :func:`params_from_description` does."""
+    dfs_tpu's counterpart; the chunk table equals the describing engine's
+    byte for byte, whichever package described it. An anchored
+    description gives :class:`AnchoredCudaFragmenter` on ``device``
+    (None: the CUDA card, raising without one; "cpu": the plain
+    versions); ``fixed`` and ``cdc`` give the host strategies, which need
+    no device. Other kinds raise as :func:`params_from_description`
+    does."""
+    params = params_from_description(desc)
+    if desc["kind"] == "fixed":
+        from dfs_tpu_torch.fragmenter.fixed import FixedFragmenter
+
+        return FixedFragmenter(parts=params)
+    if desc["kind"] == "cdc":
+        from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
+
+        return CpuCdcFragmenter(params)
     from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
 
-    return AnchoredCudaFragmenter(params_from_description(desc),
-                                  device=device)
+    return AnchoredCudaFragmenter(params, device=device)

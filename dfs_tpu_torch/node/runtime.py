@@ -9,14 +9,16 @@ One process per node, two listeners:
 
 An upload hashes the body (fileId = sha256), chunks it through the
 anchored CDC + SHA-256 chain on the card (in a worker thread, so the
-event loop keeps serving), places every distinct chunk on its ring owners
-— local puts and concurrent replication with a hash echo per slice —,
-falls back to sloppy-quorum handoff when an owner is down, fails below
-``write_quorum`` copies, and acks by saving the manifest (fsync'd) and
-announcing it to every peer. An erasure-coded upload
-(``ec_k``) stores one copy of every chunk plus P+Q parity per stripe of k
-chunks, encoded on the fragmenter's device (:mod:`dfs_tpu_torch.ops.ec`),
-each shard of a stripe pinned to its own node. A download gathers chunks
+event loop keeps serving; or with a host strategy, ``fixed`` or ``cdc``,
+or through a sidecar process, ``NodeConfig.sidecar_port``), places every
+distinct chunk on its ring owners — local puts and concurrent replication
+with a hash echo per slice —, falls back to sloppy-quorum handoff when
+an owner is down, fails below ``write_quorum`` copies, and acks by saving
+the manifest (fsync'd) and announcing it to every peer. An erasure-coded
+upload (``ec_k``) stores one copy of every chunk plus P+Q parity per
+stripe of k chunks, encoded on the fragmenter's device or, with a host
+strategy or a sidecar, the node's (:mod:`dfs_tpu_torch.ops.ec`), each
+shard of a stripe pinned to its own node. A download gathers chunks
 locally and in batches from their owners (an EC shard's stripe holder),
 verifies every chunk and the whole file, and streams them out; an EC shard
 that no node serves is decoded from its stripe. Repair re-replicates,
@@ -130,6 +132,7 @@ from typing import Mapping, Sequence
 
 import numpy as np
 
+from dfs_tpu_torch import resolve_device
 from dfs_tpu_torch.api.http import make_http_handler
 from dfs_tpu_torch.comm.rpc import (DeadlineExpired, InternalClient,
                                     RpcError, RpcRemoteError,
@@ -308,7 +311,7 @@ def _config_fingerprint(cfg: NodeConfig) -> str:
     import json as _json
 
     d = _dc.asdict(cfg)
-    for local in ("node_id", "data_root", "device"):
+    for local in ("node_id", "data_root", "device", "sidecar_port"):
         d.pop(local, None)
     return sha256_hex(_json.dumps(d, sort_keys=True, default=str).encode())
 
@@ -322,10 +325,20 @@ class StorageNodeServer:
     def __init__(self, cfg: NodeConfig) -> None:
         self.cfg = cfg
         self.log = get_logger("node", cfg.node_id)
-        # the fragmenter first: without the card (and without
-        # device="cpu") the node raises here, before it touches the disk
-        self.fragmenter = get_fragmenter(cfg.fragmenter, cdc_params=cfg.cdc,
-                                         frag=cfg.frag, device=cfg.device)
+        # the device and the fragmenter first: without the card (and
+        # without device="cpu") the node raises here, before it touches
+        # the disk. The device encodes EC and sketches whatever chunks:
+        # the anchored chain on it, a host strategy (fixed, cdc) or a
+        # sidecar process (sidecar_port, which overrides `fragmenter`)
+        self.device = resolve_device(cfg.device)
+        if cfg.sidecar_port:
+            from dfs_tpu_torch.sidecar.service import SidecarFragmenter
+
+            self.fragmenter = SidecarFragmenter(cfg.sidecar_port)
+        else:
+            self.fragmenter = get_fragmenter(
+                cfg.fragmenter, cdc_params=cfg.cdc, frag=cfg.frag,
+                device=cfg.device, fixed_parts=cfg.fixed_parts)
         self.store = NodeStore(cfg.data_root, cfg.node_id,
                                fsync=cfg.durability.fsync)
         self.counters = Counters()
@@ -1215,9 +1228,12 @@ class StorageNodeServer:
 
     def _ec_device(self):
         """Where the EC encode runs: the fragmenter's device (its first
-        slot on a mesh) — the card when the node chunks on it."""
+        slot on a mesh) — the card when the node chunks on it — or, for a
+        host strategy or a sidecar, the node's device."""
         mesh = getattr(self.fragmenter, "mesh", None)
-        return mesh.flat[0] if mesh is not None else self.fragmenter.device
+        if mesh is not None:
+            return mesh.flat[0]
+        return getattr(self.fragmenter, "device", self.device)
 
     def _ec_extend(self, manifest: Manifest, data: bytes, k: int
                    ) -> tuple[Manifest, list[tuple[str, bytes]]]:
@@ -3126,7 +3142,7 @@ class StorageNodeServer:
         counts = self.counters.snapshot()
         mesh = getattr(self.fragmenter, "mesh", None)
         device = ",".join(str(d) for d in mesh.flat) if mesh is not None \
-            else str(self.fragmenter.device)
+            else str(self._ec_device())
         return {"devices": f.devices,
                 "regionBytes": f.region_bytes,
                 "stagingBuffers": f.staging_buffers,

@@ -27,6 +27,25 @@ def sha256_new() -> "hashlib._Hash":
     return hashlib.sha256()
 
 
+def gear_table(seed: int = 0x9E3779B9) -> np.ndarray:
+    """The 256-entry uint32 Gear table of the ``cdc`` strategy, from
+    splitmix64 — dfs_tpu's table for the same seed, entry for entry."""
+    out = np.empty(256, dtype=np.uint64)
+    x = np.uint64(seed & 0xFFFFFFFFFFFFFFFF)
+    golden = np.uint64(0x9E3779B97F4A7C15)
+    m1 = np.uint64(0xBF58476D1CE4E5B9)
+    m2 = np.uint64(0x94D049BB133111EB)
+    with np.errstate(over="ignore"):
+        for i in range(256):
+            x = x + golden
+            z = x
+            z = (z ^ (z >> np.uint64(30))) * m1
+            z = (z ^ (z >> np.uint64(27))) * m2
+            z = z ^ (z >> np.uint64(31))
+            out[i] = z
+    return (out & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+
+
 def is_hex_digest(s: str) -> bool:
     """True iff ``s`` is a 64-char lowercase-hex SHA-256 digest — the only
     legal file/chunk id format."""

@@ -637,3 +637,37 @@ def test_tier_demotion_encodes_on_card(dev, tmp_path):
                 await n.stop()
 
     asyncio.run(asyncio.wait_for(go(), timeout=120))
+
+
+def test_sidecar_on_card(dev):
+    """The sidecar as users run it, on the card: ``auto`` at the default
+    parameters; a 3 MiB body (one window of the device walk) through
+    ChunkHashStream and ChunkHashDuplex equals the oracle, Health's window
+    is the walk's stream_span, and K1-K4 launch."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.sidecar import SidecarClient, SidecarServer
+
+    srv = SidecarServer(port=0, fragmenter="auto", device=dev)
+    srv.start()
+    try:
+        c = SidecarClient(srv.port)
+        h = c.health()
+        assert h["fragmenter"] == "cdc-anchored-cuda"
+        assert h["window"] == srv.fragmenter.stream_span()
+        data = corpus(3 * 1024 * 1024, seed=41)
+        want = A.chunk_file_anchored_np(data, srv.fragmenter.params)
+        body = data.tobytes()
+        kernels.reset_launch_counts()
+        got = c.chunk_hash_stream(body[i:i + (1 << 20)]
+                                  for i in range(0, len(body), 1 << 20))
+        msgs = list(c.chunk_hash_duplex(iter([body])))
+        counts = kernels.launch_counts()
+        for table in (got["chunks"],
+                      [x for m in msgs[:-1] for x in m["chunks"]]):
+            assert [(x["offset"], x["length"], x["digest"])
+                    for x in table] == want
+        for k in ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+                  "select_walk"):
+            assert counts[k] >= 2, counts
+    finally:
+        srv.stop()

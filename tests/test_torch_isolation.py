@@ -1,10 +1,11 @@
 """The port stands alone: no file of dfs_tpu_torch (nor chip_smoke.py)
-imports JAX or anything of dfs_tpu, a process that uses the port — the
+imports JAX, grpc or anything of dfs_tpu, a process that uses the port —
+the chunk+hash sidecar and its client, the
 single-device and the sharded walk, and a node served over HTTP with the
 similarity plane, the serving tier, the index and tiering, chaos, a
 traced request stitched and journaled, the ring, census, history and
 doctor routes, a smart-client upload and download, a resumed upload, and
-a device-trace capture — never loads either, and without CUDA the entry
+a device-trace capture — never loads any of them, and without CUDA the entry
 points (the client's chunking included) raise instead of running on the
 CPU."""
 
@@ -25,7 +26,7 @@ def _forbidden(module: str) -> bool:
     # exact names or their submodules: dfs_tpu_torch itself also starts
     # with "dfs_tpu"
     return any(module == m or module.startswith(m + ".")
-               for m in ("jax", "jaxlib", "dfs_tpu"))
+               for m in ("jax", "jaxlib", "dfs_tpu", "grpc"))
 
 
 def test_no_file_imports_jax_or_dfs_tpu():
@@ -155,9 +156,21 @@ with tempfile.TemporaryDirectory() as d:
             await srv.stop()
 
     asyncio.run(serve())
+    # the sidecar (its own HTTP/2 stack) and a round trip through it
+    from dfs_tpu_torch.sidecar import SidecarClient, SidecarServer
+    sc_srv = SidecarServer(port=0, fragmenter="cdc")
+    sc_srv.start()
+    try:
+        sc = SidecarClient(sc_srv.port)
+        assert sc.health()["fragmenter"] == "cdc"
+        table = sc.chunk_hash_stream(iter([body[:9000], body[9000:]]))
+        assert sum(x["length"] for x in table["chunks"]) == len(body)
+        assert list(sc.chunk_hash_duplex(iter([body])))[-1]["done"]
+    finally:
+        sc_srv.stop()
 bad = sorted(k for k in sys.modules
-             if k in ("jax", "jaxlib", "dfs_tpu")
-             or k.startswith(("jax.", "jaxlib.", "dfs_tpu.")))
+             if k in ("jax", "jaxlib", "dfs_tpu", "grpc")
+             or k.startswith(("jax.", "jaxlib.", "dfs_tpu.", "grpc.")))
 print("LOADED", bad)
 sys.exit(1 if bad else 0)
 """
