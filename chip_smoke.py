@@ -117,7 +117,7 @@ drives the paths end to end and checks each against the NumPy oracle:
   gates): 4 ``serve`` processes (rf 2, write quorum 2, fsync on,
   ``--ring-vnodes 64 --ring-members 1,2,3
   --ring-rebalance-credit-bytes 2097152``, repair every 2 s), node 4 a
-  standby. (a) A 64 MiB body (seed 20261018) to node 1 (table against the
+  standby. (a) A 32 MiB body (seed 20261018) to node 1 (table against the
   oracle, kernels 1-4 in node 1); (b) open-loop load of 48,000 B uploads at
   4/s on nodes 1-3 (4 s of warm-up first), ``POST /ring {"action": "add",
   "nodeId": 4}`` without a weight (the derived weight in [0.25, 4]), node 4
@@ -176,6 +176,35 @@ drives the paths end to end and checks each against the NumPy oracle:
   window, a 2 MiB ChunkHash equals the oracle, and SIGTERM ends it with
   exit 0 within 10 s. K1-K4 launched in this process over (a) and (b)
   (path ``cluster_sidecar``). Within 90 s;
+- ``aligned``: aligned CDC v2 (``cdc-aligned-cuda``): the 128 MiB body
+  through ``AlignedCudaFragmenter.chunk`` and ``manifest_stream`` (1 MiB
+  blocks), tables == ``chunk_file_np`` and the fileId from the digest
+  chain; a 3 MiB segment with ``cpu_cutoff=0`` (32 strips padded to 128
+  lanes on the card); an 8 MiB upload to an in-process
+  ``StorageNodeServer`` (rf 1, fsync on) built from
+  ``NodeConfig(fragmenter="cdc-aligned-cuda")``: table == oracle, fileId
+  = sha256, download identical, ``/dataplane`` chunking null (kernels 3
+  and 1, at least 2 launches each over the body);
+- ``v1``: the body through ``CudaCdcFragmenter`` (``cdc-cuda``, dfs_tpu's
+  ``cdc-tpu``) ``chunk`` and ``manifest_stream``, tables == the host
+  ``cdc`` engine's (kernel 6);
+- ``rolling_sharded``: the body through the rolling walk
+  (``ShardedCdcFragmenter``, ``cdc --cdc-devices N``) on 2 and 4 slots of
+  the first card, and one slot per card with two or more cards, tables ==
+  the host ``cdc`` engine's (no hand-written kernel: the bitmap is plain
+  torch, as dfs_tpu's was XLA);
+- ``sharded_step``: ``make_sharded_step`` on a 2 x 2 mesh of 4 slots of the
+  first card: two 8 MiB streams' bitmaps, the count and 64 messages'
+  states (kernel 6) == the NumPy bitmap and hashlib;
+- ``anchored_host``: the body through the host ``cdc-anchored`` engine
+  (``native/cdc_core.cpp``), whole and streamed, == the oracle;
+- ``kernel:sha256_blocks``: kernel 6 at 16 rows x 64 blocks against its
+  plain version (exact; also rows of 0, -1, 17 and 99 blocks), timed
+  alone, with the 128 x 256 shape beside it;
+- ``multihost``: two processes (``chip_smoke.py --multihost-worker``), 2
+  slots each on ``cuda:0``, one gloo group: the rolling step, the carry
+  step and the anchored pass B over the global mesh at dp 1 and 2, each
+  process's slots == the oracles (kernels 6, 2, 3 and 5 in the workers);
 - ``sharded_parity``: both sharded anchored passes and the aligned step on
   a toy geometry, on a mesh of 4 slots on the first card (kernels 2, 3, 5);
 - ``sharded_production``: both sharded anchored passes on a 64 MiB region
@@ -271,7 +300,7 @@ CHAOS_PHASE_BOUND_S = 240.0
 # bench_chaos.py --tiny's open-loop load (48,000 B at 4/s on nodes 1-3)
 RING_NODES = 4
 RING_SEED = 20261018
-RING_BYTES = 64 * 1024 * 1024
+RING_BYTES = 32 * 1024 * 1024   # cut from 64 MiB to keep the run in its limit
 RING_CREDIT = 2 * 1024 * 1024
 RING_FLAGS = ("--ring-vnodes", "64", "--ring-members", "1,2,3",
               "--ring-rebalance-credit-bytes", str(RING_CREDIT),
@@ -294,6 +323,9 @@ CLIENT_STRIPED_BYTES = 2 * 1024 * 1024
 CLIENT_PHASE_BOUND_S = 120.0
 # cluster_sidecar: the phase's time bound and the CLI sidecar's ChunkHash
 SIDECAR_PHASE_BOUND_S = 90.0
+# the aligned phase's node upload (8 MiB: one segment of 64 strips, padded
+# to 128 lanes on the card)
+ALIGNED_NODE_BYTES = 8 * 1024 * 1024
 SIDECAR_CLI_BYTES = 2 * 1024 * 1024
 # the tracing-off twin of the cluster phase's upload
 OBS_OFF_FLAGS = ("--trace-ring", "0", "--journal-bytes", "0",
@@ -342,11 +374,14 @@ REPLACES = {
     "bswap_transpose": "dfs_tpu/ops/layout.py:39",
     "select_walk": "dfs_tpu/ops/select_pallas.py:62",
     "strip_states": "dfs_tpu/ops/sha256_strip.py:140",
+    # XLA in dfs_tpu, not Pallas: the batched scan of _sha256_blocks_impl
+    "sha256_blocks": "dfs_tpu/ops/sha256_jax.py:130",
 }
 # the path whose run counts each kernel's launches in the kernels table
 LAUNCHES_PATH = {"strip_chunk_states": "e2e", "repack_lanes": "e2e",
                  "bswap_transpose": "e2e", "select_walk": "e2e",
-                 "strip_states": "sharded_production"}
+                 "strip_states": "sharded_production",
+                 "sha256_blocks": "v1"}
 
 
 def emit(obj) -> None:
@@ -2169,7 +2204,7 @@ def cluster_ring_phase(root: Path, np, params) -> dict:
         port, procs = c.port, c.procs
         out["start_s"] = c.start_s
 
-        # (a) seed: the 64 MiB body to node 1, chunked on the card
+        # (a) seed: the 32 MiB body to node 1, chunked on the card
         m0 = _metrics(port[1])["frag"]["launches"]
         t0 = time.perf_counter()
         info = _upload(port[1], iter(blocks), "ring-seed.bin", chunked=True)
@@ -2897,6 +2932,340 @@ def cluster_sidecar_phase(root: Path, body: bytes, oracle: list,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the strategies ported last: aligned v2, v1, the rolling walk, the host
+# anchored engine, multihost
+# ---------------------------------------------------------------------------
+
+def _triples(chunks) -> list:
+    return [(c.offset, c.length, c.digest) for c in chunks]
+
+
+def aligned_phase(root: Path, body: bytes, body_np, blocks: list,
+                  kernels) -> dict:
+    """The ``aligned`` phase (module docstring). Returns this process's
+    launches over the body's ``chunk`` and ``manifest_stream``."""
+    import asyncio
+
+    import torch
+
+    from dfs_tpu_torch.config import ClusterConfig, NodeConfig
+    from dfs_tpu_torch.fragmenter.cdc_aligned import AlignedCudaFragmenter
+    from dfs_tpu_torch.node.runtime import StorageNodeServer
+    from dfs_tpu_torch.ops import cdc_pipeline
+    from dfs_tpu_torch.ops.cdc_v2 import (AlignedCdcParams, chunk_file_np,
+                                          file_id_from_digests)
+
+    params = AlignedCdcParams()
+    needed = ("bswap_transpose", "strip_chunk_states")
+    t0 = time.perf_counter()
+    oracle = chunk_file_np(body_np, params)
+    oracle_s = time.perf_counter() - t0
+    fid = file_id_from_digests([d for _, _, d in oracle])
+    frag = AlignedCudaFragmenter(params, device="cuda")
+    frag.chunk(body[:ALIGNED_NODE_BYTES])                # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = _triples(frag.chunk(body))
+    chunk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = frag.manifest_stream(iter(blocks), "aligned.bin")
+    stream_s = time.perf_counter() - t0
+    counts = path_launches(kernels, "aligned", needed)
+    for k in needed:
+        check(counts[k] >= 2, f"aligned: {k} launched {counts[k]} times")
+    check(table == oracle, "aligned chunk table != chunk_file_np")
+    check(_triples(m.chunks) == oracle and m.file_id == fid
+          and m.size == len(body), "aligned streamed manifest != oracle")
+
+    # one sub-4 MiB segment on the card: 32 strips padded to 128 lanes
+    small = AlignedCudaFragmenter(params, cpu_cutoff=0, device="cuda")
+    n_small = 3 * 1024 * 1024
+    kernels.reset_launch_counts()
+    check(_triples(small.chunk(body[:n_small])) ==
+          chunk_file_np(body_np[:n_small], params),
+          "aligned 3 MiB segment != oracle")
+    check(kernels.launch_counts()["strip_chunk_states"] == 1,
+          "aligned 3 MiB segment did not run on the card")
+    small_shape = cdc_pipeline.make_segment_fn(params, 32, 128).shape
+
+    # the node as serve builds it: rf 1, fsync on, cdc-aligned-cuda
+    data = body[:ALIGNED_NODE_BYTES]
+    ports = _free_ports(2)
+
+    async def upload(d: Path):
+        cfg = NodeConfig(node_id=1,
+                         cluster=ClusterConfig.localhost(1, *ports, 1),
+                         data_root=d, fragmenter="cdc-aligned-cuda",
+                         health_probe_s=0)
+        node = StorageNodeServer(cfg)
+        await node.start()
+        try:
+            async def gen():
+                for i in range(0, len(data), BLOCK_BYTES):
+                    yield data[i:i + BLOCK_BYTES]
+
+            t0 = time.perf_counter()
+            mm, st = await node.upload_stream(gen(), "aligned-node.bin")
+            up_s = time.perf_counter() - t0
+            _, got = await node.download(mm.file_id)
+            return (mm, st, up_s, bytes(got), node.dataplane_info(),
+                    node.store.chunks.fsync_count())
+        finally:
+            await node.stop()
+
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_aligned_",
+                                     dir=root) as d:
+        mm, st, up_s, got, dataplane, fsyncs = asyncio.run(upload(Path(d)))
+    node_counts = path_launches(kernels, "aligned:node", needed)
+    check(mm.fragmenter == "cdc-aligned-cuda" and _triples(mm.chunks) ==
+          chunk_file_np(body_np[:ALIGNED_NODE_BYTES], params),
+          "aligned node upload table != oracle")
+    check(mm.file_id == hashlib.sha256(data).hexdigest() and got == data,
+          "aligned node upload: fileId or download")
+    check(dataplane["chunking"] is None and fsyncs > 0,
+          "aligned node: /dataplane chunking not null, or no fsync")
+    emit({"phase": "aligned", "bytes": len(body), "chunks": len(oracle),
+          "chunk_s": chunk_s, "chunk_gib_s": len(body) / chunk_s / 2**30,
+          "stream_s": stream_s, "stream_gib_s": len(body) / stream_s / 2**30,
+          "oracle_s": oracle_s, "file_id_from_digests": True,
+          "small_segment": {"bytes": n_small, **small_shape},
+          "node": {"bytes": len(data), "upload_s": up_s,
+                   "chunks": len(mm.chunks), "fsyncs": fsyncs,
+                   "launches": {k: node_counts[k] for k in needed}},
+          "launches": counts, "oracle_equal": True})
+    return counts
+
+
+def rolling_phase(body: bytes, blocks: list, cdc_oracle: list,
+                  n_cards: int, kernels) -> dict:
+    """The ``rolling_sharded`` phase: the body through the rolling walk on
+    2 and 4 slots of the first card (and one slot per card with two or
+    more cards), each table == the host ``cdc`` engine's. The walk runs
+    no hand-written kernel (dfs_tpu's step is XLA: the plain bitmap)."""
+    import torch
+
+    from dfs_tpu_torch.config import CDCParams, FragmenterConfig
+    from dfs_tpu_torch.fragmenter.cdc_sharded import ShardedCdcFragmenter
+
+    dev = torch.device("cuda", 0)
+    fid = hashlib.sha256(body).hexdigest()
+    meshes = [(f"{n}_slots_one_card", n, [dev] * n) for n in (2, 4)]
+    if n_cards >= 2:
+        meshes.append(("all_cards", n_cards, None))
+    out = {}
+    for label, n, slots in meshes:
+        walk = ShardedCdcFragmenter(CDCParams(), FragmenterConfig(devices=n),
+                                    device=slots)
+        walk.manifest_stream(iter(blocks[:4]), "warm")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = walk.manifest_stream(iter(blocks), "rolling.bin")
+        walk_s = time.perf_counter() - t0
+        check(_triples(m.chunks) == cdc_oracle and m.file_id == fid,
+              f"rolling {label} table != the host cdc engine's")
+        out[label] = {"slots": walk.mesh.size,
+                      "region_bytes": walk.region_bytes, "seconds": walk_s,
+                      "gib_s": len(body) / walk_s / 2**30,
+                      "launches": kernels.launch_counts()}
+    emit({"phase": "rolling_sharded", "bytes": len(body),
+          "chunks": len(cdc_oracle), "meshes": out, "oracle_equal": True})
+    return out
+
+
+def v1_phase(body: bytes, blocks: list, cdc_oracle: list, kernels) -> dict:
+    """The ``v1`` phase: the body through ``CudaCdcFragmenter.chunk`` (one
+    transfer, the device Gear bitmap, kernel 6 over the resident array)
+    and ``manifest_stream`` (kernel 6 over host payloads), each table ==
+    the host ``cdc`` engine's. Returns the launches over both."""
+    import torch
+
+    from dfs_tpu_torch.fragmenter.cdc_cuda import CudaCdcFragmenter
+
+    frag = CudaCdcFragmenter(device="cuda")
+    frag.chunk(body[:frag.tile_size])                    # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = _triples(frag.chunk(body))
+    chunk_s = time.perf_counter() - t0
+    chunk_launches = kernels.launch_counts()["sha256_blocks"]
+    t0 = time.perf_counter()
+    m = frag.manifest_stream(iter(blocks), "v1.bin")
+    stream_s = time.perf_counter() - t0
+    counts = path_launches(kernels, "v1", ("sha256_blocks",))
+    check(table == cdc_oracle, "v1 chunk table != the host cdc engine's")
+    check(_triples(m.chunks) == cdc_oracle and
+          m.file_id == hashlib.sha256(body).hexdigest(),
+          "v1 streamed manifest != the host cdc engine's")
+    emit({"phase": "v1", "bytes": len(body), "chunks": len(table),
+          "chunk_s": chunk_s, "chunk_gib_s": len(body) / chunk_s / 2**30,
+          "stream_s": stream_s, "stream_gib_s": len(body) / stream_s / 2**30,
+          "k6_launches_chunk": chunk_launches,
+          "k6_launches_stream": counts["sha256_blocks"] - chunk_launches,
+          "launches": counts, "oracle_equal": True})
+    return counts
+
+
+def sharded_step_phase(np, kernels) -> dict:
+    """The ``sharded_step`` phase: ``make_sharded_step`` on a 2 x 2 mesh of
+    4 slots of the first card: two 8 MiB streams tiled over sp and 64
+    messages hashed over the slots (kernel 6); bitmap == the NumPy Gear
+    bitmap, count == its population, states == hashlib."""
+    import torch
+
+    from dfs_tpu_torch.config import CDCParams
+    from dfs_tpu_torch.parallel import sharded_cdc as S
+    from dfs_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(SEED + 3)
+    data = rng.integers(0, 256, size=(2, 8 * 1024 * 1024), dtype=np.uint8)
+    msgs = [rng.integers(0, 256, size=int(n), dtype=np.uint8).tobytes()
+            for n in rng.integers(0, 8192, size=64)]
+    dev = torch.device("cuda", 0)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = S.rolling_sharded_parity_check(make_mesh(4, device=[dev] * 4),
+                                         CDCParams(), data, msgs)
+    counts = path_launches(kernels, "sharded_step", ("sha256_blocks",))
+    emit({"phase": "sharded_step", "mesh": "2 x 2 slots of cuda:0",
+          "seconds": time.perf_counter() - t0, **rec, "oracle_equal": True,
+          "launches": counts})
+    return counts
+
+
+def anchored_host_phase(body: bytes, blocks: list, oracle: list,
+                        params) -> None:
+    """The ``anchored_host`` phase: the body through dfs_tpu's host
+    ``cdc-anchored`` engine (the C++ core, hashlib), whole and streamed
+    in 64 MiB windows, == the NumPy oracle."""
+    from dfs_tpu_torch.fragmenter.base import get_fragmenter
+    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCpuFragmenter
+
+    frag = get_fragmenter("cdc-anchored")
+    check(isinstance(frag, AnchoredCpuFragmenter) and frag.params == params,
+          "cdc-anchored is not the host engine at the default parameters")
+    t0 = time.perf_counter()
+    table = _triples(frag.chunk(body))
+    chunk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    streamed = [(c.offset, c.length, c.digest)
+                for b in frag.chunks_stream(iter(blocks)) for c in b]
+    stream_s = time.perf_counter() - t0
+    check(table == oracle and streamed == oracle,
+          "native cdc-anchored table != numpy oracle")
+    emit({"phase": "anchored_host", "bytes": len(body), "chunks": len(table),
+          "chunk_s": chunk_s, "chunk_gib_s": len(body) / chunk_s / 2**30,
+          "stream_s": stream_s, "stream_gib_s": len(body) / stream_s / 2**30,
+          "oracle_equal": True})
+
+
+def multihost_phase(root: Path) -> dict:
+    """The ``multihost`` phase: two processes (``chip_smoke.py
+    --multihost-worker``), each bringing 2 slots on ``cuda:0``, join one
+    gloo group; ``multihost_parity_check`` runs the rolling step (kernel
+    6), the carry step and the anchored pass B (kernels 2, 3 and 5) over
+    the global mesh and holds each process's slots to the oracles.
+    Returns the workers' launches."""
+    coord = f"127.0.0.1:{_free_ports(1)[0]}"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_mh_",
+                                     dir=root) as d:
+        outs = [Path(d) / f"worker{pid}.json" for pid in (0, 1)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--multihost-worker", coord, str(pid), str(outs[pid])],
+            cwd=root) for pid in (0, 1)]
+        try:
+            rcs = [p.wait(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(rcs == [0, 0], f"multihost workers exited {rcs}")
+        recs = [json.loads(o.read_text()) for o in outs]
+    launches = {k: sum(r["launches"][k] for r in recs)
+                for k in recs[0]["launches"]}
+    for k in ("sha256_blocks", "repack_lanes", "bswap_transpose",
+              "strip_states"):
+        check(launches[k] > 0, f"kernel {k} never launched on multihost")
+    emit({"phase": "multihost", "processes": 2,
+          "slots": "2 per process on cuda:0, gloo",
+          "seconds": time.perf_counter() - t0, "workers": recs,
+          "oracle_equal": True, "launches": launches})
+    return launches
+
+
+def multihost_worker(coord: str, pid: int, out_path: str) -> int:
+    """``chip_smoke.py --multihost-worker COORD PID OUT``, one of the
+    ``multihost`` phase's processes."""
+    import torch
+
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.parallel.multihost import (init_multihost,
+                                                  multihost_parity_check)
+
+    init_multihost(coord, 2, pid)
+    dev = torch.device("cuda", 0)
+    kernels.reset_launch_counts()
+    rec = multihost_parity_check([dev, dev], cols=1024 * 1024)
+    torch.cuda.synchronize()
+    rec["launches"] = kernels.launch_counts()
+    Path(out_path).write_text(json.dumps(rec))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def k6_row(kernel_row, np, dev) -> None:
+    """Kernel 6 at 16 rows x 64 blocks against its plain version (exact;
+    rows of 0 and -1 blocks and one past the axis beside full rows), then
+    timed alone on 16 full rows; the 128 x 256 shape of the issue's
+    prediction is timed too."""
+    import torch
+
+    from dfs_tpu_torch.ops import sha256 as S
+
+    rng = np.random.default_rng(SEED + 4)
+    words = S.u32_tensor(rng.integers(0, 2**32, size=(16, 64, 16),
+                                        dtype=np.uint64).astype(np.uint32),
+                           dev)
+    nb = np.full((16,), 64, np.int32)
+    nb[:4] = (0, -1, 17, 99)
+    mixed = torch.from_numpy(nb).to(dev)
+    full = torch.full((16,), 64, dtype=torch.int32, device=dev)
+    err = max_abs_err(S.sha256_blocks(words, mixed),
+                      S.sha256_blocks_plain(words, mixed))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out_p = S.sha256_blocks_plain(words, full)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    out_k = S.sha256_blocks(words, full)
+    err = max(err, max_abs_err(out_k, out_p))
+    t = kernel_times(lambda: S.sha256_blocks(words, full))
+    big = S.u32_tensor(rng.integers(0, 2**32, size=(128, 256, 16),
+                                      dtype=np.uint64).astype(np.uint32), dev)
+    big_n = torch.full((128,), 256, dtype=torch.int32, device=dev)
+    big_ms = cuda_ms(lambda: S.sha256_blocks(big, big_n), 20)
+    blocks = 16 * 64
+    kernel_row("sha256_blocks", err, t, plain_ms,
+               nbytes(words, full, out_k), blocks * K5_OPS_PER_BLOCK,
+               "16 rows x 64 blocks; also nblocks 0, -1, 17 and 99",
+               chain_floor_ms=64 * CHAIN_CYCLES_PER_COMPRESSION / BOOST_HZ
+               * 1e3, ms_128x256=big_ms,
+               chain_floor_128x256_ms=256 * CHAIN_CYCLES_PER_COMPRESSION
+               / BOOST_HZ * 1e3)
+
+
 def region_inputs(rng, dev, np) -> types.SimpleNamespace:
     """One 64 MiB region (``rng``'s first draw) at the default parameters,
     through the port's own plain anchor pass: the words, the chain's shape,
@@ -3148,6 +3517,9 @@ def main() -> int:
                f"full shape: [{s_pad}, {lane_words}] -> transposed")
     del t_p
 
+    # K6: batched SHA-256 (the v1 path, the rolling sharded step)
+    k6_row(kernel_row, np, dev)
+
     # K1 and K5 at full shape: timed here; held against their plain
     # versions (which walk the 2048 blocks in Python, ~40 s each) by the
     # child process ``strip_refs`` on the same inputs, started beside the
@@ -3285,6 +3657,24 @@ def main() -> int:
         finally:
             phase_s[name] = time.perf_counter() - t0
 
+    # ---- the strategies ported last, in this process on the card ----
+    from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
+
+    cdc_oracle = _triples(CpuCdcFragmenter().chunk(body))
+    launches["aligned"] = timed_phase("aligned", aligned_phase, root, body,
+                                      body_np, blocks, kernels)
+    launches["v1"] = timed_phase("v1", v1_phase, body, blocks, cdc_oracle,
+                                 kernels)
+    for label, rec in timed_phase(
+            "rolling_sharded", rolling_phase, body, blocks, cdc_oracle,
+            torch.cuda.device_count(), kernels).items():
+        launches[f"rolling_sharded:{label}"] = rec["launches"]
+    launches["sharded_step"] = timed_phase("sharded_step",
+                                           sharded_step_phase, np, kernels)
+    timed_phase("anchored_host", anchored_host_phase, body, blocks, oracle,
+                params)
+    del body_np, cdc_oracle
+
     ec_parity = timed_phase("ec_codec", ec_codec_phase, ec_body, ec_table,
                             dev, np)
     timed_phase("sim_sketch", sim_sketch_phase, ec_body, ec_table, dev, np)
@@ -3390,6 +3780,8 @@ def main() -> int:
               "gib_s": BODY_BYTES / walk_s / 2**30, "oracle_equal": True,
               "launches": launches[path]})
 
+    launches["multihost"] = timed_phase("multihost", multihost_phase, root)
+
     emit({"phase": "timing", "seconds": phase_s,
           "total_s": time.perf_counter() - t_run})
     for row in rows:
@@ -3408,4 +3800,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--strip-refs":
         sys.exit(strip_refs(sys.argv[2]))
+    if len(sys.argv) == 5 and sys.argv[1] == "--multihost-worker":
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        sys.exit(multihost_worker(sys.argv[2], int(sys.argv[3]),
+                                  sys.argv[4]))
     sys.exit(main())

@@ -33,8 +33,9 @@ non-zero unless ``--device cpu`` asks for the plain versions. So do
 ``upload --resume`` and ``upload --smart``, which chunk in the client's
 own process; ``download --smart`` never chunks and needs no card.
 ``sidecar`` serves the chunking engine over gRPC (dfs_tpu's ``dfs.Sidecar``
-contract); ``--fragmenter fixed`` and ``cdc`` are host strategies that run
-no kernel.
+contract). ``--fragmenter`` takes every name of dfs_tpu's: ``fixed``,
+``cdc``, ``cdc-aligned`` and ``cdc-anchored`` are host strategies that run
+no kernel; a ``-tpu`` name runs the port's ``-cuda`` engine on ``--device``.
 Tracing, the journal and the sentinel are on by default (``--trace-ring 0
 --journal-bytes 0 --sentinel-interval 0`` turns them off). Subcommands:
 serve, sidecar, status, list, upload, download, delete, metrics, events,
@@ -602,7 +603,16 @@ def _ask_port(default: int) -> int:
         return default
 
 
-_FRAGMENTERS = ["auto", "cdc-anchored-cuda", "fixed", "cdc"]
+# dfs_tpu's names (a -tpu name gives the port's engine on the card, and
+# manifests record its -cuda name), then the port's -cuda names
+_FRAGMENTERS = ["auto", "fixed", "cdc", "cdc-tpu", "cdc-aligned",
+                "cdc-aligned-tpu", "cdc-anchored", "cdc-anchored-tpu",
+                "cdc-cuda", "cdc-aligned-cuda", "cdc-anchored-cuda"]
+_FRAGMENTER_HELP = ("auto, cdc-anchored-cuda (-tpu): the anchored CDC + "
+                    "SHA-256 chain on --device; cdc-aligned-cuda (-tpu): "
+                    "aligned CDC v2 on --device; cdc-cuda (-tpu): the v1 "
+                    "rolling pipeline on --device (deprecated); fixed, cdc, "
+                    "cdc-aligned, cdc-anchored: host strategies")
 
 
 def _add_client_flags(p, device: bool) -> None:
@@ -667,15 +677,16 @@ def build_parser() -> argparse.ArgumentParser:
                             "(default; fails without one) or the plain "
                             "versions on the CPU")
     serve.add_argument("--fragmenter", default="auto", choices=_FRAGMENTERS,
-                       help="auto, cdc-anchored-cuda: the anchored CDC + "
-                            "SHA-256 chain on --device; fixed, cdc: host "
-                            "strategies (no kernel)")
+                       help=_FRAGMENTER_HELP)
     serve.add_argument("--cdc-devices", type=int, default=0,
-                       help="window-batched walk over N device slots "
-                            "(0/1 = single-device; chunks identical)")
+                       help="shard 'cdc' / 'cdc-anchored' (and auto, "
+                            "cdc-anchored-cuda) streaming regions over N "
+                            "device slots (0/1 = single-device; boundaries "
+                            "are byte-identical either way)")
     serve.add_argument("--cdc-region-bytes", type=int, default=0,
-                       help="window size of the batched walk (0 = 64 MiB "
-                            "split across the batch)")
+                       help="fixed device-region size for sharded CDC "
+                            "(0 = devices * 1 MiB rolling / 64 MiB "
+                            "anchored)")
     serve.add_argument("--cdc-staging-buffers", type=int, default=2,
                        help="window batches in flight in the batched walk")
     serve.add_argument("--min-chunk", type=int, default=2048)
@@ -932,9 +943,10 @@ def build_parser() -> argparse.ArgumentParser:
 
     sc = sub.add_parser("sidecar", help="run the chunk+hash sidecar service")
     sc.add_argument("--sidecar-port", type=int, default=50151)
-    sc.add_argument("--fragmenter", default="auto", choices=_FRAGMENTERS)
+    sc.add_argument("--fragmenter", default="auto", choices=_FRAGMENTERS,
+                    help=_FRAGMENTER_HELP)
     sc.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where auto and cdc-anchored-cuda chunk: the CUDA "
+                    help="where the device strategies chunk: the CUDA "
                          "card (default; fails without one) or the plain "
                          "versions on the CPU")
     sc.add_argument("--min-chunk", type=int, default=2048)

@@ -149,13 +149,15 @@ class ClusterConfig:
 class FragmenterConfig:
     """``devices > 1`` runs the anchored walk window-batched over that many
     device slots (``fragmenter/cdc_anchored_sharded.py``): one whole window
-    per slot, chunk tables byte-identical to the single-device walk. With
-    fewer devices visible than configured the walk raises (dfs_tpu logs
-    and runs single-device instead)."""
+    per slot; and the ``cdc`` walk's Gear bitmap tiled over them
+    (``fragmenter/cdc_sharded.py``). Chunk tables are byte-identical to
+    the single-device walk. With fewer devices visible than configured the
+    walk raises (dfs_tpu logs and runs single-device instead)."""
 
     devices: int = 0        # 0/1 = single-device walk; N > 1 = N slots
-    region_bytes: int = 0   # fixed window size of the sharded walk;
-                            # 0 = 64 MiB split across the window batch
+    region_bytes: int = 0   # fixed region size of the sharded walk; 0 =
+                            # 64 MiB split across the window batch
+                            # (anchored), devices MiB (rolling)
     staging_buffers: int = 2  # window batches in flight in the sharded
                             # walk: 2 = stage batch k+1 while batch k
                             # computes; 1 = strictly serial staging
@@ -689,8 +691,8 @@ class NodeConfig:
     node_id: int
     cluster: ClusterConfig
     data_root: Path
-    fragmenter: str = "auto"        # "auto" | "cdc-anchored-cuda"
-                                    # | "fixed" | "cdc"
+    fragmenter: str = "auto"        # any name get_fragmenter takes:
+                                    # dfs_tpu's, and the -cuda names
     sidecar_port: int | None = None  # delegate chunk+hash to a sidecar
                                      # process (overrides `fragmenter`)
     cdc: CDCParams = dataclasses.field(default_factory=CDCParams)

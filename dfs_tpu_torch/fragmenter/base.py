@@ -9,6 +9,7 @@ import abc
 
 from dfs_tpu_torch.meta.manifest import ChunkRef, Manifest
 from dfs_tpu_torch.ops.cdc_v2 import file_id_from_digests
+from dfs_tpu_torch.utils.hashing import sha256_hex
 
 
 class Fragmenter(abc.ABC):
@@ -64,13 +65,29 @@ class Fragmenter(abc.ABC):
 
 
 class MaterializingFragmenter(Fragmenter):
-    """A host strategy streamed as dfs_tpu's base class streams it: the
-    blocks are joined and chunked whole (``fixed`` needs the total size
-    for its split), so the reporting lag is unbounded and
-    :meth:`stream_span` is None — a sidecar advertises ``window`` 0."""
+    """A strategy with dfs_tpu's base-class manifests and streaming:
+    ``fileId = sha256(data)`` unless given; the blocks are joined and
+    chunked whole (``fixed`` needs the total size for its split), so the
+    reporting lag is unbounded and :meth:`stream_span` is None — a sidecar
+    advertises ``window`` 0. Subclasses with a streaming walk override
+    :meth:`manifest_stream`."""
 
     def stream_span(self) -> int | None:
         return None
+
+    def manifest(self, data: bytes, name: str,
+                 file_id: str | None = None) -> Manifest:
+        return Manifest(file_id=file_id or sha256_hex(data), name=name,
+                        size=len(data), fragmenter=self.name,
+                        chunks=tuple(self.chunk(data)))
+
+    def manifest_stream(self, blocks, name: str, store=None) -> Manifest:
+        data = b"".join(blocks)
+        m = self.manifest(data, name=name)
+        if store is not None:
+            for c in m.chunks:
+                store(c.digest, data[c.offset:c.offset + c.length])
+        return m
 
     def chunks_stream(self, blocks, store=None):
         data = b"".join(blocks)
@@ -117,41 +134,88 @@ def _anchored_params(cdc_params):
     return AnchoredCdcParams(chunk=chunk, seg_min=seg_min, seg_max=seg_max)
 
 
+def _aligned_params(cdc_params):
+    """The aligned engines' parameters: given as such, converted from a
+    node's byte sizes, or the defaults."""
+    from dfs_tpu_torch.ops.cdc_v2 import AlignedCdcParams
+
+    if isinstance(cdc_params, AlignedCdcParams):
+        return cdc_params
+    return AlignedCdcParams() if cdc_params is None \
+        else _aligned_from_cdc(cdc_params)
+
+
 def get_fragmenter(kind: str, *, cdc_params=None, frag=None,
                    device=None, fixed_parts: int = 5) -> Fragmenter:
-    """Factory keyed by ``NodeConfig.fragmenter``. ``"auto"`` (the serve
-    default) and ``"cdc-anchored-cuda"`` both give the anchored chain on
-    ``device`` (None: the CUDA card; "cpu": the plain versions) —
-    :class:`AnchoredCudaFragmenter`, or with ``frag.devices > 1`` the
-    window-batched :class:`ShardedAnchoredCudaFragmenter`. Unlike
-    dfs_tpu's ``auto``, it never picks the CPU by itself: without CUDA it
-    raises unless ``device="cpu"`` was asked for. ``"fixed"``
-    (``fixed_parts`` parts) and ``"cdc"`` (the Gear rolling hash at
-    ``cdc_params``) are host strategies a user names on purpose: they run
-    no kernel and take no device; the multi-device rolling walk is not
-    ported, so ``"cdc"`` with ``frag.devices > 1`` raises."""
+    """Factory keyed by ``NodeConfig.fragmenter``; it takes every name of
+    dfs_tpu's, and a ``-tpu`` name gives the port's engine on the card
+    (``-cuda``, the name its manifests record). ``device`` (None: the CUDA
+    card; "cpu": the plain versions) is where the device engines run.
+
+    - ``"auto"``, ``"cdc-anchored-cuda"`` / ``-tpu``: the anchored chain,
+      :class:`AnchoredCudaFragmenter`, or with ``frag.devices > 1`` the
+      window-batched :class:`ShardedAnchoredCudaFragmenter`. Unlike
+      dfs_tpu's ``auto``, never the CPU by itself: without CUDA it raises
+      unless ``device="cpu"`` was asked for.
+    - ``"cdc-anchored"``: the host engine (the C++ core), or with
+      ``frag.devices > 1`` the sharded anchored walk, as in dfs_tpu.
+    - ``"fixed"`` (``fixed_parts`` parts), ``"cdc"`` (the Gear rolling hash
+      at ``cdc_params``, on the host; with ``frag.devices > 1``
+      :class:`ShardedCdcFragmenter` over that many slots of ``device``).
+    - ``"cdc-aligned"`` (NumPy) and ``"cdc-aligned-cuda"`` / ``-tpu``
+      (kernels 3 and 1): aligned CDC v2.
+    - ``"cdc-cuda"`` / ``"cdc-tpu"``: the v1 rolling pipeline on the card,
+      with dfs_tpu's DeprecationWarning."""
     if kind == "fixed":
         from dfs_tpu_torch.fragmenter.fixed import FixedFragmenter
 
         return FixedFragmenter(parts=fixed_parts)
-    if kind == "cdc":
-        if frag is not None and frag.devices > 1:
-            raise ValueError("fragmenter 'cdc' runs on the host only: the "
-                             "multi-device rolling walk is not ported")
+    sharded = frag is not None and frag.devices > 1
+    if kind in ("cdc", "cdc-cuda", "cdc-tpu"):
         from dfs_tpu_torch.config import CDCParams
+
+        params = cdc_params or CDCParams()
+        if kind != "cdc":
+            import warnings
+
+            from dfs_tpu_torch.fragmenter.cdc_cuda import CudaCdcFragmenter
+
+            warnings.warn(
+                f"the v1 {kind!r} fragmenter pulls the full candidate "
+                "bitmap to the host; it is kept as a byte-granular "
+                "compatibility path only (use 'cdc-anchored-cuda')",
+                DeprecationWarning, stacklevel=2)
+            return CudaCdcFragmenter(params, device=device)
+        if sharded:
+            from dfs_tpu_torch.fragmenter.cdc_sharded import \
+                ShardedCdcFragmenter
+
+            return ShardedCdcFragmenter(params, frag, device=device)
         from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
 
-        return CpuCdcFragmenter(cdc_params or CDCParams())
-    if kind not in ("auto", "cdc-anchored-cuda"):
+        return CpuCdcFragmenter(params)
+    if kind in ("cdc-aligned", "cdc-aligned-cuda", "cdc-aligned-tpu"):
+        from dfs_tpu_torch.fragmenter.cdc_aligned import (
+            AlignedCpuFragmenter, AlignedCudaFragmenter)
+
+        if kind == "cdc-aligned":
+            return AlignedCpuFragmenter(_aligned_params(cdc_params))
+        return AlignedCudaFragmenter(_aligned_params(cdc_params),
+                                     device=device)
+    if kind not in ("auto", "cdc-anchored", "cdc-anchored-cuda",
+                    "cdc-anchored-tpu"):
         raise ValueError(f"unknown fragmenter {kind!r}")
     params = _anchored_params(cdc_params)
-    if frag is not None and frag.devices > 1:
+    if sharded:
         from dfs_tpu_torch.fragmenter.cdc_anchored_sharded import \
             ShardedAnchoredCudaFragmenter
 
         return ShardedAnchoredCudaFragmenter(params, frag, device=device)
-    from dfs_tpu_torch.fragmenter.cdc_anchored import AnchoredCudaFragmenter
+    from dfs_tpu_torch.fragmenter.cdc_anchored import (AnchoredCpuFragmenter,
+                                                       AnchoredCudaFragmenter)
 
+    if kind == "cdc-anchored":
+        return AnchoredCpuFragmenter(params)
     return AnchoredCudaFragmenter(params, device=device)
 
 

@@ -14,7 +14,8 @@ no host sync until a window's results are collected. Host staging buffers
 are pinned and recycled; a buffer returns to the pool only once the copy
 that read it has completed.
 
-- ``AnchoredCpuFragmenter`` — the NumPy oracle (``chunk_file_anchored_np``,
+- ``AnchoredCpuFragmenter`` — the host engine (the C++ core of
+  ``native/``), equal to the NumPy oracle (``chunk_file_anchored_np``,
   ``region_spans_np``), the reference semantics.
 - ``AnchoredCudaFragmenter`` — the device chain, bounded-memory streaming
   in windows of ``region_bytes``.
@@ -35,8 +36,7 @@ from dfs_tpu_torch.ops.cdc_anchored import (TILE_BYTES, AnchoredCdcParams,
                                             chunk_file_anchored_np,
                                             region_buffer, region_buffer_size,
                                             region_chunks, region_collect,
-                                            region_dispatch, region_spans_np,
-                                            words_tensor)
+                                            region_dispatch, words_tensor)
 from dfs_tpu_torch.utils.hashing import sha256_hex
 
 _REGION_BYTES = 64 * 1024 * 1024
@@ -82,16 +82,24 @@ class _AnchoredBase(Fragmenter):
 
 
 class AnchoredCpuFragmenter(_AnchoredBase):
-    """The NumPy oracle engine: whole-stream ``chunk_file_anchored_np`` and
-    the same fixed-stride window walk as the CUDA engine, run through
-    ``region_spans_np``."""
+    """The host engine, dfs_tpu's ``cdc-anchored``: spans from the C++ core
+    (``native/cdc_core.cpp`` ``dfs_anchored_spans`` for a whole stream,
+    ``dfs_anchored_spans_region`` for each window of the same fixed-stride
+    walk as the CUDA engine), digests from hashlib. Equal to the NumPy
+    oracle (``chunk_file_anchored_np``, ``region_spans_np``); a failed g++
+    build raises (dfs_tpu falls back to the oracle)."""
 
     name = "cdc-anchored"
 
     def chunk(self, data: bytes) -> list[ChunkRef]:
-        out = chunk_file_anchored_np(_to_u8(data), self.params)
-        return [ChunkRef(index=i, offset=o, length=ln, digest=dg)
-                for i, (o, ln, dg) in enumerate(out)]
+        from dfs_tpu_torch.native import native_anchored_spans
+
+        arr = np.ascontiguousarray(_to_u8(data))
+        mv = memoryview(arr)
+        return [ChunkRef(index=i, offset=o, length=ln,
+                         digest=sha256_hex(mv[o:o + ln]))
+                for i, (o, ln) in enumerate(
+                    native_anchored_spans(arr, self.params).tolist())]
 
     def stream_span(self) -> int | None:
         # one window resident; the carry can reach seg_max behind its base
@@ -113,12 +121,14 @@ class AnchoredCpuFragmenter(_AnchoredBase):
 
         def window(n: int, final: bool) -> list[ChunkRef]:
             nonlocal base, start0, buf_base, idx
+            from dfs_tpu_torch.native import native_anchored_spans_region
+
             arr = fetch(base, n)
-            spans, consumed = region_spans_np(arr, _lookback(fetch, base),
-                                              start0, final, self.params)
+            spans, consumed = native_anchored_spans_region(
+                arr, _lookback(fetch, base), start0, final, self.params)
             del arr                     # release before the bytearray trim
             out = []
-            for o, ln in spans:
+            for o, ln in spans.tolist():
                 off = base + o
                 payload = bytes(buf[off - buf_base:off - buf_base + ln])
                 dg = sha256_hex(payload)

@@ -55,6 +55,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         "strip_states.cu", "dfs_strip_states",
         # words_t, cutflag, states, bps, s, stream
         [_P, _P, _P, _I, _I, _P]),
+    "sha256_blocks": (
+        "sha256_blocks.cu", "dfs_sha256_blocks",
+        # words, nblocks, out, rows, blocks, stream
+        [_P, _P, _P, _I, _I, _P]),
 }
 
 # kernel name -> the CUDA functions one wrapper call launches (what a
@@ -65,6 +69,7 @@ DEVICE_FUNCS: dict[str, tuple[str, ...]] = {
     "bswap_transpose": ("bswap_transpose_kernel",),
     "select_walk": ("select_records_kernel", "select_walk_kernel"),
     "strip_states": ("chunk_chains_kernel",),
+    "sha256_blocks": ("sha256_blocks_kernel",),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

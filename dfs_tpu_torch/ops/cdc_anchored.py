@@ -54,8 +54,8 @@ from dfs_tpu_torch import resolve_device
 from dfs_tpu_torch.ops import sha256
 from dfs_tpu_torch.ops.cdc_v2 import (_M1, _M2, BLOCK, AlignedCdcParams,
                                       candidates_np, cut_capacity,
-                                      digests_to_hex, fmix32_np,
-                                      select_cuts_blocks)
+                                      cut_positions, digests_to_hex,
+                                      fmix32_np, select_cuts_blocks)
 from dfs_tpu_torch.ops.layout import bswap_transpose
 from dfs_tpu_torch.ops.repack import repack_lanes
 from dfs_tpu_torch.ops.select import TILE_BYTES, NO_ANCHOR, select_walk
@@ -355,29 +355,7 @@ def compact_half(cf32, since, state_rows, words, w_off, sh8, real_blocks,
     dev = cf32.device
     i64 = torch.int64
     count = cf32.sum().to(torch.int32)
-
-    # stream-order cut positions, tile-extracted: per t_tile-block tile of
-    # a lane, peel off the k-th lowest set bit with masked min-reductions
-    flat = cf32.T.reshape(-1, t_tile) != 0
-    nt = flat.shape[0]
-    iota = torch.arange(t_tile, dtype=i64, device=dev)[None, :]
-    cnt = flat.sum(dim=1)
-    base = torch.cumsum(cnt, 0) - cnt
-    poss = []
-    cur = flat
-    for _ in range(k_max):
-        pos = torch.where(cur, iota, t_tile).amin(dim=1)
-        poss.append(pos)
-        cur = cur & (iota != pos[:, None])
-    pos_mat = torch.stack(poss, dim=1)
-    k_cols = pos_mat.shape[1]
-    gidx = torch.where(pos_mat < t_tile,
-                       base[:, None] + torch.arange(k_cols, device=dev)[None],
-                       c_max)
-    vals = torch.arange(nt, dtype=i64, device=dev)[:, None] * t_tile + pos_mat
-    # scatter with mode="drop": every index >= c_max lands in one spare slot
-    q = torch.full((c_max + 1,), -1, dtype=i64, device=dev).scatter_(
-        0, gidx.clamp(max=c_max).reshape(-1), vals.reshape(-1))[:c_max]
+    q = cut_positions(cf32, t_tile, k_max, c_max)
 
     qc = q.clamp(min=0)
     t, s = qc % bps, qc // bps

@@ -58,6 +58,10 @@ class AlignedCdcParams:
     def mask(self) -> int:
         return self.avg_blocks - 1
 
+    @property
+    def strip_len(self) -> int:
+        return self.strip_blocks * BLOCK
+
 
 # ---------------------------------------------------------------------------
 # NumPy oracle (exact semantics)
@@ -115,6 +119,85 @@ def select_cuts_blocks(cand_pos: np.ndarray, n_blocks: int,
         cuts.append(cut + 1)
         start = cut + 1
     return np.asarray(cuts, dtype=np.int64)
+
+
+def chunk_spans_np(data: np.ndarray,
+                   params: AlignedCdcParams) -> list[tuple[int, int]]:
+    """Whole-stream [(offset, length)] spans of the aligned strategy: the
+    stream cut into strips of ``strip_len`` bytes, each chunked alone."""
+    n = data.shape[0]
+    if n == 0:
+        return []
+    cand = candidates_np(data, params)
+    spans: list[tuple[int, int]] = []
+    sl = params.strip_len
+    for s0 in range(0, n, sl):
+        s1 = min(s0 + sl, n)
+        nb = -(-(s1 - s0) // BLOCK)  # a trailing partial block included
+        pos = np.flatnonzero(cand[s0 // BLOCK: s0 // BLOCK + (s1 - s0)
+                                  // BLOCK])
+        prev = 0
+        for c in select_cuts_blocks(pos, nb, params).tolist():
+            off = s0 + prev * BLOCK
+            end = min(s0 + c * BLOCK, s1)
+            spans.append((off, end - off))
+            prev = c
+    return spans
+
+
+def chunk_file_np(data: np.ndarray, params: AlignedCdcParams
+                  ) -> list[tuple[int, int, str]]:
+    """The aligned oracle chunker: [(offset, length, sha256hex)]."""
+    mv = memoryview(np.ascontiguousarray(data))
+    return [(o, ln, hashlib.sha256(mv[o:o + ln]).hexdigest())
+            for o, ln in chunk_spans_np(data, params)]
+
+
+def host_to_strips(data: np.ndarray, params: AlignedCdcParams,
+                   lane_multiple: int = 128
+                   ) -> tuple[np.ndarray, int, int]:
+    """[N] u8 -> (words_t [strip_blocks*16, S] u32 BE, S, N): the stream
+    zero-padded to whole strips and S to a multiple of ``lane_multiple``,
+    transposed on the host (the tests' reference layout)."""
+    n = data.shape[0]
+    sl = params.strip_len
+    s_real = max(1, -(-n // sl))
+    s_pad = -(-s_real // lane_multiple) * lane_multiple
+    buf = np.zeros((s_pad * sl,), dtype=np.uint8)
+    buf[:n] = data
+    words = buf.view(">u4").astype(np.uint32)
+    words_t = np.ascontiguousarray(
+        words.reshape(s_pad, params.strip_blocks * 16).T)
+    return words_t, s_pad, n
+
+
+def cut_positions(cf32: torch.Tensor, t_tile: int, k_max: int, c_max: int
+                  ) -> torch.Tensor:
+    """Stream-order cut positions ``q = lane * bps + t`` ([c_max] int64, -1
+    past the count) from the flags [bps, S]: per ``t_tile``-block tile of
+    a lane, the k-th lowest set bit is peeled off with masked
+    min-reductions (k < ``k_max``), then scattered to its rank; a rank at
+    or past ``c_max`` is dropped (``.at[].set(mode="drop")``)."""
+    dev = cf32.device
+    i64 = torch.int64
+    flat = cf32.T.reshape(-1, t_tile) != 0
+    nt = flat.shape[0]
+    iota = torch.arange(t_tile, dtype=i64, device=dev)[None, :]
+    cnt = flat.sum(dim=1)
+    base = torch.cumsum(cnt, 0) - cnt
+    poss = []
+    cur = flat
+    for _ in range(k_max):
+        pos = torch.where(cur, iota, t_tile).amin(dim=1)
+        poss.append(pos)
+        cur = cur & (iota != pos[:, None])
+    pos_mat = torch.stack(poss, dim=1)
+    gidx = torch.where(pos_mat < t_tile,
+                       base[:, None] + torch.arange(k_max, device=dev)[None],
+                       c_max)
+    vals = torch.arange(nt, dtype=i64, device=dev)[:, None] * t_tile + pos_mat
+    return torch.full((c_max + 1,), -1, dtype=i64, device=dev).scatter_(
+        0, gidx.clamp(max=c_max).reshape(-1), vals.reshape(-1))[:c_max]
 
 
 def file_id_from_digests(digests: list[str]) -> str:

@@ -1,4 +1,5 @@
-"""SHA-256 in plain PyTorch, vectorised over lanes.
+"""SHA-256 in plain PyTorch, vectorised over lanes, and kernel 6: the
+batched SHA-256 of pre-padded messages (dfs_tpu's ``ops/sha256_jax.py``).
 
 Values are u32 carried in int64 (see ``utils.u32``). A rotation uses the
 doubled word ``x | x << 32``: its right shift by ``n`` holds ``rotr(x, n)``
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dfs_tpu_torch import kernels, resolve_device
 from dfs_tpu_torch.utils import u32
 
 M = u32.M32
@@ -129,3 +131,117 @@ def cut_state_rows(states: torch.Tensor, s: int) -> torch.Tensor:
     v = states.view(torch.int32) if states.dtype == torch.uint32 else states
     out = v.reshape(bps, 8, s).transpose(1, 2).reshape(bps * s, 8)
     return out.view(torch.uint32) if states.dtype == torch.uint32 else out
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: batched SHA-256 of pre-padded messages
+# ---------------------------------------------------------------------------
+# Counterpart of dfs_tpu/ops/sha256_jax.py, whose _sha256_blocks_impl is XLA
+# (a masked lax.scan over the blocks), not Pallas. CUDA design
+# (csrc/sha256_blocks.cu): one thread per message, the schedule ring and
+# the state in registers; the longest message's chain of compressions
+# bounds it. The plain version steps the blocks in Python, thousands of
+# small launches per block step on a card.
+
+NAME_K6 = "sha256_blocks"
+
+
+def sha256_blocks_plain(words: torch.Tensor, nblocks: torch.Tensor
+                        ) -> torch.Tensor:
+    """(words [B, L, 16] u32 BE, nblocks [B] i32) -> [B, 8] u32: each row
+    advances through its blocks while ``l < nblocks`` and keeps its state
+    after that (``nblocks <= 0``: H0), as dfs_tpu's masked scan does."""
+    bsz, nblk, _ = words.shape
+    w = u32.widen(words)
+    nb = nblocks.to(torch.int64)
+    h0 = h0_tensor(words.device)
+    state = [h0[i].expand(bsz) for i in range(8)]
+    # the scan past the longest row leaves every state unchanged
+    steps = min(nblk, int(nb.max())) if bsz else 0
+    for blk in range(steps):
+        new = compress(state, [w[:, blk, i] for i in range(16)])
+        keep = blk < nb
+        state = [torch.where(keep, n, s) for n, s in zip(new, state)]
+    return u32.narrow(torch.stack(state, dim=1)) if bsz else \
+        torch.zeros((0, 8), dtype=torch.uint32, device=words.device)
+
+
+def sha256_blocks(words: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
+    """Kernel 6. CPU tensors take the plain version; CUDA tensors launch
+    the kernel (or raise)."""
+    if words.device.type == "cpu":
+        return sha256_blocks_plain(words, nblocks)
+    kernels.check_cuda(NAME_K6, words, torch.uint32, 3)
+    kernels.check_cuda(NAME_K6, nblocks, torch.int32, 1)
+    bsz, nblk, width = words.shape
+    if width != 16 or nblocks.shape[0] != bsz \
+            or nblocks.device != words.device:
+        raise ValueError(f"{NAME_K6}: bad shapes {tuple(words.shape)}, "
+                         f"{tuple(nblocks.shape)}")
+    out = torch.empty((bsz, 8), dtype=torch.uint32, device=words.device)
+    kernels.launch(NAME_K6, words.device, words.data_ptr(),
+                   nblocks.data_ptr(), out.data_ptr(), bsz, nblk)
+    return out
+
+
+def pad_messages(chunks: list, n_blocks: int | None = None,
+                 batch: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """FIPS 180-4 padding on the host -> (words [rows, nblk, 16] u32 BE,
+    nblocks [rows] i32). The block axis is rounded up to ``n_blocks`` and
+    the rows to ``batch``; extra rows get nblocks 0 and hash to H0."""
+    bsz = len(chunks)
+    max_len = max((len(c) for c in chunks), default=0)
+    nblk = max(n_blocks or 0, (max_len + 8) // 64 + 1)
+    rows = max(batch or 0, bsz)
+    buf = np.zeros((rows, nblk * 64), dtype=np.uint8)
+    counts = np.zeros((rows,), dtype=np.int32)
+    for i, c in enumerate(chunks):
+        a = c if isinstance(c, np.ndarray) else np.frombuffer(c, np.uint8)
+        n = a.shape[0]
+        buf[i, :n] = a
+        buf[i, n] = 0x80
+        nb = (n + 8) // 64 + 1
+        buf[i, nb * 64 - 8:nb * 64] = np.frombuffer(
+            (n * 8).to_bytes(8, "big"), dtype=np.uint8)
+        counts[i] = nb
+    words = np.ascontiguousarray(buf).view(">u4").astype(np.uint32)
+    return words.reshape(rows, nblk, 16), counts
+
+
+def state_to_hex(state) -> list[str]:
+    """[B, 8] u32 (array or tensor) -> lowercase hex digests."""
+    if isinstance(state, torch.Tensor):
+        state = state.cpu().view(torch.int32).numpy().view(np.uint32)
+    be = np.ascontiguousarray(np.asarray(state, dtype=np.uint32)
+                              .astype(">u4"))
+    hx = be.tobytes().hex()
+    return [hx[i * 64:(i + 1) * 64] for i in range(be.shape[0])]
+
+
+def u32_tensor(words: np.ndarray, device) -> torch.Tensor:
+    """A host u32 array as a uint32 tensor on ``device`` (a read-only
+    array, such as a view of ``bytes``, is copied first)."""
+    a = np.ascontiguousarray(words)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a.view(np.int32)).to(device).view(torch.uint32)
+
+
+def sha256_batch_hex(chunks: list, device=None) -> list[str]:
+    """Digest a batch of messages with kernel 6 on ``device`` (None: the
+    card; "cpu": the plain version); rows and blocks rounded up to powers
+    of two, as dfs_tpu rounds its compile shapes."""
+    if not chunks:
+        return []
+    dev = resolve_device(device)
+    n = len(chunks)
+    need = max(len(c) for c in chunks)
+
+    def pow2(x: int) -> int:
+        return 1 << (max(1, x) - 1).bit_length()
+
+    words, counts = pad_messages(chunks, n_blocks=pow2((need + 8) // 64 + 1),
+                                 batch=pow2(n))
+    state = sha256_blocks(u32_tensor(words, dev),
+                          torch.from_numpy(counts).to(dev))
+    return state_to_hex(state)[:n]

@@ -1,2 +1,3 @@
-"""Multi-device execution: the device mesh (``mesh``) and the sharded
-anchored and aligned steps (``sharded_cdc``)."""
+"""Multi-device execution: the device mesh (``mesh``), the sharded
+anchored, aligned and rolling steps (``sharded_cdc``), and one sharded
+program across processes (``multihost``)."""

@@ -30,11 +30,24 @@ path; the JAX steps' ``psum`` of the chunk count is a sum over the slots.
   the slots, min-hash lanes by ``sim.sketch.sketch_rows`` (plain torch, as
   dfs_tpu's was XLA).
 
+- **The rolling steps** (:func:`make_sharded_step`,
+  :func:`make_sharded_bitmap_step`): a stream's bytes tiled over sp (and
+  independent streams over dp), each slot's windowed Gear bitmap taking
+  the last 31 Gear values of its left sp-neighbour (dfs_tpu's
+  ``ppermute``); the first step also hashes a batch of pre-padded
+  messages over the slots (kernel 6), the second takes the stream's
+  carry halo into sp-slot 0 (the sharded ``cdc`` ingest walk).
+
 The parity checks hold the steps to the NumPy oracles on a toy geometry
-(:func:`anchored_sharded_parity_check`, :func:`aligned_sharded_parity_check`)
-and at production geometry (:func:`anchored_sharded_production_check`).
-The rolling steps (``make_sharded_step``, ``make_sharded_bitmap_step``)
-are not ported yet.
+(:func:`anchored_sharded_parity_check`, :func:`aligned_sharded_parity_check`,
+:func:`rolling_sharded_parity_check`) and at production geometry
+(:func:`anchored_sharded_production_check`).
+
+``make_sharded_step``, ``make_sharded_bitmap_step`` and
+``make_anchored_step`` also take a ``parallel.multihost.GlobalMesh``: a
+process then runs only its own slots, the halo between processes and the
+count go over ``torch.distributed`` (gloo), and the step returns this
+process's slots' outputs as lists in ``mesh.local_slots`` order.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import time
 import numpy as np
 import torch
 
+from dfs_tpu_torch.config import GEAR_HALO as HALO
 from dfs_tpu_torch.ops.cdc_anchored import (TILE_BYTES, AnchoredCdcParams,
                                             anchor_tiles,
                                             chunk_spans_anchored_np,
@@ -54,9 +68,11 @@ from dfs_tpu_torch.ops.cdc_v2 import (BLOCK, AlignedCdcParams,
                                       candidates_np, gear_candidates,
                                       select_cuts, select_cuts_blocks)
 from dfs_tpu_torch.ops.ec import pq_horner
+from dfs_tpu_torch.ops.gear import gear_values, table_tensor, window_hashes
 from dfs_tpu_torch.ops.layout import bswap_transpose
 from dfs_tpu_torch.ops.repack import repack_lanes
 from dfs_tpu_torch.ops.select import NO_ANCHOR
+from dfs_tpu_torch.ops.sha256 import sha256_blocks
 from dfs_tpu_torch.ops.sha256_strip import strip_states
 from dfs_tpu_torch.parallel.mesh import DeviceMesh
 from dfs_tpu_torch.sim.sketch import lane_tensor, sketch_rows
@@ -84,26 +100,39 @@ def _put(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.contiguous().to(device)
 
 
-def _split(mesh: DeviceMesh, x, axis: int = 0) -> list[torch.Tensor]:
+def _local(mesh) -> tuple[DeviceMesh, list[int]]:
+    """The mesh of the slots this process runs and their global indices:
+    every slot of a :class:`DeviceMesh`, the own slots of a
+    ``multihost.GlobalMesh``."""
+    local = getattr(mesh, "local", None)
+    if local is None:
+        return mesh, list(range(mesh.size))
+    return local, list(mesh.local_slots)
+
+
+def _split(mesh, x, axis: int = 0) -> list[torch.Tensor]:
     """``x`` cut into ``mesh.size`` equal pieces along ``axis``, piece i on
-    slot i (dfs_tpu's ``P(("dp", "sp"))`` sharding)."""
+    slot i (dfs_tpu's ``P(("dp", "sp"))`` sharding); only this process's
+    slots' pieces."""
     t = _tensor(x)
     if t.shape[axis] % mesh.size:
         raise ValueError(f"axis {axis} of {tuple(t.shape)} does not split "
                          f"over {mesh.size} slots")
-    return [_put(p, d) for p, d in zip(t.chunk(mesh.size, dim=axis),
-                                       mesh.flat)]
+    lm, ids = _local(mesh)
+    pieces = t.chunk(mesh.size, dim=axis)
+    return [_put(pieces[g], d) for g, d in zip(ids, lm.flat)]
 
 
-def _replicate(mesh: DeviceMesh, x) -> list[torch.Tensor]:
-    """``x`` on every slot (dfs_tpu's ``P()``); slots sharing a device
-    share one copy."""
+def _replicate(mesh, x) -> list[torch.Tensor]:
+    """``x`` on every slot of this process (dfs_tpu's ``P()``); slots
+    sharing a device share one copy."""
     t = _tensor(x)
     copies: dict[torch.device, torch.Tensor] = {}
-    for d in mesh.flat:
+    flat = _local(mesh)[0].flat
+    for d in flat:
         if d not in copies:
             copies[d] = _put(t, d)
-    return [copies[d] for d in mesh.flat]
+    return [copies[d] for d in flat]
 
 
 def _run_slots(mesh: DeviceMesh, local_step, slot_args: list) -> list:
@@ -142,10 +171,25 @@ def _gather(mesh: DeviceMesh, ts: list[torch.Tensor], dim: int,
     return out.view(torch.uint32) if u else out
 
 
-def _count(mesh: DeviceMesh, flags: list[torch.Tensor]) -> torch.Tensor:
-    """The JAX steps' psum: the sum of every slot's local count."""
-    dev = mesh.flat[0]
-    return torch.stack([f.sum().to(dev) for f in flags]).sum()
+def _count(mesh, flags: list[torch.Tensor]) -> torch.Tensor:
+    """The JAX steps' psum: the sum of every slot's local count; over a
+    global mesh this process's sum is ``all_reduce``d."""
+    lm, _ = _local(mesh)
+    dev = lm.flat[0]
+    total = torch.stack([f.sum().to(dev) for f in flags]).sum()
+    if lm is mesh:
+        return total
+    import torch.distributed as dist
+
+    buf = total.to("cpu", torch.int64).reshape(1)
+    dist.all_reduce(buf)
+    return buf[0].to(dev)
+
+
+def _outputs(mesh, ts: list[torch.Tensor], dim: int):
+    """Slot outputs gathered on the first slot's device, or over a global
+    mesh the list of this process's slots' outputs."""
+    return _gather(mesh, ts, dim) if _local(mesh)[0] is mesh else ts
 
 
 def synchronize(mesh: DeviceMesh) -> None:
@@ -153,6 +197,161 @@ def synchronize(mesh: DeviceMesh) -> None:
     for d in dict.fromkeys(mesh.flat):
         if d.type == "cuda":
             torch.cuda.synchronize(d)
+
+
+# ---------------------------------------------------------------------------
+# the rolling steps: the Gear window crosses slot borders along sp
+# ---------------------------------------------------------------------------
+
+def _rowwise_gear_bitmap(data: torch.Tensor, prev_g: torch.Tensor,
+                         table: torch.Tensor, mask: int) -> torch.Tensor:
+    """data [B, S] u8, prev_g [B, 31] (the halo of each row) -> bitmap
+    [B, S] bool."""
+    g = gear_values(data, table)
+    gp = torch.cat([prev_g.to(torch.int64), g], dim=1)
+    return (window_hashes(gp, data.shape[1]) & mask) == 0
+
+
+def _split_rows_cols(mesh, x) -> list[torch.Tensor]:
+    """[B, S] u8 with B split over dp and S over sp (``P("dp", "sp")``);
+    this process's slots' pieces."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    dp, sp = mesh.shape["dp"], mesh.shape["sp"]
+    if t.shape[0] % dp or t.shape[1] % sp:
+        raise ValueError(f"{tuple(t.shape)} does not split over a "
+                         f"{dp} x {sp} mesh")
+    rows = t.chunk(dp, 0)
+    lm, ids = _local(mesh)
+    return [rows[g // sp].chunk(sp, 1)[g % sp].contiguous().to(d)
+            for g, d in zip(ids, lm.flat)]
+
+
+def _gather_rows_cols(mesh, ts: list[torch.Tensor]) -> torch.Tensor:
+    """The inverse of :func:`_split_rows_cols` on the first slot's device
+    (a one-process mesh)."""
+    sp = mesh.shape["sp"]
+    dev = mesh.flat[0]
+    rows = [torch.cat([t.to(dev) for t in ts[r * sp:(r + 1) * sp]], 1)
+            for r in range(mesh.shape["dp"])]
+    return torch.cat(rows, 0)
+
+
+def _left_halos(mesh, tails: list[torch.Tensor]) -> list:
+    """For each slot of this process, the last 31 Gear values of its left
+    sp-neighbour (None at sp 0): taken from a slot of this process, or
+    received over ``torch.distributed`` (gloo) from another process, to
+    which this process sends the tails its right neighbours need."""
+    lm, ids = _local(mesh)
+    sp = mesh.shape["sp"]
+    mine = {g: i for i, g in enumerate(ids)}
+    out: list = [None] * len(ids)
+    remote = []
+    for i, g in enumerate(ids):
+        if g % sp and g - 1 in mine:
+            out[i] = tails[mine[g - 1]].to(lm.flat[i])
+        elif g % sp:
+            remote.append(i)
+    if lm is mesh:
+        return out
+    import torch.distributed as dist
+
+    reqs, bufs = [], {}
+    for i, g in enumerate(ids):
+        if g % sp != sp - 1 and g + 1 not in mine:
+            send = tails[i].to("cpu", torch.int64).contiguous()
+            bufs[("send", i)] = send
+            reqs.append(dist.isend(send, dst=mesh.owners[g + 1], tag=g + 1))
+    for i in remote:
+        g = ids[i]
+        bufs[i] = torch.empty(tuple(tails[i].shape), dtype=torch.int64)
+        reqs.append(dist.irecv(bufs[i], src=mesh.owners[g - 1], tag=g))
+    for r in reqs:
+        r.wait()
+    for i in remote:
+        out[i] = bufs[i].to(lm.flat[i])
+    return out
+
+
+def _slot_tables(mesh, table) -> dict:
+    return {d: table_tensor(table, d)
+            for d in dict.fromkeys(_local(mesh)[0].flat)}
+
+
+def make_sharded_step(mesh, table: np.ndarray, mask: int):
+    """The rolling multi-device step.
+
+    step(data — per-slot [B/dp, S/sp] u8 (:func:`shard_inputs`), words —
+    per-slot [H/n, L, 16] u32, nblocks — per-slot [H/n] i32) -> (bitmap
+    [B, S] bool, digest states [H, 8] u32 (kernel 6), n_candidates — the
+    global count). sp-slot 0 rolls from zeros (the stream's start)."""
+    tabs = _slot_tables(mesh, table)
+    lm, _ = _local(mesh)
+
+    def local_step(slot, data, prev, words, nblocks):
+        dev = lm.flat[slot]
+        if prev is None:
+            prev = torch.zeros((data.shape[0], HALO), dtype=torch.int64,
+                               device=dev)
+        return (_rowwise_gear_bitmap(data, prev, tabs[dev], mask),
+                sha256_blocks(words, nblocks))
+
+    def step(data, words, nblocks):
+        tails = [gear_values(d[:, -HALO:], tabs[dev])
+                 for d, dev in zip(data, lm.flat)]
+        outs = _run_slots(lm, local_step, list(zip(
+            data, _left_halos(mesh, tails), words, nblocks)))
+        bitmap = [o[0] for o in outs]
+        states = [o[1] for o in outs]
+        count = _count(mesh, bitmap)
+        if lm is not mesh:
+            return bitmap, states, count
+        return (_gather_rows_cols(mesh, bitmap), _gather(mesh, states, 0),
+                count)
+
+    return step
+
+
+def make_sharded_bitmap_step(mesh, table: np.ndarray, mask: int):
+    """The carry-in Gear bitmap over the mesh (the sharded ``cdc`` ingest
+    walk's kernel): as :func:`make_sharded_step`'s bitmap, except that
+    sp-slot 0 takes the stream's carry halo ``head`` instead of zeros, so
+    consecutive regions of one stream chunk like one long buffer.
+
+    step(data — per-slot [B/dp, S/sp] u8, head — per-slot [B/dp, 31] (the
+    dp row's carry, :func:`shard_bitmap_inputs`)) -> bitmap [B, S] bool"""
+    tabs = _slot_tables(mesh, table)
+    lm, _ = _local(mesh)
+
+    def local_step(slot, data, prev, head):
+        return _rowwise_gear_bitmap(data, head if prev is None else prev,
+                                    tabs[lm.flat[slot]], mask)
+
+    def step(data, head):
+        tails = [gear_values(d[:, -HALO:], tabs[dev])
+                 for d, dev in zip(data, lm.flat)]
+        bitmap = _run_slots(lm, local_step, list(zip(
+            data, _left_halos(mesh, tails), head)))
+        return bitmap if lm is not mesh else _gather_rows_cols(mesh, bitmap)
+
+    return step
+
+
+def shard_inputs(mesh, data, words, nblocks):
+    """Rolling-step inputs: data [B, S] u8 over (dp, sp), the messages
+    [H, L, 16] u32 and their block counts [H] over every slot."""
+    return (_split_rows_cols(mesh, data), _split(mesh, words),
+            _split(mesh, nblocks))
+
+
+def shard_bitmap_inputs(mesh, data, head):
+    """Carry-bitmap inputs: data [B, S] u8 over (dp, sp), head [B, 31] u32
+    over dp and replicated over sp (int64 u32 values on the slots)."""
+    h = torch.as_tensor(np.asarray(head, dtype=np.uint32).astype(np.int64))
+    rows = h.chunk(mesh.shape["dp"], 0)
+    lm, ids = _local(mesh)
+    sp = mesh.shape["sp"]
+    return (_split_rows_cols(mesh, data),
+            [rows[g // sp].to(d) for g, d in zip(ids, lm.flat)])
 
 
 # ---------------------------------------------------------------------------
@@ -335,11 +534,11 @@ def make_anchored_step(mesh: DeviceMesh, params: AnchoredCdcParams):
         return _cuts_and_states(words_t, real_blocks, cp)
 
     def step(words, w_off, sh8, real_blocks):
-        outs = _run_slots(mesh, local_step,
+        outs = _run_slots(_local(mesh)[0], local_step,
                           list(zip(words, w_off, sh8, real_blocks)))
         cf, since, states = ([o[i] for o in outs] for i in range(3))
-        return (_gather(mesh, cf, 1), _gather(mesh, since, 1),
-                _gather(mesh, states, 1), _count(mesh, cf))
+        return (_outputs(mesh, cf, 1), _outputs(mesh, since, 1),
+                _outputs(mesh, states, 1), _count(mesh, cf))
 
     return step
 
@@ -590,3 +789,34 @@ def aligned_sharded_parity_check(mesh: DeviceMesh, n_devices: int) -> None:
                                  f"strip {i}")
     if int(n) != int(cf.sum()):
         raise AssertionError("aligned chunk count mismatch")
+
+
+def rolling_sharded_parity_check(mesh, params, data: np.ndarray,
+                                 messages: list) -> dict:
+    """One :func:`make_sharded_step` over ``data`` [B, S] u8 and the
+    messages: each row's bitmap == the NumPy Gear bitmap of the row, the
+    count == its population, the states == hashlib's digests. A
+    one-process mesh only (a global mesh checks its own slots)."""
+    import hashlib
+
+    from dfs_tpu_torch.fragmenter.cdc_cpu import gear_bitmap_numpy
+    from dfs_tpu_torch.ops.sha256 import pad_messages, state_to_hex
+    from dfs_tpu_torch.utils.hashing import gear_table
+
+    table = gear_table(params.seed)
+    words, nblocks = pad_messages(
+        messages, batch=-(-len(messages) // mesh.size) * mesh.size)
+    step = make_sharded_step(mesh, table, params.mask)
+    bitmap, states, count = step(*shard_inputs(mesh, data, words, nblocks))
+    bitmap = bitmap.cpu().numpy()
+    want = np.stack([gear_bitmap_numpy(row, table, params.mask)
+                     for row in data])
+    if not np.array_equal(bitmap, want):
+        raise AssertionError("rolling sharded bitmap != numpy oracle")
+    if int(count) != int(want.sum()):
+        raise AssertionError("rolling sharded candidate count mismatch")
+    if state_to_hex(states)[:len(messages)] != [
+            hashlib.sha256(m).hexdigest() for m in messages]:
+        raise AssertionError("rolling sharded digests != hashlib")
+    return {"rows": int(data.shape[0]), "row_bytes": int(data.shape[1]),
+            "candidates": int(count), "messages": len(messages)}

@@ -671,3 +671,67 @@ def test_sidecar_on_card(dev):
             assert counts[k] >= 2, counts
     finally:
         srv.stop()
+
+
+def test_sha256_blocks_kernel_on_card(dev):
+    """Kernel 6 against its plain version on random words with rows of 0,
+    -1 and more blocks than the axis holds, and the batched digests
+    against hashlib at the length boundaries."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops import sha256 as S
+
+    rng = np.random.default_rng(6)
+    words = rng.integers(0, 2**32, size=(70, 9, 16),
+                         dtype=np.uint64).astype(np.uint32)
+    nb = rng.integers(0, 10, size=70).astype(np.int32)
+    nb[:3] = (0, -1, 12)
+    w, n = S.u32_tensor(words, dev), torch.from_numpy(nb).to(dev)
+    before = kernels.launch_counts()["sha256_blocks"]
+    _same(S.sha256_blocks(w, n), S.sha256_blocks_plain(w, n))
+    msgs = [corpus(k, seed=k).tobytes() for k in
+            (0, 1, 55, 56, 63, 64, 119, 120, 5000)]
+    assert S.sha256_batch_hex(msgs, device=dev) == \
+        [hashlib.sha256(m).hexdigest() for m in msgs]
+    assert kernels.launch_counts()["sha256_blocks"] == before + 2
+
+
+def test_aligned_v1_and_rolling_paths_on_card(dev):
+    """The aligned pipeline (kernels 3 and 1), the v1 engine (kernel 6)
+    and the rolling walk over 4 slots of the card against the NumPy
+    oracles."""
+    import warnings
+
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.config import CDCParams, FragmenterConfig
+    from dfs_tpu_torch.fragmenter.base import get_fragmenter
+    from dfs_tpu_torch.fragmenter.cdc_aligned import AlignedCudaFragmenter
+    from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
+    from dfs_tpu_torch.fragmenter.cdc_cuda import CudaCdcFragmenter
+    from dfs_tpu_torch.ops.cdc_v2 import chunk_file_np
+
+    aparams = AlignedCdcParams(min_blocks=2, avg_blocks=4, max_blocks=16,
+                               strip_blocks=64)
+    data = corpus(400_000, seed=9)
+    kernels.reset_launch_counts()
+    frag = AlignedCudaFragmenter(aparams, seg_strips=16, cpu_cutoff=0,
+                                 device=dev)
+    assert [(c.offset, c.length, c.digest) for c in frag.chunk(
+        data.tobytes())] == chunk_file_np(data, aparams)
+    counts = kernels.launch_counts()
+    assert counts["strip_chunk_states"] >= 2 and \
+        counts["bswap_transpose"] >= 2
+    body = data.tobytes()
+    cp = CDCParams(64, 256, 1024)
+    want = [(c.offset, c.length, c.digest)
+            for c in CpuCdcFragmenter(cp).chunk(body)]
+    v1 = CudaCdcFragmenter(cp, tile_size=1 << 16, device=dev)
+    assert [(c.offset, c.length, c.digest) for c in v1.chunk(body)] == want
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        assert isinstance(get_fragmenter("cdc-tpu", device=dev),
+                          CudaCdcFragmenter)
+    rolling = get_fragmenter("cdc", cdc_params=cp, frag=FragmenterConfig(
+        devices=4, region_bytes=1 << 16), device=[dev] * 4)
+    m = rolling.manifest_stream(iter([body[:100_000], body[100_000:]]), "r")
+    assert [(c.offset, c.length, c.digest) for c in m.chunks] == want
+    assert kernels.launch_counts()["sha256_blocks"] > 0

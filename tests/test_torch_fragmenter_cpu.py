@@ -9,6 +9,7 @@ and the config fingerprint a mixed cluster's doctor compares."""
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import socket
 from pathlib import Path
 
@@ -148,11 +149,16 @@ def test_factory_and_serve_flags():
     f = base.get_fragmenter("cdc", cdc_params=port_config.CDCParams(
         **SIZES[1]))
     assert isinstance(f, CpuCdcFragmenter) and f.params.seed == 7
-    with pytest.raises(ValueError, match="not ported"):
-        base.get_fragmenter("cdc", frag=port_config.FragmenterConfig(
-            devices=2))
+    from dfs_tpu_torch.fragmenter.cdc_aligned import AlignedCpuFragmenter
+    from dfs_tpu_torch.fragmenter.cdc_sharded import ShardedCdcFragmenter
+
+    assert isinstance(base.get_fragmenter(
+        "cdc", frag=port_config.FragmenterConfig(devices=2), device="cpu"),
+        ShardedCdcFragmenter)
+    assert isinstance(base.get_fragmenter("cdc-aligned"),
+                      AlignedCpuFragmenter)
     with pytest.raises(ValueError, match="unknown fragmenter"):
-        base.get_fragmenter("cdc-aligned")
+        base.get_fragmenter("cdc-rolling")
     from dfs_tpu_torch.cli.main import build_parser, node_config
 
     ap = build_parser()
@@ -228,3 +234,139 @@ def test_port_smart_client_chunks_for_a_dfs_tpu_cdc_node(tmp_path):
     assert info["dataPlane"] != "legacy" and got == data
     assert triples(m.chunks) == triples(ref_cdc.CpuCdcFragmenter(
         ref_config.CDCParams(**SIZES[0])).chunk(data))
+
+
+DFS_TPU_NAMES = ["auto", "fixed", "cdc", "cdc-tpu", "cdc-aligned",
+                 "cdc-aligned-tpu", "cdc-anchored", "cdc-anchored-tpu"]
+
+
+def test_serve_and_sidecar_take_every_dfs_tpu_name():
+    """Both subcommands' ``--fragmenter`` choices hold dfs_tpu's (its
+    parser's own choices) and the port's -cuda names."""
+    from dfs_tpu.cli.main import build_parser as ref_parser
+
+    from dfs_tpu_torch.cli.main import build_parser
+
+    def choices(ap, sub):
+        sp = next(a for a in ap._actions if a.dest == "cmd" or
+                  getattr(a, "choices", None) and sub in (a.choices or {}))
+        act = next(a for a in sp.choices[sub]._actions
+                   if a.dest == "fragmenter")
+        return set(act.choices)
+
+    for sub in ("serve", "sidecar"):
+        ref = choices(ref_parser(), sub)
+        assert ref == set(DFS_TPU_NAMES)
+        assert choices(build_parser(), sub) >= ref | {
+            "cdc-cuda", "cdc-aligned-cuda", "cdc-anchored-cuda"}
+
+
+@pytest.mark.parametrize("kind", DFS_TPU_NAMES)
+def test_every_dfs_tpu_name_chunks_like_dfs_tpu(kind):
+    """The factory's engine for each of dfs_tpu's names, built from the
+    same node sizes, against dfs_tpu's engine of that name: chunk() and
+    the streamed manifest (table, size, fileId). dfs_tpu's ``auto`` probes
+    for a TPU, so it is held to dfs_tpu's ``cdc-anchored`` (its CPU
+    choice); the -tpu engines here take their small-input host paths,
+    and tests/test_torch_v1.py and test_torch_aligned.py hold the device
+    paths to dfs_tpu's. ``cdc-tpu``'s chunk() stages a whole 32 MiB tile,
+    so only its streamed manifest is compared here."""
+    import warnings
+
+    data = corpus(70_000, 41)
+    blocks = [data[i:i + 9999] for i in range(0, len(data), 9999)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        port = base.get_fragmenter(
+            kind, cdc_params=port_config.CDCParams(**SIZES[1]),
+            device="cpu", fixed_parts=4)
+        ref = ref_base.get_fragmenter(
+            "cdc-anchored" if kind == "auto" else kind,
+            cdc_params=ref_config.CDCParams(**SIZES[1]), fixed_parts=4)
+    if kind != "cdc-tpu":
+        assert triples(port.chunk(data)) == triples(ref.chunk(data))
+    m = port.manifest_stream(iter(blocks), "f")
+    r = ref.manifest_stream(iter(blocks), "f")
+    assert (m.file_id, m.size, triples(m.chunks)) == \
+        (r.file_id, r.size, triples(r.chunks))
+    assert port.name == ref.name.replace("-tpu", "-cuda") or \
+        (kind == "auto" and port.name == "cdc-anchored-cuda")
+
+
+def test_native_anchored_engine_equals_the_oracles():
+    """The C++ spans (whole stream and window by window) == the NumPy
+    oracle == dfs_tpu's native core; the host engine's table and stream ==
+    dfs_tpu's; the batched native SHA-256 == hashlib."""
+    from dfs_tpu.fragmenter.cdc_anchored import AnchoredCpuFragmenter as Ref
+    from dfs_tpu.native import native_anchored_spans as ref_spans
+
+    from dfs_tpu_torch.native import (native_anchored_spans,
+                                      native_anchored_spans_region,
+                                      native_sha256_many)
+    from dfs_tpu_torch.ops.cdc_anchored import (chunk_spans_anchored_np,
+                                                region_spans_np)
+
+    data = corpus(50_000, 43)
+    arr = np.frombuffer(data, np.uint8)
+    spans = native_anchored_spans(arr, ANCHORED)
+    assert spans.tolist() == [list(x) for x in
+                              chunk_spans_anchored_np(arr, ANCHORED)]
+    ref = Ref(ref_base.fragmenter_from_description(
+        AnchoredCpuFragmenter(ANCHORED).describe()).params,
+        region_bytes=16384)
+    want = ref_spans(arr, ref.params)
+    if want is not None:                 # dfs_tpu's build may be absent
+        assert np.array_equal(spans, want)
+    lb = arr[16384 - 8:16384]
+    got = native_anchored_spans_region(arr[16384:32768], lb, 1000, False,
+                                       ANCHORED)
+    exp = region_spans_np(arr[16384:32768], lb, 1000, False, ANCHORED)
+    assert (got[0].tolist(), got[1]) == ([list(x) for x in exp[0]], exp[1])
+    port = AnchoredCpuFragmenter(ANCHORED, region_bytes=16384)
+    blocks = [data[i:i + 7000] for i in range(0, len(data), 7000)]
+    assert triples(port.chunk(data)) == triples(ref.chunk(data))
+    assert triples(c for b in port.chunks_stream(iter(blocks)) for c in b) \
+        == triples(ref.chunk(data))
+    msgs = [data[:n] for n in (0, 55, 56, 64, 120, 1000)]
+    assert native_sha256_many(msgs) == \
+        [hashlib.sha256(m).hexdigest() for m in msgs]
+
+
+def test_undescribable_node_answers_chunking_null(tmp_path):
+    """A node running an aligned engine (not resume-describable) ingests,
+    and its ``/dataplane`` carries ``chunking: null`` as dfs_tpu's does
+    (its ``/chunking`` route answers 404 from the same NotImplementedError
+    path)."""
+    from dfs_tpu_torch.fragmenter.cdc_aligned import AlignedCudaFragmenter
+
+    socks = [socket.socket() for _ in range(2)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    cfg = port_config.NodeConfig(
+        node_id=1, cluster=port_config.ClusterConfig.localhost(1, *ports, 1),
+        data_root=tmp_path, fragmenter="cdc-aligned-tpu", health_probe_s=0,
+        device="cpu")
+    data = corpus(30_000, 47)
+
+    async def run():
+        node = port_runtime.StorageNodeServer(cfg)
+        await node.start()
+        try:
+            async def blocks():
+                for off in range(0, len(data), 8192):
+                    yield data[off:off + 8192]
+
+            m, _ = await node.upload_stream(blocks(), "a.bin")
+            _, got = await node.download(m.file_id)
+            return node.fragmenter, node.dataplane_info(), m, bytes(got)
+        finally:
+            await node.stop()
+
+    frag, info, m, got = asyncio.run(asyncio.wait_for(run(), timeout=60))
+    assert isinstance(frag, AlignedCudaFragmenter) and got == data
+    assert info["chunking"] is None
+    assert m.fragmenter == "cdc-aligned-cuda"
+    assert m.file_id == hashlib.sha256(data).hexdigest()

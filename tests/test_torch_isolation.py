@@ -4,8 +4,10 @@ the chunk+hash sidecar and its client, the
 single-device and the sharded walk, and a node served over HTTP with the
 similarity plane, the serving tier, the index and tiering, chaos, a
 traced request stitched and journaled, the ring, census, history and
-doctor routes, a smart-client upload and download, a resumed upload, and
-a device-trace capture — never loads any of them, and without CUDA the entry
+doctor routes, a smart-client upload and download, a resumed upload, a
+device-trace capture, and every host strategy with the device strategies'
+plain versions (aligned, v1, the rolling sharded walk) — never loads any
+of them, and without CUDA the entry
 points (the client's chunking included) raise instead of running on the
 CPU."""
 
@@ -168,6 +170,27 @@ with tempfile.TemporaryDirectory() as d:
         assert list(sc.chunk_hash_duplex(iter([body])))[-1]["done"]
     finally:
         sc_srv.stop()
+# every host engine and the device engines' plain versions on a small body
+import warnings
+from dfs_tpu_torch.config import CDCParams
+from dfs_tpu_torch.fragmenter.base import get_fragmenter
+import dfs_tpu_torch.fragmenter.cdc_aligned, dfs_tpu_torch.fragmenter.cdc_cuda
+import dfs_tpu_torch.fragmenter.cdc_sharded, dfs_tpu_torch.ops.cdc_pipeline
+import dfs_tpu_torch.ops.gear, dfs_tpu_torch.ops.pack
+import dfs_tpu_torch.parallel.multihost  # noqa: F401
+small = body[:40000]
+tables = []
+with warnings.catch_warnings():
+    warnings.simplefilter("ignore", DeprecationWarning)
+    for kind, frag in (("cdc-aligned", None), ("cdc-aligned-cuda", None),
+                       ("cdc-anchored", None), ("cdc-cuda", None),
+                       ("cdc", FragmenterConfig(devices=2))):
+        f = get_fragmenter(kind, cdc_params=CDCParams(64, 256, 1024),
+                           frag=frag, device="cpu")
+        m = f.manifest_stream(iter([small[:5000], small[5000:]]), "s")
+        assert sum(c.length for c in m.chunks) == len(small), kind
+        tables.append([(c.offset, c.length, c.digest) for c in m.chunks])
+assert tables[0] == tables[1] and tables[3] == tables[4]
 bad = sorted(k for k in sys.modules
              if k in ("jax", "jaxlib", "dfs_tpu", "grpc")
              or k.startswith(("jax.", "jaxlib.", "dfs_tpu.", "grpc.")))
