@@ -187,7 +187,8 @@ drives the paths end to end and checks each against the NumPy oracle:
   and 1, at least 2 launches each over the body);
 - ``v1``: the body through ``CudaCdcFragmenter`` (``cdc-cuda``, dfs_tpu's
   ``cdc-tpu``) ``chunk`` and ``manifest_stream``, tables == the host
-  ``cdc`` engine's (kernel 6);
+  ``cdc`` engine's (kernel 7: one launch for ``chunk``, none of kernel 6;
+  one a flush for the stream);
 - ``rolling_sharded``: the body through the rolling walk
   (``ShardedCdcFragmenter``, ``cdc --cdc-devices N``) on 2 and 4 slots of
   the first card, and one slot per card with two or more cards, tables ==
@@ -201,6 +202,12 @@ drives the paths end to end and checks each against the NumPy oracle:
 - ``kernel:sha256_blocks``: kernel 6 at 16 rows x 64 blocks against its
   plain version (exact; also rows of 0, -1, 17 and 99 blocks), timed
   alone, with the 128 x 256 shape beside it;
+- ``kernel:sha256_spans``: kernel 7 against its plain version on 64 spans
+  of up to 64 blocks at every start offset mod 16 (exact), and against
+  hashlib on every span of the host ``cdc`` table of the 128 MiB body in
+  one launch; that launch timed beside the bucketed kernel 6 calls the v1
+  path made before it, on the same spans packed ahead of time (kernel 7
+  must take at most a tenth of their time);
 - ``multihost``: two processes (``chip_smoke.py --multihost-worker``), 2
   slots each on ``cuda:0``, one gloo group: the rolling step, the carry
   step and the anchored pass B over the global mesh at dp 1 and 2, each
@@ -374,14 +381,20 @@ REPLACES = {
     "bswap_transpose": "dfs_tpu/ops/layout.py:39",
     "select_walk": "dfs_tpu/ops/select_pallas.py:62",
     "strip_states": "dfs_tpu/ops/sha256_strip.py:140",
-    # XLA in dfs_tpu, not Pallas: the batched scan of _sha256_blocks_impl
+    # XLA in dfs_tpu, not Pallas: the batched scan of _sha256_blocks_impl,
+    # and the gather, padding and packing of digest_gathered before it
     "sha256_blocks": "dfs_tpu/ops/sha256_jax.py:130",
+    "sha256_spans": "dfs_tpu/ops/pack_jax.py:28",
 }
 # the path whose run counts each kernel's launches in the kernels table
 LAUNCHES_PATH = {"strip_chunk_states": "e2e", "repack_lanes": "e2e",
                  "bswap_transpose": "e2e", "select_walk": "e2e",
                  "strip_states": "sharded_production",
-                 "sha256_blocks": "v1"}
+                 "sha256_blocks": "sharded_step", "sha256_spans": "v1"}
+# the v1 path's kernel 6 calls before kernel 7 (``kernel:sha256_spans``'s
+# "before" side): chunks grouped by power-of-two block count, at most
+# V1_HASH_BATCH rows a call at the 64-block bucket
+V1_HASH_BATCH = 512
 
 
 def emit(obj) -> None:
@@ -3078,9 +3091,10 @@ def rolling_phase(body: bytes, blocks: list, cdc_oracle: list,
 
 def v1_phase(body: bytes, blocks: list, cdc_oracle: list, kernels) -> dict:
     """The ``v1`` phase: the body through ``CudaCdcFragmenter.chunk`` (one
-    transfer, the device Gear bitmap, kernel 6 over the resident array)
-    and ``manifest_stream`` (kernel 6 over host payloads), each table ==
-    the host ``cdc`` engine's. Returns the launches over both."""
+    transfer, the device Gear bitmap, one kernel 7 launch over the
+    resident array) and ``manifest_stream`` (one kernel 7 launch a flush
+    of host payloads), each table == the host ``cdc`` engine's. Returns
+    the launches over both."""
     import torch
 
     from dfs_tpu_torch.fragmenter.cdc_cuda import CudaCdcFragmenter
@@ -3092,11 +3106,14 @@ def v1_phase(body: bytes, blocks: list, cdc_oracle: list, kernels) -> dict:
     t0 = time.perf_counter()
     table = _triples(frag.chunk(body))
     chunk_s = time.perf_counter() - t0
-    chunk_launches = kernels.launch_counts()["sha256_blocks"]
+    at_chunk = kernels.launch_counts()
     t0 = time.perf_counter()
     m = frag.manifest_stream(iter(blocks), "v1.bin")
     stream_s = time.perf_counter() - t0
-    counts = path_launches(kernels, "v1", ("sha256_blocks",))
+    counts = path_launches(kernels, "v1", ("sha256_spans",))
+    check(at_chunk["sha256_spans"] == 1 and at_chunk["sha256_blocks"] == 0,
+          f"v1 chunk: kernel 7 launched {at_chunk['sha256_spans']} times, "
+          f"kernel 6 {at_chunk['sha256_blocks']} times (want 1 and 0)")
     check(table == cdc_oracle, "v1 chunk table != the host cdc engine's")
     check(_triples(m.chunks) == cdc_oracle and
           m.file_id == hashlib.sha256(body).hexdigest(),
@@ -3104,8 +3121,10 @@ def v1_phase(body: bytes, blocks: list, cdc_oracle: list, kernels) -> dict:
     emit({"phase": "v1", "bytes": len(body), "chunks": len(table),
           "chunk_s": chunk_s, "chunk_gib_s": len(body) / chunk_s / 2**30,
           "stream_s": stream_s, "stream_gib_s": len(body) / stream_s / 2**30,
-          "k6_launches_chunk": chunk_launches,
-          "k6_launches_stream": counts["sha256_blocks"] - chunk_launches,
+          "k7_launches_chunk": at_chunk["sha256_spans"],
+          "k7_launches_stream": counts["sha256_spans"]
+          - at_chunk["sha256_spans"],
+          "k6_launches": counts["sha256_blocks"],
           "launches": counts, "oracle_equal": True})
     return counts
 
@@ -3261,9 +3280,107 @@ def k6_row(kernel_row, np, dev) -> None:
                nbytes(words, full, out_k), blocks * K5_OPS_PER_BLOCK,
                "16 rows x 64 blocks; also nblocks 0, -1, 17 and 99",
                chain_floor_ms=64 * CHAIN_CYCLES_PER_COMPRESSION / BOOST_HZ
-               * 1e3, ms_128x256=big_ms,
+               * 1e3, cycles_per_compression=t["ms"] * 1e-3 * BOOST_HZ / 64,
+               cycles_from="ms x 1.98 GHz / 64 blocks", ms_128x256=big_ms,
                chain_floor_128x256_ms=256 * CHAIN_CYCLES_PER_COMPRESSION
                / BOOST_HZ * 1e3)
+
+
+def v1_k6_buckets(lengths: list[int]):
+    """(blocks, rows, [indices]) of each kernel 6 call the v1 path made
+    before kernel 7: chunks by power-of-two block count, ascending, rows
+    a call sized so every call holds about V1_HASH_BATCH x 64 blocks."""
+    by_blocks: dict[int, list[int]] = {}
+    for i, ln in enumerate(lengths):
+        nb = 1 << ((ln + 8) // 64).bit_length()
+        by_blocks.setdefault(nb, []).append(i)
+    for nb, idxs in sorted(by_blocks.items()):
+        rows = max(16, min(V1_HASH_BATCH, 1 << (max(
+            1, V1_HASH_BATCH * 64 // nb) - 1).bit_length()))
+        for lo in range(0, len(idxs), rows):
+            yield nb, rows, idxs[lo:lo + rows]
+
+
+def k7_row(kernel_row, kernels, body: bytes, cdc_oracle: list, np,
+           dev) -> None:
+    """Kernel 7: exact against its plain version on 64 spans of up to 64
+    blocks at every start offset mod 16 (the array's last byte included),
+    then over every span of the host ``cdc`` table of the body in one
+    launch, against hashlib. That launch (the span table already on the
+    card) timed beside the v1 path's kernel 6 calls before it, on the
+    same spans packed ahead of time bucket by bucket (``bucketed_k6_ms``:
+    all of them back to back); the launch must take at most a tenth of
+    their time."""
+    import torch
+
+    from dfs_tpu_torch.ops import sha256 as S
+    from dfs_tpu_torch.ops.pack import pack_gathered
+
+    rng = np.random.default_rng(SEED + 5)
+    small = torch.from_numpy(rng.integers(0, 256, size=64 * 4096 + 7,
+                                          dtype=np.uint8)).to(dev)
+    s_lens = rng.integers(0, 4088, size=64)       # <= 64 blocks padded
+    s_lens[:5] = (0, 1, 55, 56, 4087)
+    s_starts = 4096 * np.arange(64) + np.arange(64) % 16
+    s_starts[-1] = small.shape[0] - int(s_lens[-1])   # ends at the end
+    check(max((s_lens + 8) // 64 + 1) <= 64, "k7 small set: <= 64 blocks")
+    got = S.sha256_spans(small, s_starts, s_lens)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = S.sha256_spans_plain(small, s_starts, s_lens)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max_abs_err(got, want)
+
+    data = torch.from_numpy(np.frombuffer(body, np.uint8).copy()).to(dev)
+    starts = np.array([o for o, _, _ in cdc_oracle], np.int64)
+    lens = np.array([ln for _, ln, _ in cdc_oracle], np.int64)
+    out = S.sha256_spans(data, starts, lens)
+    check(S.state_to_hex(out) == [d for _, _, d in cdc_oracle],
+          "sha256_spans != hashlib on the body's spans")
+    n = starts.shape[0]
+    table = torch.from_numpy(S.span_table(starts, lens,
+                                          data.shape[0])).to(dev)
+    res = torch.empty_like(out)
+
+    def launch():
+        kernels.launch("sha256_spans", dev, data.data_ptr(), data.numel(),
+                       table.data_ptr(), res.data_ptr(), n)
+    t = kernel_times(launch)
+    check(max_abs_err(res, out) == 0, "sha256_spans timed launch differs")
+    wrapper_ms_single = single_ms(lambda: S.sha256_spans(data, starts, lens),
+                                  reps=5)
+
+    packed = []
+    for nb, rows, group in v1_k6_buckets(lens.tolist()):
+        st = np.zeros(rows, np.int32)
+        ln = np.full(rows, -1, np.int32)          # -1: a padding row
+        st[:len(group)], ln[:len(group)] = starts[group], lens[group]
+        packed.append(pack_gathered(data, torch.from_numpy(st).to(dev),
+                                    torch.from_numpy(ln).to(dev), nb * 64))
+
+    def bucketed():
+        for w, nblk in packed:
+            S.sha256_blocks(w, nblk)
+    bucketed_ms = cuda_ms(bucketed, 3)
+    n_calls = len(packed)
+    del packed
+    blocks = (lens + 8) // 64 + 1
+    longest = int(blocks.max())
+    check(t["ms"] <= bucketed_ms / 10, f"sha256_spans {t['ms']} ms is more "
+          f"than a tenth of the bucketed kernel 6 calls' {bucketed_ms} ms")
+    kernel_row("sha256_spans", err, t, plain_ms,
+               nbytes(data, table, res), int(blocks.sum()) * K5_OPS_PER_BLOCK,
+               "64 spans <= 64 blocks, every offset mod 16, vs plain "
+               f"(exact); {n} spans of the {len(body)}-byte body vs hashlib",
+               spans=n, blocks=int(blocks.sum()), longest_span_blocks=longest,
+               chain_floor_ms=longest * CHAIN_CYCLES_PER_COMPRESSION
+               / BOOST_HZ * 1e3, bucketed_k6_ms=bucketed_ms,
+               bucketed_launches=n_calls,
+               wrapper_ms_single=wrapper_ms_single)
 
 
 def region_inputs(rng, dev, np) -> types.SimpleNamespace:
@@ -3661,6 +3778,8 @@ def main() -> int:
     from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
 
     cdc_oracle = _triples(CpuCdcFragmenter().chunk(body))
+    timed_phase("kernel:sha256_spans", k7_row, kernel_row, kernels, body,
+                cdc_oracle, np, dev)
     launches["aligned"] = timed_phase("aligned", aligned_phase, root, body,
                                       body_np, blocks, kernels)
     launches["v1"] = timed_phase("v1", v1_phase, body, blocks, cdc_oracle,

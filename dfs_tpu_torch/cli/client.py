@@ -144,6 +144,10 @@ class NodeClient:
         return self._request("GET", f"/download?{q}",
                              headers={"Range": f"bytes={start}-{end - 1}"})
 
+    def scrub(self) -> dict:
+        """One integrity sweep of the node's CAS (``POST /scrub``)."""
+        return json.loads(self._request("POST", "/scrub", body=b""))
+
     def manifest(self, file_id: str) -> dict:
         q = urllib.parse.urlencode({"fileId": file_id})
         return json.loads(self._request("GET", f"/manifest?{q}"))

@@ -84,6 +84,12 @@ def encode_frame(header: dict, body: Buffer | Sequence[Buffer] = b""
     return head, bufs, len(head) + body_len
 
 
+def frame_size(header: dict, body_len: int) -> int:
+    """Exact on-wire size of a frame with this header and body length."""
+    h = json.dumps(header, separators=(",", ":")).encode()
+    return PREFIX_LEN + len(h) + body_len
+
+
 def _decode_header(raw: Buffer) -> dict:
     """Parse a frame header; any malformation is a :class:`WireError`."""
     try:
@@ -94,6 +100,40 @@ def _decode_header(raw: Buffer) -> dict:
         raise WireError("bad frame header: want a JSON object, got "
                         f"{type(header).__name__}")
     return header
+
+
+async def send_msg(writer: asyncio.StreamWriter, header: dict,
+                   body: Buffer | Sequence[Buffer] = b"") -> int:
+    """Write one frame to a stream; returns its on-wire byte count. The
+    body's buffers are written one by one (never joined)."""
+    head, bufs, total = encode_frame(header, body)
+    writer.write(head)
+    for b in bufs:
+        if len(b):
+            writer.write(b)
+    await writer.drain()
+    return total
+
+
+async def read_msg(reader: asyncio.StreamReader) -> tuple[dict, bytes]:
+    """Read one frame from a stream: ``(header, body)``. A closed stream,
+    a bad magic, an oversized frame or a malformed header is a
+    :class:`WireError`."""
+    try:
+        prefix = await reader.readexactly(_PREFIX.size)
+    except asyncio.IncompleteReadError as e:
+        raise WireError("connection closed mid-frame") from e
+    magic, hdr_len, body_len = _PREFIX.unpack(prefix)
+    if magic != MAGIC:
+        raise WireError(f"bad magic {magic:#x}")
+    if hdr_len > MAX_HEADER or body_len > MAX_BODY:
+        raise WireError("frame too large")
+    try:
+        header = _decode_header(await reader.readexactly(hdr_len))
+        body = await reader.readexactly(body_len) if body_len else b""
+    except asyncio.IncompleteReadError as e:
+        raise WireError("connection closed mid-frame") from e
+    return header, body
 
 
 def pack_chunks(chunks: Sequence[tuple[str, Buffer]]
@@ -381,6 +421,11 @@ class FrameServerProtocol(_FrameReceiver):
         if self._broken is None and self._transport is not None \
                 and not self._transport.is_closing():
             self._transport.resume_reading()
+
+    def send_frame(self, header: dict,
+                   body: Buffer | Sequence[Buffer] = b"") -> int:
+        """Lay out and write one reply frame; returns its byte count."""
+        return self._write_frame(header, body)
 
     def send_encoded(self, head: bytes, bufs: Sequence[Buffer]) -> None:
         self._write_encoded(head, bufs)

@@ -86,6 +86,10 @@ class PeerAddr:
     port: int           # external HTTP API port
     internal_port: int  # binary storage-plane port
 
+    @property
+    def http_base(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
 
 @dataclasses.dataclass(frozen=True)
 class ClusterConfig:
@@ -100,6 +104,10 @@ class ClusterConfig:
             raise ValueError("duplicate node_id in cluster config")
         if not 1 <= self.replication_factor <= max(1, len(self.peers)):
             raise ValueError("replication_factor out of range")
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.peers)
 
     def peer(self, node_id: int) -> PeerAddr:
         for p in self.peers:
@@ -740,3 +748,14 @@ class NodeConfig:
     @property
     def self_addr(self) -> PeerAddr:
         return self.cluster.peer(self.node_id)
+
+    def to_json(self) -> str:
+        """The whole configuration as JSON (nested sections as objects,
+        paths as strings), as dfs_tpu's ``NodeConfig.to_json``."""
+        def enc(o):
+            if dataclasses.is_dataclass(o) and not isinstance(o, type):
+                return dataclasses.asdict(o)
+            if isinstance(o, Path):
+                return str(o)
+            raise TypeError(type(o))
+        return json.dumps(self, default=enc, indent=2)

@@ -26,6 +26,17 @@ from dfs_tpu_torch.ops.boundary import cuts_to_spans
 from dfs_tpu_torch.utils.hashing import gear_table, sha256_many_hex
 
 
+def gear_hashes_seq(data: bytes, table: np.ndarray) -> np.ndarray:
+    """The sequential rolling hash h_i = (h_{i-1} << 1) + G[b_i] mod 2**32
+    at every byte (a test oracle: an O(n) Python loop)."""
+    h = 0
+    out = np.empty(len(data), dtype=np.uint32)
+    for i, b in enumerate(data):
+        h = ((h << 1) + int(table[b])) & 0xFFFFFFFF
+        out[i] = h
+    return out
+
+
 def cdc_cuts_ref(data: bytes, params: CDCParams,
                  table: np.ndarray | None = None) -> list[int]:
     """Specification chunker: sequential scan, cut after the first

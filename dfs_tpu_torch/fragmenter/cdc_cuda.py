@@ -8,14 +8,16 @@ as the host ``cdc`` strategy, computed on the device.
    resident array (``ops.pack.make_resident_tile_fn``, plain torch),
    threading the 31-value halo; the bitmap comes back to the host.
 3. Greedy cut selection runs on the host (``ops.boundary``).
-4. Chunks are grouped by their power-of-two block count; each group's
-   bytes are gathered on the device from the resident array, padded and
-   packed (``ops.pack.digest_gathered``) and hashed by kernel 6.
+4. Every chunk is hashed from the resident array by one launch of kernel
+   7 (``ops.sha256.sha256_spans``: the gather, the FIPS padding and the
+   packing in the kernel), where dfs_tpu gathers and packs each
+   power-of-two length bucket (``digest_gathered``) for its batched scan.
 
 ``manifest_stream`` is the bounded-memory walk of ``fragmenter/stream.py``
-with the device bitmap for whole tiles and kernel 6 for the digests
-(``hash_fn``). ``device`` None means the card (raising without one);
-"cpu" runs the plain versions.
+with the device bitmap for whole tiles and kernel 7 for the digests
+(``hash_fn``: each flush of ``hash_batch`` payloads is one host-to-device
+copy and one launch). ``device`` None means the card (raising without
+one); "cpu" runs the plain versions.
 """
 
 from __future__ import annotations
@@ -30,9 +32,8 @@ from dfs_tpu_torch.fragmenter.base import MaterializingFragmenter
 from dfs_tpu_torch.meta.manifest import ChunkRef, Manifest
 from dfs_tpu_torch.ops.boundary import cuts_to_spans, select_cuts
 from dfs_tpu_torch.ops.gear import make_gear_tile_fn
-from dfs_tpu_torch.ops.pack import digest_gathered, make_resident_tile_fn
-from dfs_tpu_torch.ops.sha256 import (pad_messages, sha256_blocks,
-                                      state_to_hex, u32_tensor)
+from dfs_tpu_torch.ops.pack import make_resident_tile_fn
+from dfs_tpu_torch.ops.sha256 import sha256_spans, state_to_hex
 from dfs_tpu_torch.utils.hashing import gear_table, next_pow2
 
 _DEFAULT_TILE = 32 * 1024 * 1024  # 32 MiB per device dispatch
@@ -89,38 +90,14 @@ class CudaCdcFragmenter(MaterializingFragmenter):
         return self._cuts_resident(self._device_put_padded(arr),
                                    arr.shape[0])
 
-    # ---- device-side packing + bucketed batched hashing (kernel 6) ----
-
-    def _bucket_rows(self, nb: int) -> int:
-        """Rows per call: every bucket works on about the same word volume
-        (``hash_batch`` rows at the 64-block bucket)."""
-        return max(16, min(self.hash_batch,
-                           next_pow2(self.hash_batch * 64 // nb)))
-
-    def _buckets(self, lengths: list[int]):
-        """(blocks, rows, [indices]) per call, buckets in ascending order."""
-        by_blocks: dict[int, list[int]] = {}
-        for i, ln in enumerate(lengths):
-            by_blocks.setdefault(next_pow2((ln + 8) // 64 + 1), []).append(i)
-        for nb, idxs in sorted(by_blocks.items()):
-            rows = self._bucket_rows(nb)
-            for lo in range(0, len(idxs), rows):
-                yield nb, rows, idxs[lo:lo + rows]
+    # ---- hashing: kernel 7, one launch for every span ----
 
     def digest_spans_resident(self, dev: torch.Tensor,
                               spans: list[tuple[int, int]]) -> list[str]:
-        digests: list = [None] * len(spans)
-        for nb, rows, group in self._buckets([ln for _, ln in spans]):
-            starts = np.zeros((rows,), dtype=np.int32)
-            lens = np.full((rows,), -1, dtype=np.int32)  # -1: padding row
-            for j, i in enumerate(group):
-                starts[j], lens[j] = spans[i]
-            state = digest_gathered(dev, torch.from_numpy(starts).to(
-                self.device), torch.from_numpy(lens).to(self.device),
-                l64=nb * 64)
-            for i, dg in zip(group, state_to_hex(state)):
-                digests[i] = dg
-        return digests
+        """The hex digests of ``(offset, length)`` spans of the resident
+        array, in one kernel 7 launch."""
+        table = np.asarray(spans, dtype=np.int64).reshape(-1, 2)
+        return state_to_hex(sha256_spans(dev, table[:, 0], table[:, 1]))
 
     def chunk(self, data: bytes) -> list[ChunkRef]:
         arr = np.frombuffer(data, dtype=np.uint8)
@@ -154,17 +131,18 @@ class CudaCdcFragmenter(MaterializingFragmenter):
                                  np.asarray(prev_g, dtype=np.uint32))
 
     def digest_many(self, payloads: list[bytes]) -> list[str]:
-        """Hash host byte strings with kernel 6 (power-of-two length
-        buckets, as :meth:`digest_spans_resident`)."""
-        out: list = [None] * len(payloads)
-        for nb, rows, group in self._buckets([len(p) for p in payloads]):
-            words, counts = pad_messages([payloads[i] for i in group],
-                                         n_blocks=nb, batch=rows)
-            state = sha256_blocks(u32_tensor(words, self.device),
-                                  torch.from_numpy(counts).to(self.device))
-            for i, dg in zip(group, state_to_hex(state)):
-                out[i] = dg
-        return out
+        """Hash host byte strings: joined into one buffer, one
+        host-to-device copy, one kernel 7 launch."""
+        if not payloads:
+            return []
+        lens = np.fromiter((len(p) for p in payloads), dtype=np.int64,
+                           count=len(payloads))
+        starts = np.zeros_like(lens)
+        np.cumsum(lens[:-1], out=starts[1:])
+        joined = np.concatenate([np.frombuffer(p, dtype=np.uint8)
+                                 for p in payloads])
+        dev = torch.from_numpy(joined).to(self.device)
+        return state_to_hex(sha256_spans(dev, starts, lens))
 
     def manifest_stream(self, blocks, name: str, store=None) -> Manifest:
         from dfs_tpu_torch.fragmenter.stream import (manifest_from_stream,

@@ -59,6 +59,10 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         "sha256_blocks.cu", "dfs_sha256_blocks",
         # words, nblocks, out, rows, blocks, stream
         [_P, _P, _P, _I, _I, _P]),
+    "sha256_spans": (
+        "sha256_spans.cu", "dfs_sha256_spans",
+        # data, m, spans (starts, lens, order), out, n_spans, stream
+        [_P, _L, _P, _P, _I, _P]),
 }
 
 # kernel name -> the CUDA functions one wrapper call launches (what a
@@ -70,6 +74,7 @@ DEVICE_FUNCS: dict[str, tuple[str, ...]] = {
     "select_walk": ("select_records_kernel", "select_walk_kernel"),
     "strip_states": ("chunk_chains_kernel",),
     "sha256_blocks": ("sha256_blocks_kernel",),
+    "sha256_spans": ("sha256_spans_kernel",),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -284,6 +284,11 @@ class ByteBudget:
             self._out = max(0, self._out - n)
             self._cv.notify_all()
 
+    @property
+    def outstanding(self) -> int:
+        with self._cv:
+            return self._out
+
 
 class _TrustLedger:
     """Filter-credited replica copies awaiting pre-ack verification, as

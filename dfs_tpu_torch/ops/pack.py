@@ -8,7 +8,10 @@ arithmetically (0x80 at ``pos == len``, zeros after, the big-endian bit
 length in the block the length dictates), packs the bytes big-endian into
 u32 words (plain torch, as dfs_tpu's was XLA) and hashes the batch with
 kernel 6 (``ops.sha256.sha256_blocks``). Only ``starts`` and ``lens`` cross
-from the host per bucket.
+from the host per bucket. :func:`pack_gathered` is that packing alone: with
+``sha256_blocks_plain`` it is kernel 7's plain version
+(``ops.sha256.sha256_spans_plain``). The port's v1 path hashes its spans
+with kernel 7 itself, one launch for every span.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ def digest_gathered(data: torch.Tensor, starts: torch.Tensor,
     batch-padding row, whose output the caller drops); ``l64`` the padded
     row length in bytes, a multiple of 64 with ``l64 >= max(lens) + 9``.
     Returns the [B, 8] u32 digest states."""
+    return sha256_blocks(*pack_gathered(data, starts, lens, l64))
+
+
+def pack_gathered(data: torch.Tensor, starts: torch.Tensor,
+                  lens: torch.Tensor, l64: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gather, padding and packing of :func:`digest_gathered`: ->
+    (words [B, l64 // 64, 16] u32 BE, nblocks [B] i32), kernel 6's
+    inputs."""
     dev = data.device
     i64 = torch.int64
     st = starts.to(i64)[:, None]
@@ -41,9 +53,8 @@ def digest_gathered(data: torch.Tensor, starts: torch.Tensor,
     bitlen = ((ln & u32.M32) * 8) & u32.M32
     widx = torch.arange(l64 // 4, dtype=i64, device=dev)[None, :]
     words = torch.where(widx == nb * 16 - 1, bitlen, w)
-    return sha256_blocks(
-        u32.narrow(words).reshape(words.shape[0], l64 // 64, 16)
-        .contiguous(), nb[:, 0].to(torch.int32))
+    return (u32.narrow(words).reshape(words.shape[0], l64 // 64, 16)
+            .contiguous(), nb[:, 0].to(torch.int32))
 
 
 def make_resident_tile_fn(table: np.ndarray, mask: int, tile: int, device):

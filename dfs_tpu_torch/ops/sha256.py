@@ -1,5 +1,7 @@
-"""SHA-256 in plain PyTorch, vectorised over lanes, and kernel 6: the
-batched SHA-256 of pre-padded messages (dfs_tpu's ``ops/sha256_jax.py``).
+"""SHA-256 in plain PyTorch, vectorised over lanes; kernel 6, the batched
+SHA-256 of pre-padded messages (dfs_tpu's ``ops/sha256_jax.py``); and
+kernel 7, the SHA-256 of byte spans of one resident array (dfs_tpu's
+``ops/pack_jax.py`` ``digest_gathered``).
 
 Values are u32 carried in int64 (see ``utils.u32``). A rotation uses the
 doubled word ``x | x << 32``: its right shift by ``n`` holds ``rotr(x, n)``
@@ -138,10 +140,11 @@ def cut_state_rows(states: torch.Tensor, s: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Counterpart of dfs_tpu/ops/sha256_jax.py, whose _sha256_blocks_impl is XLA
 # (a masked lax.scan over the blocks), not Pallas. CUDA design
-# (csrc/sha256_blocks.cu): one thread per message, the schedule ring and
-# the state in registers; the longest message's chain of compressions
-# bounds it. The plain version steps the blocks in Python, thousands of
-# small launches per block step on a card.
+# (csrc/sha256_blocks.cu on csrc/sha256_chain.cuh): one thread of a
+# consumer warp a message runs the rounds alone, a producer warp on another
+# scheduler loads the next block and computes its schedule; the longest
+# message's chain of compressions bounds it. The plain version steps the
+# blocks in Python, thousands of small launches per block step on a card.
 
 NAME_K6 = "sha256_blocks"
 
@@ -181,6 +184,80 @@ def sha256_blocks(words: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     out = torch.empty((bsz, 8), dtype=torch.uint32, device=words.device)
     kernels.launch(NAME_K6, words.device, words.data_ptr(),
                    nblocks.data_ptr(), out.data_ptr(), bsz, nblk)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: SHA-256 of byte spans of one resident array
+# ---------------------------------------------------------------------------
+# Counterpart of dfs_tpu/ops/pack_jax.py digest_gathered (XLA: a gather, the
+# FIPS padding and the packing per power-of-two length bucket, then the
+# batched scan). CUDA design (csrc/sha256_spans.cu on csrc/sha256_chain.cuh):
+# the gather, the padding and the packing inside the kernel, one launch for
+# every span, the spans taken longest first; the longest span's chain of
+# compressions bounds it. The plain version: ops.pack.pack_gathered, then
+# sha256_blocks_plain.
+
+NAME_K7 = "sha256_spans"
+
+
+def _host_i64(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, dtype=np.int64).reshape(-1)
+
+
+def span_table(starts, lens, m: int) -> np.ndarray:
+    """[3, N] i32: the starts, the lengths and the longest-first order
+    (stable) of N spans of an ``m``-byte array. Raises on a negative
+    length or a span outside the array."""
+    st, ln = _host_i64(starts), _host_i64(lens)
+    if st.shape != ln.shape:
+        raise ValueError(f"{NAME_K7}: {st.shape[0]} starts, "
+                         f"{ln.shape[0]} lengths")
+    if ln.size and int(ln.min()) < 0:
+        raise ValueError(f"{NAME_K7}: negative span length {int(ln.min())}")
+    if st.size and (int(st.min()) < 0 or int((st + ln).max()) > m):
+        raise ValueError(f"{NAME_K7}: a span lies outside the {m}-byte "
+                         "array")
+    if st.size and int((st + ln).max()) >= 2**31:
+        raise ValueError(f"{NAME_K7}: span offsets must fit in int32")
+    order = np.argsort(-ln, kind="stable")
+    return np.stack([st, ln, order]).astype(np.int32)
+
+
+def sha256_spans_plain(data: torch.Tensor, starts, lens) -> torch.Tensor:
+    """(data [M] u8, starts [N], lens [N] >= 0) -> [N, 8] u32: the SHA-256
+    state of each span ``data[start:start + len]`` after its FIPS padding,
+    as dfs_tpu's ``digest_gathered`` computes it for rows with ``lens >=
+    0``."""
+    from dfs_tpu_torch.ops.pack import pack_gathered
+
+    table = span_table(starts, lens, data.shape[0])
+    n = table.shape[1]
+    if n == 0:
+        return torch.zeros((0, 8), dtype=torch.uint32, device=data.device)
+    src = data if data.numel() else data.new_zeros(1)
+    st, ln = (torch.from_numpy(table[i]).to(data.device) for i in (0, 1))
+    l64 = (int(table[1].max()) + 8) // 64 * 64 + 64
+    return sha256_blocks_plain(*pack_gathered(src, st, ln, l64))
+
+
+def sha256_spans(data: torch.Tensor, starts, lens) -> torch.Tensor:
+    """Kernel 7. ``starts``/``lens``: host arrays (or tensors, brought to
+    the host: the wrapper orders the spans longest first there). A CPU
+    ``data`` takes the plain version; a CUDA one launches the kernel, one
+    launch for every span (or raises)."""
+    if data.device.type == "cpu":
+        return sha256_spans_plain(data, starts, lens)
+    kernels.check_cuda(NAME_K7, data, torch.uint8, 1)
+    table = span_table(starts, lens, data.shape[0])
+    n = table.shape[1]
+    out = torch.empty((n, 8), dtype=torch.uint32, device=data.device)
+    if n:
+        spans = torch.from_numpy(table).to(data.device)
+        kernels.launch(NAME_K7, data.device, data.data_ptr(), data.numel(),
+                       spans.data_ptr(), out.data_ptr(), n)
     return out
 
 

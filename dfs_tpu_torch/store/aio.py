@@ -100,6 +100,13 @@ class AsyncChunkStore:
                      if (b := self.store.get(d)) is not None],
             "cas.get_many")
 
+    async def put(self, digest: str, data: bytes,
+                  verify: bool = False) -> bool:
+        """Store one chunk on a write worker; True = newly stored."""
+        return await self._run(
+            self._wpool,
+            lambda: self.store.put(digest, data, verify=verify), "cas.put")
+
     async def put_many(self, items: Sequence[tuple[str, bytes]],
                        verify: bool = False) -> list[bool]:
         """Store a batch in one worker job; per item True = newly stored,

@@ -695,8 +695,53 @@ def test_sha256_blocks_kernel_on_card(dev):
     assert kernels.launch_counts()["sha256_blocks"] == before + 2
 
 
+def test_sha256_spans_kernel_on_card(dev):
+    """Kernel 7 against its plain version and hashlib: every start offset
+    mod 16 at the padding boundaries, a 1,025-block span, spans ending at
+    the array's last byte, an array whose own start is not 16-byte aligned
+    (a view), and N = 0; one launch a call (none for N = 0). Kernel 6's
+    outputs on the same spans, packed, are unchanged."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops import sha256 as S
+    from dfs_tpu_torch.ops.pack import pack_gathered
+
+    lens = [0, 1, 55, 56, 63, 64, 119, 120]
+    data = corpus(70_000, seed=7)
+    starts = [1024 * off + 128 * k + off for off in range(16)
+              for k in range(len(lens))]
+    lens = lens * 16
+    m = data.shape[0]
+    starts += [13, m - 77, m - 1, m - 64, m]
+    lens += [1025 * 64 - 9, 77, 1, 64, 0]
+    whole = torch.from_numpy(data).to(dev)
+    for arr, shift in ((whole, 0), (whole[3:], 3)):
+        st = [max(0, s - shift) for s in starts]
+        ln = [min(n, arr.shape[0] - s) for s, n in zip(st, lens)]
+        before = kernels.launch_counts()
+        got = S.sha256_spans(arr, st, ln)
+        assert kernels.launch_counts()["sha256_spans"] == \
+            before["sha256_spans"] + 1
+        torch.cuda.synchronize()
+        want = [hashlib.sha256(data[shift + s:shift + s + n].tobytes())
+                .hexdigest() for s, n in zip(st, ln)]
+        assert S.state_to_hex(got) == want
+        short = [i for i, n in enumerate(ln) if n < 200]
+        _same(S.sha256_spans(arr, [st[i] for i in short],
+                             [ln[i] for i in short]),
+              S.sha256_spans_plain(arr, [st[i] for i in short],
+                                   [ln[i] for i in short]))
+        w, nb = pack_gathered(arr, torch.tensor(st[:40], device=dev),
+                              torch.tensor(ln[:40], device=dev), 192)
+        _same(S.sha256_blocks(w, nb), got[:40])
+    n0 = kernels.launch_counts()["sha256_spans"]
+    assert S.sha256_spans(whole, [], []).shape == (0, 8)
+    assert kernels.launch_counts()["sha256_spans"] == n0
+    with pytest.raises(ValueError):
+        S.sha256_spans(whole, [0], [-1])
+
+
 def test_aligned_v1_and_rolling_paths_on_card(dev):
-    """The aligned pipeline (kernels 3 and 1), the v1 engine (kernel 6)
+    """The aligned pipeline (kernels 3 and 1), the v1 engine (kernel 7)
     and the rolling walk over 4 slots of the card against the NumPy
     oracles."""
     import warnings
@@ -734,4 +779,4 @@ def test_aligned_v1_and_rolling_paths_on_card(dev):
         devices=4, region_bytes=1 << 16), device=[dev] * 4)
     m = rolling.manifest_stream(iter([body[:100_000], body[100_000:]]), "r")
     assert [(c.offset, c.length, c.digest) for c in m.chunks] == want
-    assert kernels.launch_counts()["sha256_blocks"] > 0
+    assert kernels.launch_counts()["sha256_spans"] > 0

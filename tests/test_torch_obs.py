@@ -449,4 +449,5 @@ def test_kernels_within_counts_kernels_inside_the_range(tmp_path):
                                     kernels.DEVICE_FUNCS)
     assert got == {"strip_chunk_states": 0, "repack_lanes": 1,
                    "bswap_transpose": 0, "select_walk": 1,
-                   "strip_states": 0, "sha256_blocks": 0}
+                   "strip_states": 0, "sha256_blocks": 0,
+                   "sha256_spans": 0}

@@ -2,7 +2,9 @@
 CPU: kernel 6's plain version (batched SHA-256) against hashlib and
 ``_sha256_blocks_impl``, ``pad_messages``, the Gear bitmap of
 ``ops/gear.py`` against ``ops/gear_jax.py`` and the sequential hash,
-``digest_gathered`` against ``ops/pack_jax.py``, and the fragmenter
+``digest_gathered`` against ``ops/pack_jax.py``, kernel 7's plain version
+(``sha256_spans_plain``: spans of a resident array) against dfs_tpu's
+``digest_gathered`` + ``sha256_blocks`` and hashlib, and the fragmenter
 against ``TpuCdcFragmenter``. Every comparison is exact."""
 
 import hashlib
@@ -20,6 +22,7 @@ from dfs_tpu.ops import gear_jax as ref_gear
 from dfs_tpu.ops import pack_jax as ref_pack
 from dfs_tpu.ops import sha256_jax as ref_sha
 
+from dfs_tpu_torch import resolve_device
 from dfs_tpu_torch.config import CDCParams
 from dfs_tpu_torch.fragmenter.base import get_fragmenter
 from dfs_tpu_torch.fragmenter.cdc_cpu import CpuCdcFragmenter
@@ -126,6 +129,73 @@ def test_digest_gathered_equals_dfs_tpu(rng):
         for s, ln in spans]
 
 
+SPAN_LENS = [0, 1, 55, 56, 63, 64, 119, 120]
+
+
+def _ref_spans(data: np.ndarray, starts, lens) -> np.ndarray:
+    """dfs_tpu's digest_gathered (its packing and sha256_blocks) at the
+    padded row length of the longest span."""
+    l64 = (max(lens) + 8) // 64 * 64 + 64
+    return np.asarray(ref_pack.digest_gathered(
+        jnp.asarray(data), jnp.asarray(np.asarray(starts, np.int32)),
+        jnp.asarray(np.asarray(lens, np.int32)), l64=l64))
+
+
+def _hashlib_states(data: np.ndarray, starts, lens) -> list[str]:
+    return [hashlib.sha256(data[s:s + ln].tobytes()).hexdigest()
+            for s, ln in zip(starts, lens)]
+
+
+def test_sha256_spans_plain_every_offset_equals_dfs_tpu(rng):
+    """Kernel 7's plain version at every start offset mod 16 and the
+    length boundaries of one and two padding blocks, a span ending at the
+    array's last byte, N = 1 and N = 0; input order kept whatever the
+    lengths' order."""
+    data = rng.integers(0, 256, size=16 * 1024 + 13, dtype=np.uint8)
+    starts = [1024 * off + 128 * k + off for off in range(16)
+              for k in range(len(SPAN_LENS))]
+    lens = SPAN_LENS * 16
+    starts.append(data.shape[0] - 77)       # ends at the last byte
+    lens.append(77)
+    got = _np(S.sha256_spans(torch.from_numpy(data), starts, lens))
+    assert np.array_equal(got, _ref_spans(data, starts, lens))
+    assert S.state_to_hex(got) == _hashlib_states(data, starts, lens)
+    assert sorted({s % 16 for s in starts[:-1]}) == list(range(16))
+    one = _np(S.sha256_spans_plain(torch.from_numpy(data), [5], [120]))
+    assert S.state_to_hex(one) == _hashlib_states(data, [5], [120])
+    none = S.sha256_spans_plain(torch.from_numpy(data), [], [])
+    assert none.shape == (0, 8) and none.dtype == torch.uint32
+
+
+def test_sha256_spans_plain_1025_blocks_equals_dfs_tpu(rng):
+    """The longest chunk of the default parameters: 64 KiB of data, 1,025
+    blocks once padded, at an odd offset, beside a short span."""
+    data = rng.integers(0, 256, size=65_600 + 64, dtype=np.uint8)
+    starts, lens = [13, 7], [1025 * 64 - 9, 3]
+    assert (lens[0] + 8) // 64 + 1 == 1025
+    got = _np(S.sha256_spans_plain(torch.from_numpy(data), starts, lens))
+    assert np.array_equal(got, _ref_spans(data, starts, lens))
+    assert S.state_to_hex(got) == _hashlib_states(data, starts, lens)
+
+
+def test_span_table_orders_longest_first_and_rejects_bad_spans():
+    table = S.span_table([0, 10, 20, 30, 40], [3, 9, 0, 9, 120], 200)
+    assert table.dtype == np.int32 and table.shape == (3, 5)
+    assert table[0].tolist() == [0, 10, 20, 30, 40]
+    assert table[1].tolist() == [3, 9, 0, 9, 120]
+    assert table[2].tolist() == [4, 1, 3, 0, 2]    # stable among equals
+    data = torch.zeros(200, dtype=torch.uint8)
+    for starts, lens in (([0, 5], [4, -1]), ([-1], [3]), ([190], [11])):
+        with pytest.raises(ValueError):
+            S.sha256_spans(data, starts, lens)
+        with pytest.raises(ValueError):
+            S.sha256_spans_plain(data, starts, lens)
+    with pytest.raises(ValueError):
+        S.span_table([0, 1], [1], 10)
+    with pytest.raises(ValueError, match="int32"):       # offsets are i32
+        S.span_table([2**31 - 2], [5], 2**32)
+
+
 def _port() -> CudaCdcFragmenter:
     return CudaCdcFragmenter(CDCParams(**SIZES), tile_size=TILE,
                              device="cpu")
@@ -156,8 +226,9 @@ def test_fragmenter_equals_tpu_cdc_fragmenter(rng):
 
 
 def test_digest_many_buckets_match_hashlib(rng):
-    """Payloads spread over several power-of-two block buckets, more rows
-    than one call takes in the smallest bucket."""
+    """One flush of payloads of many lengths (the empty one, the padding
+    boundaries, several blocks), more of them than ``hash_batch``: joined
+    into one buffer and hashed in one kernel 7 call, in input order."""
     port = CudaCdcFragmenter(CDCParams(**SIZES), tile_size=TILE,
                              hash_batch=16, device="cpu")
     lens = [0, 1, 55, 56, 64, 700] + [int(n) for n in
@@ -191,3 +262,10 @@ def test_device_paths_raise_without_cuda():
         CudaCdcFragmenter()
     with pytest.raises(RuntimeError, match="CUDA"):
         S.sha256_batch_hex([b"x"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        S.sha256_spans(torch.zeros(8, dtype=torch.uint8,
+                                   device=resolve_device(None)), [0], [1])
+    # a tensor off the CPU never reaches the plain version
+    with pytest.raises(ValueError, match="CUDA"):
+        S.sha256_spans(torch.zeros(8, dtype=torch.uint8, device="meta"),
+                       [0], [1])
