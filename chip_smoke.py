@@ -21,7 +21,7 @@ drives the paths end to end and checks each against the NumPy oracle:
   0 B, two concurrent 32 MiB uploads to node 1 (both oracle-equal), and a
   download after one owner is SIGKILLed (kernels 1-4, counted by node 1's
   ``/metrics``: its launches move across the streamed upload); and
-  erasure coding as users run it: a 64 MiB body uploaded whole with
+  erasure coding as users run it: a 32 MiB body uploaded whole with
   ``?ec=3`` to node 1 before the kill (chunked on the card, kernels 1-4,
   P+Q encoded on the card), its table, its parity digests and every
   shard's holder checked, and read back from node 1 after nodes 3 and 4
@@ -36,12 +36,12 @@ drives the paths end to end and checks each against the NumPy oracle:
   the card against the NumPy decode in each erasure case; the sharded EC
   step on 4 slots of the first card;
 - ``sim_sketch``: the similarity plane's min-hash sketcher on the card over
-  every chunk of that 64 MiB file (default SimConfig: 16 lanes, 8-byte
+  every chunk of that 32 MiB file (default SimConfig: 16 lanes, 8-byte
   shingles, 64 KiB window) against the NumPy oracle, timed by one event
   pair per call beside its bound, and the sharded sketch step on 4 slots
   of the first card;
 - ``cluster_sim``: 5 ``serve --sim`` processes (rf 2, write quorum 2,
-  fsync on) on fresh ports and a fresh root: that 64 MiB file streamed to
+  fsync on) on fresh ports and a fresh root: that 32 MiB file streamed to
   node 1, then generation 2 (one 4-byte overwrite every 64 KiB); both
   tables against the oracle, both read back from node 3 and generation 2
   from node 5 after SIGKILL of node 3; after the nodes stop, every chunk
@@ -66,12 +66,12 @@ drives the paths end to end and checks each against the NumPy oracle:
 - ``cluster_index_tier``: the dedup/index plane and tiering as users run
   them: 5 ``serve --index --tier --tier-ec-k 3 --tier-min-idle 0
   --tier-half-life 86400 --tier-hot-fraction 0.5`` processes (rf 2, write
-  quorum 2, fsync on; the index at its defaults). (a) The 64 MiB EC body
+  quorum 2, fsync on; the index at its defaults). (a) The 32 MiB EC body
   A streamed to node 1 (table against the oracle, kernels 1-4 in node 1);
   (b) once every node holds its peers' filters at their own versions, A
   again to node 2: 0 B moved, probe RPCs skipped, filter-trusted copies
   verified before the ack (node 2's ``has_chunks`` calls printed); (c) a
-  fresh 64 MiB body C to node 2 (table against the oracle; its
+  fresh 32 MiB body C to node 2 (table against the oracle; its
   ``probesSkipped`` grows by every peer placement); (d) C read twice from
   node 3, then ``POST /tier`` on node 1 demotes A alone (cold k=3
   manifest, P+Q encoded on ``cuda:0``, the stored bytes over the 5 data
@@ -87,7 +87,7 @@ drives the paths end to end and checks each against the NumPy oracle:
   first (as ``bench_chaos.py`` runs its slow_peer scenario first: the
   doctor reads 60 s windows of RPC means, which the other steps' bulk
   transfers would fill). (a) The
-  64 MiB EC body streamed to node 1 with ``X-Dfs-Trace`` (table against
+  32 MiB EC body streamed to node 1 with ``X-Dfs-Trace`` (table against
   the oracle, kernels 1-4 in node 1), ``GET /trace`` on node 3 stitching
   spans of at least 2 nodes with ``http./upload``, ``upload.fragment``,
   ``rpc.store_chunks`` and ``peer.store_chunks``, every parent present but
@@ -109,7 +109,7 @@ drives the paths end to end and checks each against the NumPy oracle:
   than 2 nodes. After (b), (c) and (e) the census at node 1 is clean
   (under- and over-replicated 0, every peer answering; no orphan after (b)
   and (c)), repair rounds on every node until it is; (f) in this process, one
-  ``AnchoredCudaFragmenter.chunk`` of the 64 MiB body inside
+  ``AnchoredCudaFragmenter.chunk`` of the 32 MiB EC body inside
   ``device_trace`` and an ``upload.fragment`` span: the exported trace
   holds kernels 1-4's launches inside that range (path ``device_trace``);
 - ``cluster_ring``: the elastic ring as users run it (dfs_tpu's
@@ -159,7 +159,7 @@ drives the paths end to end and checks each against the NumPy oracle:
   ``dfs.Sidecar`` gRPC contract, served by the port's own HTTP/2 stack).
   (a) A ``SidecarServer(fragmenter="auto")`` in this process on
   ``cuda:0``: Health, ChunkHash, ChunkHashStream and ChunkHashDuplex
-  through the port's ``SidecarClient`` on the 64 MiB EC body, the 128 MiB
+  through the port's ``SidecarClient`` on the 32 MiB EC body, the 128 MiB
   body streamed through ChunkHashStream by the port's C++ client
   (``native/sidecar_client.cpp``, POSIX sockets only; its host seconds and
   GiB/s beside ``e2e``'s in-process fragment GiB/s), Health, ChunkHash and
@@ -199,6 +199,17 @@ drives the paths end to end and checks each against the NumPy oracle:
   states (kernel 6) == the NumPy bitmap and hashlib;
 - ``anchored_host``: the body through the host ``cdc-anchored`` engine
   (``native/cdc_core.cpp``), whole and streamed, == the oracle;
+- ``large_chunks``: restic's chunker sizes (512 KiB / 1 MiB / 8 MiB: 8
+  MiB lanes of 131,072 blocks, the wide layout of kernels 1 and 5) on a
+  seeded 64 MiB body: the ``auto`` anchored walk (kernels 1-4),
+  ``cdc-aligned-cuda`` (kernels 3 and 1) and the sharded aligned step on
+  4 slots of the first card (kernels 3 and 5), each table ==
+  ``chunk_file_anchored_np`` or ``chunk_file_np``, kernels 1 and 5 timed
+  on the walk's region beside their chain floor; one anchored region at
+  32 MiB lanes (2^19 blocks) == the oracle; kernels 1 and 5 with the wide
+  layout forced at small geometries == the narrow layout and the plain
+  versions; kernel 7 on one span of 2^31 - 1 bytes == hashlib, timed; and
+  ``digest_many`` on a 2.3 GiB flush (two kernel 7 calls) == hashlib;
 - ``kernel:sha256_blocks``: kernel 6 at 16 rows x 64 blocks against its
   plain version (exact; also rows of 0, -1, 17 and 99 blocks), timed
   alone, with the 128 x 256 shape beside it;
@@ -267,7 +278,11 @@ SEED = 20261016
 # walk: 128 MiB (three 64 MiB windows at the 48 MiB stride), cut from 256
 # MiB so the run stays well inside its time limit
 BODY_BYTES = 128 * 1024 * 1024
-EC_BYTES = 64 * 1024 * 1024
+# the EC body of ec_codec, sim_sketch, cluster's EC upload, cluster_sim,
+# cluster_index_tier, cluster_chaos, cluster_sidecar and device_trace: 32
+# MiB, cut from 64 MiB to make room for the large_chunks phase in the
+# time limit
+EC_BYTES = 32 * 1024 * 1024
 EC_K = 3
 BLOCK_BYTES = 1024 * 1024
 REGION_BYTES = 64 * 1024 * 1024
@@ -288,7 +303,7 @@ SERVE_CURVE = (2, 8, 16, 32)
 # cluster_index_tier: dfs_tpu's reference deployment with both planes on —
 # the index at its defaults; tiering at k = 3 (5 nodes fit k + 2) with
 # bench_tiering.py's idle floor and half-life, and a hot fraction that
-# keeps one of two 64 MiB files replicated
+# keeps one of two EC-body-sized files replicated
 TIER_FLAGS = ("--index", "--tier", "--tier-ec-k", "3", "--tier-min-idle",
               "0", "--tier-half-life", "86400", "--tier-hot-fraction",
               "0.5")
@@ -334,6 +349,16 @@ SIDECAR_PHASE_BOUND_S = 90.0
 # to 128 lanes on the card)
 ALIGNED_NODE_BYTES = 8 * 1024 * 1024
 SIDECAR_CLI_BYTES = 2 * 1024 * 1024
+# large_chunks: restic's chunker sizes (github.com/restic/chunker:
+# MinSize 512 KiB, MaxSize 8 MiB, a 1 MiB average) on a 64 MiB body; the
+# largest lane dfs_tpu's default 64 MiB region allows (32 MiB, 2^19
+# blocks) at 4 / 8 / 32 MiB chunks; kernel 7 on one span of 2^31 - 1
+# bytes; digest_many on a flush of 300 payloads of about 8 MiB (2.3 GiB)
+LARGE_BYTES = 64 * 1024 * 1024
+RESTIC_SIZES = (512 * 1024, 1024 * 1024, 8 * 1024 * 1024)
+LANE32_SIZES = (4 * 1024 * 1024, 8 * 1024 * 1024, 32 * 1024 * 1024)
+K7_LONG_SPAN = 2**31 - 1
+DIGEST_FLUSH_PAYLOADS = 300
 # the tracing-off twin of the cluster phase's upload
 OBS_OFF_FLAGS = ("--trace-ring", "0", "--journal-bytes", "0",
                  "--sentinel-interval", "0")
@@ -3383,6 +3408,291 @@ def k7_row(kernel_row, kernels, body: bytes, cdc_oracle: list, np,
                wrapper_ms_single=wrapper_ms_single)
 
 
+def scan_inputs(words, params, n: int):
+    """Kernel 1's inputs for the region in ``words`` (``n`` bytes, final,
+    from 0) at ``params``, made as the chain makes them: the anchor
+    tiles, K4's walk, the descriptors, K2 and K3. Returns (words_t,
+    real_blocks)."""
+    import torch
+
+    from dfs_tpu_torch.ops import cdc_anchored as A
+    from dfs_tpu_torch.ops.layout import bswap_transpose
+    from dfs_tpu_torch.ops.repack import repack_lanes
+    from dfs_tpu_torch.ops.select import select_walk
+
+    shape = A.make_chain_fn(params, words.shape[0], 128, "tight").shape
+    tiles = A.anchor_tiles(words, params, shape["m_words"])
+    scal = torch.tensor([0, n, 1], dtype=torch.int32, device=words.device)
+    bounds = select_walk(tiles, scal, shape["cap"], params.seg_min,
+                         params.seg_max)
+    (_, _, w_off, sh8, real_blocks, _, _, _) = A.descriptors(
+        bounds, scal[0], shape["s_pad"])
+    words_t = bswap_transpose(repack_lanes(
+        words, w_off, sh8, params.chunk.strip_blocks * 16))
+    return words_t, real_blocks
+
+
+def large_chunks_phase(root: Path, np, kernels, dev) -> dict:
+    """The ``large_chunks`` phase: restic's chunker sizes (512 KiB / 1 MiB
+    / 8 MiB; 8 MiB lanes, 131,072 blocks) on a seeded 64 MiB body. (a) The
+    ``auto`` anchored walk (K1-K4), (b) ``cdc-aligned-cuda`` (K3 + K1) and
+    (c) the sharded aligned step on 4 slots of the card (K5), each table
+    == the port's oracle (``chunk_file_anchored_np``, ``chunk_file_np``).
+    (d) One anchored region at 32 MiB lanes (2^19 blocks; 4 / 8 / 32 MiB
+    chunks) == the oracle. (e) K1 and K5 with the wide layout forced at
+    small geometries (selection CTAs of 1, 3 and 8 lanes; chain CTAs of
+    one lane and of several) == the narrow layout and the plain versions.
+    (f) K7 on one span of 2^31 - 1 bytes (made on the card) == hashlib,
+    timed, on a stream of its own beside the oracles, (e) and (g). (g)
+    ``digest_many`` on a flush of 2.3 GiB of 8 MiB payloads (two K7
+    calls) == hashlib. Then, with the card to themselves, K1 and K5 timed
+    on (a)'s region beside their chain floor. Returns the launch counts
+    of (a)-(d)."""
+    import torch
+
+    from dfs_tpu_torch.config import CDCParams
+    from dfs_tpu_torch.fragmenter.base import (_aligned_params,
+                                               _anchored_params,
+                                               get_fragmenter)
+    from dfs_tpu_torch.fragmenter.cdc_cuda import CudaCdcFragmenter
+    from dfs_tpu_torch.ops import cdc_anchored as A
+    from dfs_tpu_torch.ops import cdc_pipeline as P
+    from dfs_tpu_torch.ops import sha256 as H
+    from dfs_tpu_torch.ops.cdc_v2 import (AlignedCdcParams, BLOCK,
+                                          chunk_file_np, cut_capacity)
+    from dfs_tpu_torch.ops.sha256_strip import (list_capacity, plan_strip,
+                                                strip_chunk_states,
+                                                strip_chunk_states_plain,
+                                                strip_states,
+                                                strip_states_plain,
+                                                zero_dead_states)
+    from dfs_tpu_torch.parallel import sharded_cdc as S
+    from dfs_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    restic, lane32 = CDCParams(*RESTIC_SIZES), CDCParams(*LANE32_SIZES)
+    rec: dict = {"sizing": dict(zip(("min", "avg", "max"), RESTIC_SIZES))}
+    launches = {}
+    rng = np.random.default_rng(SEED + 4)
+    body_np = rng.integers(0, 256, size=LARGE_BYTES, dtype=np.uint8)
+    body = body_np.tobytes()
+    anchored = _anchored_params(restic)
+    aligned = _aligned_params(restic)
+    bps = aligned.strip_blocks
+    check(anchored.chunk == aligned and bps * BLOCK == RESTIC_SIZES[2],
+          "restic sizing: 8 MiB lanes")
+    k14 = ("strip_chunk_states", "repack_lanes", "bswap_transpose",
+           "select_walk")
+
+    # (f) kernel 7 on one span of 2^31 - 1 bytes, on a stream of its own:
+    # its ~34 s chain holds one SM; the oracles, (e) and (g) run beside it
+    n7 = K7_LONG_SPAN
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    data7 = torch.randint(0, 256, (n7,), dtype=torch.uint8, device=dev,
+                          generator=gen)
+    s7 = torch.cuda.Stream(dev)
+    s7.wait_stream(torch.cuda.current_stream(dev))
+    start7 = torch.cuda.Event(enable_timing=True)
+    end7 = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(s7):
+        start7.record()
+        out7 = H.sha256_spans(data7, [0], [n7])
+        end7.record()
+
+    # the oracles, on the host while K7 runs
+    t0 = time.perf_counter()
+    oracle = A.chunk_file_anchored_np(body_np, anchored)
+    rec["anchored_oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    aligned_oracle = chunk_file_np(body_np, aligned)
+    rec["aligned_oracle_s"] = time.perf_counter() - t0
+    params32 = _anchored_params(lane32)
+    check(params32.seg_max == LANE32_SIZES[2], "32 MiB lanes")
+    t0 = time.perf_counter()
+    oracle32 = A.chunk_file_anchored_np(body_np, params32)
+    rec["lane32_oracle_s"] = time.perf_counter() - t0
+
+    # (e) the wide layout forced at a small geometry
+    checked = []
+    # 45 lanes: one lane a chain CTA; 300 (more than the SMs): several
+    for min_b, avg_b, max_b, sbps, sel, s in ((1, 2, 8, 256, 1, 45),
+                                              (8, 16, 64, 256, 3, 300),
+                                              (4, 8, 32, 96, 8, 300)):
+        cp = AlignedCdcParams(min_blocks=min_b, avg_blocks=avg_b,
+                              max_blocks=max_b, strip_blocks=sbps)
+        r = np.random.default_rng(sbps + sel)
+        wt = torch.from_numpy(r.integers(0, 2**32, size=(sbps * 16, s),
+                                         dtype=np.uint32).view(np.int32)
+                              ).view(torch.uint32).to(dev)
+        rb = r.integers(0, sbps + 1, size=s).astype(np.int32)
+        rb[:3] = (sbps, 1, 0)
+        a = (wt, torch.from_numpy(rb).to(dev), cp.seed, cp.mask, min_b,
+             max_b)
+        nar = strip_chunk_states(*a, layout="narrow")
+        wid = strip_chunk_states(*a, layout="wide", select_lanes=sel)
+        pl = strip_chunk_states_plain(*a)
+        err = max(max(max_abs_err(x, y) for x, y in zip(nar, wid)),
+                  max_abs_err(wid[0], pl[0]), max_abs_err(wid[1], pl[1]),
+                  max_abs_err(wid[2], zero_dead_states(pl[2], pl[0])))
+        flags = torch.from_numpy((r.random((sbps, s)) < 0.2).astype(
+            np.int32)).to(dev)
+        k5 = strip_states(wt, flags, layout="wide")
+        err = max(err, max_abs_err(k5, strip_states(wt, flags,
+                                                    layout="narrow")),
+                  max_abs_err(k5, zero_dead_states(
+                      strip_states_plain(wt, flags), flags)))
+        check(err == 0, f"wide layout at bps {sbps}, {sel} selection "
+              f"lanes: max abs err {err}")
+        checked.append({"bps": sbps, "lanes": s, "min_blocks": min_b,
+                        "select_lanes": sel, "max_abs_err": err})
+    rec["wide_forced"] = checked
+
+    # (g) digest_many on a flush past 2^31 bytes: two kernel 7 calls
+    big, step_off = RESTIC_SIZES[2], (LARGE_BYTES - RESTIC_SIZES[2]) // 16
+    pool = [body[i * step_off:i * step_off + big - 4096 * i]
+            for i in range(17)]
+    payloads = [pool[i % len(pool)] for i in range(DIGEST_FLUSH_PAYLOADS)]
+    total = sum(len(x) for x in payloads)
+    check(total > 2**31, "the flush holds more than 2^31 bytes")
+    v1 = CudaCdcFragmenter(restic, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    digests = v1.digest_many(payloads)
+    flush_s = time.perf_counter() - t0
+    parts = kernels.launch_counts()["sha256_spans"]
+    want = [hashlib.sha256(x).hexdigest() for x in pool]
+    check(digests == [want[i % len(pool)] for i in range(len(payloads))],
+          "digest_many on a 2^31-byte flush != hashlib")
+    check(parts == -(-total // v1.split_bytes),
+          f"digest_many: {parts} kernel 7 calls for {total} bytes")
+    rec["digest_flush"] = {"payloads": len(payloads), "bytes": total,
+                           "k7_calls": parts, "seconds": flush_s,
+                           "hashlib_equal": True}
+    del payloads, pool, digests
+
+    # (f), its result, before (a)-(d): the walks stage through pinned
+    # host buffers, whose allocation waits for the whole card
+    end7.synchronize()
+    k7_ms = start7.elapsed_time(end7)
+    host = data7.cpu().numpy()
+    del data7
+    check(H.state_to_hex(out7)[0] == hashlib.sha256(host).hexdigest(),
+          f"sha256_spans on a {n7}-byte span != hashlib")
+    del host
+    blocks7 = (n7 + 8) // 64 + 1
+    rec["k7_long_span"] = {
+        "bytes": n7, "blocks": blocks7, "ms": k7_ms,
+        "chain_floor_ms": blocks7 * CHAIN_CYCLES_PER_COMPRESSION
+        / BOOST_HZ * 1e3,
+        "cycles_per_compression": k7_ms * 1e-3 * BOOST_HZ / blocks7,
+        "hashlib_equal": True}
+
+    # (a) the auto anchored walk
+    frag = get_fragmenter("auto", cdc_params=restic, device=dev)
+    check(frag.params == anchored, "auto: restic's anchored parameters")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = _triples(frag.chunk(body))
+    rec["anchored_chunk_s"] = time.perf_counter() - t0
+    launches["large_chunks:anchored"] = path_launches(
+        kernels, "large_chunks:anchored", k14)
+    check(got == oracle, "restic anchored walk != chunk_file_anchored_np")
+    rec["anchored_chunks"] = len(oracle)
+    rec["longest_chunk_bytes"] = max(ln for _, ln, _ in oracle)
+
+    # (b) cdc-aligned-cuda
+    frag = get_fragmenter("cdc-aligned-cuda", cdc_params=restic, device=dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = _triples(frag.chunk(body))
+    rec["aligned_chunk_s"] = time.perf_counter() - t0
+    launches["large_chunks:aligned"] = path_launches(
+        kernels, "large_chunks:aligned",
+        ("bswap_transpose", "strip_chunk_states"))
+    check(got == aligned_oracle, "restic cdc-aligned-cuda != chunk_file_np")
+    rec["aligned_chunks"] = len(aligned_oracle)
+
+    # (c) the sharded aligned step, 8 strips over 4 slots of the card
+    n_strips = LARGE_BYTES // aligned.strip_len
+    mesh = make_mesh(4, device=[dev] * 4)
+    step = S.make_aligned_step(mesh, aligned)
+    words_le = body_np.view("<u4").reshape(n_strips, bps * 16)
+    rbs = np.full((n_strips,), bps, np.int32)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    cf, states, n_chunks = step(*S.shard_aligned_inputs(mesh, words_le, rbs))
+    torch.cuda.current_stream(dev).synchronize()
+    rec["sharded_step_s"] = time.perf_counter() - t0
+    launches["large_chunks:sharded_step"] = path_launches(
+        kernels, "large_chunks:sharded_step",
+        ("bswap_transpose", "strip_states"))
+    count, q, dig = P.compact_half(
+        cf.to(dev), states.to(dev), bps=bps,
+        c_max=cut_capacity(n_strips, aligned), t_tile=128,
+        k_max=128 // aligned.min_blocks + 2)
+    count = int(count)
+    check(count == int(n_chunks), "sharded step: count != its cuts")
+    ends = (q[:count].cpu().numpy().astype(np.int64) + 1) * BLOCK
+    offs = np.concatenate([[0], ends[:-1]])
+    got = [(int(o), int(e - o), h) for o, e, h in zip(
+        offs, ends, H.state_to_hex(dig[:count]))]
+    check(got == aligned_oracle, "restic sharded aligned step != "
+          "chunk_file_np")
+    del cf, states, dig, q, step, mesh
+
+    # (d) one anchored region at 32 MiB lanes
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got, consumed = A.region_chunks(body_np, np.zeros(8, np.uint8), 0, True,
+                                    params32, device=dev)
+    rec["lane32_region_s"] = time.perf_counter() - t0
+    launches["large_chunks:lane32"] = path_launches(
+        kernels, "large_chunks:lane32", k14)
+    check(got == oracle32 and consumed == LARGE_BYTES,
+          "32 MiB-lane region != chunk_file_anchored_np")
+    rec["lane32"] = {"sizing": dict(zip(("min", "avg", "max"),
+                                        LANE32_SIZES)),
+                     "chunks": len(oracle32), "longest_chunk_bytes":
+                     max(ln for _, ln, _ in oracle32)}
+
+    torch.cuda.synchronize()
+
+    # K1 and K5 on the walk's first region, timed beside the chain floor
+    words = A.words_tensor(A.region_buffer(body_np, np.zeros(8, np.uint8),
+                                           anchored)).to(dev)
+    words_t, real_blocks = scan_inputs(words, anchored, LARGE_BYTES)
+    args = (words_t, real_blocks, aligned.seed, aligned.mask,
+            aligned.min_blocks, aligned.max_blocks)
+    cf, since, states = strip_chunk_states(*args)
+    check(max_abs_err(strip_states(words_t, cf), states) == 0,
+          "restic lanes: strip_states != strip_chunk_states' states")
+    longest = int(since.max())
+    floor_ms = longest * CHAIN_CYCLES_PER_COMPRESSION / BOOST_HZ * 1e3
+    rec["strip"] = {
+        "lanes": int(words_t.shape[1]), "bps": bps,
+        "plan_k1": str(plan_strip("k1", bps, list_capacity(
+            bps, aligned.min_blocks, aligned.max_blocks), True)),
+        "plan_k5": str(plan_strip("k5", bps, bps)),
+        "live_blocks": int(real_blocks.sum()),
+        "longest_chunk_blocks": longest, "chain_floor_ms": floor_ms,
+        "k1_ms": single_ms(lambda: strip_chunk_states(*args), reps=3,
+                           warmup=1),
+        "k5_ms": single_ms(lambda: strip_states(words_t, cf), reps=3,
+                           warmup=1)}
+    for k in ("k1", "k5"):
+        rec["strip"][f"{k}_cycles_per_compression"] = \
+            rec["strip"][f"{k}_ms"] * 1e-3 * BOOST_HZ / longest
+    del words, words_t, cf, since, states, args
+
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "large_chunks", "bytes": LARGE_BYTES, **rec,
+          "launches": launches, "oracle_equal": True})
+    return {**launches, "large_chunks:strip": rec["strip"],
+            "large_chunks:k7": rec["k7_long_span"]}
+
+
 def region_inputs(rng, dev, np) -> types.SimpleNamespace:
     """One 64 MiB region (``rng``'s first draw) at the default parameters,
     through the port's own plain anchor pass: the words, the chain's shape,
@@ -3413,10 +3723,6 @@ def strip_refs(out_path: str) -> int:
     import numpy as np
     import torch
 
-    from dfs_tpu_torch.ops import cdc_anchored as A
-    from dfs_tpu_torch.ops.layout import bswap_transpose
-    from dfs_tpu_torch.ops.repack import repack_lanes
-    from dfs_tpu_torch.ops.select import select_walk
     from dfs_tpu_torch.ops.sha256_strip import (strip_chunk_states,
                                                 strip_chunk_states_plain,
                                                 strip_states,
@@ -3425,12 +3731,8 @@ def strip_refs(out_path: str) -> int:
 
     dev = torch.device("cuda", 0)
     r = region_inputs(np.random.default_rng(SEED), dev, np)
-    p, cp = r.params, r.params.chunk
-    b_k = select_walk(r.tiles, r.scal, r.shape["cap"], p.seg_min, p.seg_max)
-    (_, _, w_off, sh8, real_blocks, _, _, _) = A.descriptors(
-        b_k, r.scal[0], r.shape["s_pad"])
-    t_k = bswap_transpose(repack_lanes(r.words, w_off, sh8,
-                                       cp.strip_blocks * 16))
+    cp = r.params.chunk
+    t_k, real_blocks = scan_inputs(r.words, r.params, REGION_BYTES)
     args = (t_k, real_blocks, cp.seed, cp.mask, cp.min_blocks, cp.max_blocks)
     out_k = strip_chunk_states(*args)
     s_k = strip_states(t_k, out_k[0])
@@ -3461,7 +3763,7 @@ def strip_refs(out_path: str) -> int:
 
 def device_trace_phase(body: bytes, table: list, kernels) -> dict:
     """Step (f) of ``cluster_chaos``: one ``AnchoredCudaFragmenter.chunk``
-    of the 64 MiB body inside ``device_trace`` and an ``upload.fragment``
+    of the EC body inside ``device_trace`` and an ``upload.fragment``
     span in this process; the exported trace must hold the launches of
     K1-K4 inside that range. Returns the path's launch counts."""
     import torch
@@ -3793,6 +4095,11 @@ def main() -> int:
     timed_phase("anchored_host", anchored_host_phase, body, blocks, oracle,
                 params)
     del body_np, cdc_oracle
+    large = timed_phase("large_chunks", large_chunks_phase, root, np,
+                        kernels, dev)
+    large_strip = large.pop("large_chunks:strip")
+    large_k7 = large.pop("large_chunks:k7")
+    launches.update(large)
 
     ec_parity = timed_phase("ec_codec", ec_codec_phase, ec_body, ec_table,
                             dev, np)
@@ -3904,6 +4211,15 @@ def main() -> int:
     emit({"phase": "timing", "seconds": phase_s,
           "total_s": time.perf_counter() - t_run})
     for row in rows:
+        if row["name"] in ("strip_chunk_states", "strip_states"):
+            k = "k1" if row["name"] == "strip_chunk_states" else "k5"
+            row["restic_lanes"] = {
+                "ms_single": large_strip[f"{k}_ms"],
+                "chain_floor_ms": large_strip["chain_floor_ms"],
+                "longest_chunk_blocks": large_strip["longest_chunk_blocks"],
+                "lanes": large_strip["lanes"], "bps": large_strip["bps"]}
+        if row["name"] == "sha256_spans":
+            row["long_span"] = large_k7
         row["launches_path"] = LAUNCHES_PATH[row["name"]]
         row["launches"] = launches[row["launches_path"]][row["name"]]
         row["launches_by_path"] = {p: c[row["name"]]

@@ -9,7 +9,8 @@
 // the kernel, so a whole chunk table is one launch with no temporaries.
 //
 //   data    [M] u8   the resident bytes
-//   spans   [3, N] i32  starts, lengths (>= 0), and the order: thread t
+//   spans   [3, N] i32  starts, lengths (0 <= len < 2^31: up to 2^25 + 1
+//                       blocks, counted in 64 bits), and the order: thread t
 //                       hashes span order[t] and writes its row, so the
 //                       output stays in input order
 //   out     [N, 8] u32  the SHA-256 state of each padded span
@@ -55,7 +56,7 @@ struct SpanSource {
   uintptr_t a0;       // the span's first byte
   uintptr_t lo, hi;   // the array
   int len;
-  int last;           // its last block: (len + 8) / 64
+  int last;           // its last block: (len + 8) / 64, taken in 64 bits
   uint32_t sel;       // PRMT selector: BE word from a byte offset (a0 & 3)
   uint32_t q;         // word offset within the 16-byte piece: (a0 >> 2) & 3
   uint4 raw[5];
@@ -94,8 +95,10 @@ struct SpanSource {
     for (int k = 0; k < 17; ++k) s[k] = (q & 2) ? t[k + 2] : t[k];
 #pragma unroll
     for (int k = 0; k < 16; ++k) w[k] = __byte_perm(s[k], s[k + 1], sel);
-    const int rel = len - 64 * l;             // span bytes left here
-    if (rel < 64) {                           // the FIPS padding
+    // span bytes left here (64 * l passes 2^31 in a span's last block)
+    const long long left = static_cast<long long>(len) - 64LL * l;
+    if (left < 64) {                          // the FIPS padding
+      const int rel = static_cast<int>(left);  // >= -8
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const int r = rel - 4 * k;
@@ -125,7 +128,7 @@ sha256_spans_kernel(const uint8_t* __restrict__ data, long long m,
   src.hi = src.lo + static_cast<uintptr_t>(m);
   src.a0 = src.lo + static_cast<uintptr_t>(t < n_spans ? spans[span] : 0);
   src.len = t < n_spans ? spans[n_spans + span] : 0;
-  src.last = (src.len + 8) / 64;
+  src.last = static_cast<int>((static_cast<long long>(src.len) + 8) / 64);
   const uint32_t b = static_cast<uint32_t>(src.a0 & 3);
   src.sel = (b + 3) | (b + 2) << 4 | (b + 1) << 8 | b << 12;
   src.q = static_cast<uint32_t>(src.a0 >> 2) & 3;

@@ -28,10 +28,26 @@
 // A lane's rows after its last flagged block (its dead rows) are read by
 // no consumer of the states and are stored as 0.
 //
+// Two layouts of the CTA's chunk tables, one template each:
+//  - narrow (lanes of up to 65,536 blocks whose lists fit, the default
+//    geometry): the tables in shared memory, a chunk packed as (lane << 16
+//    | last block), 16-bit ranks, at most kMaxChunks chunks a CTA, ranked
+//    exactly longest first;
+//  - wide (lanes of up to 2^20 blocks, 64 MiB: restic's and Borg's 8 MiB
+//    chunks, dfs_tpu's 32 MiB lanes): only the flag bitmaps in shared
+//    memory (a lane of 2^19 blocks is 64 KiB), the tables in a device
+//    scratch the wrapper sizes at 3 words a list entry, a chunk packed as
+//    (lane << 20 | last block) with 32-bit ranks, ranked longest first by
+//    length class (floor(log2 blocks)), so a CTA of 2^19 one-block chunks
+//    ranks in linear time. A chunk's table entries are read only when a
+//    slot moves to its next chunk, so their home costs the chains nothing.
+//
 // Layouts (S lanes, bps blocks per lane):
 //   words_t  [bps*16, S] u32  BE word w of block t of lane s at [t*16+w, s]
 //   cutflag  [bps, S]    i32  nonzero after the last block of a chunk
 //   states   [bps*8, S]  u32  post-block chain state word i at [t*8+i, s]
+//   scratch  [3*S*cap]   u32  wide only: the CTA of lanes s0 .. s0+n-1
+//                             keeps its lists at [3*s0*cap, 3*(s0+n)*cap)
 
 #pragma once
 
@@ -46,21 +62,42 @@ constexpr int kSlots = 32;                 // chains in flight per CTA
 constexpr int kChainThreads = 3 * 32;      // consumer, producer, storer
 constexpr int kDefaultShared = 48 * 1024;  // dynamic, without opt-in
 constexpr int kMaxShared = 232448;         // 227 KB, the opt-in limit
-constexpr int kMaxChunks = 65534;          // per CTA: 16-bit ranks, 1 spare
-constexpr uint16_t kNone = 0xFFFFu;        // end of a slot's chunk list
+constexpr int kMaxChunks = 65534;          // narrow, per CTA: 16-bit ranks
 constexpr int kWkBytes = 2 * 16 * 32 * 16;    // W+K double buffer
 constexpr int kStBytes = 2 * 2 * 32 * 16;     // state double buffer
+constexpr int kClasses = 32;                  // wide: length classes
+constexpr int kMaxWideBlocks = 1 << 20;       // wide: 20-bit block field
+constexpr int kMaxWideLanes = 1 << 12;        // wide: 12-bit lane field
+constexpr int kChainStatic = 16;              // static shared, rounded up
+
+template <bool kWide>
+struct Layout {
+  using Rank = uint16_t;
+  static constexpr int kShift = 16;
+  static constexpr uint32_t kLast = 0xFFFFu;
+  static constexpr uint32_t kNone = 0xFFFFu;   // end of a slot's list
+};
+
+template <>
+struct Layout<true> {
+  using Rank = uint32_t;
+  static constexpr int kShift = 20;
+  static constexpr uint32_t kLast = 0xFFFFFu;
+  static constexpr uint32_t kNone = 0xFFFFFFFFu;
+};
 
 // Shared memory of a chain CTA: the W+K and state double buffers, per slot
 // (first chunk, work), per lane (count, base, live end) and a flag bitmap
-// of bps bits, and per chunk a packed (lane << 16 | last block) word, its
-// 16-bit entry of the rank order and its successor in its slot.
+// of bps bits; narrow: per chunk a packed word, its 16-bit entry of the
+// rank order and its successor in its slot; wide: two counters a length
+// class.
 __host__ __device__ inline size_t chain_shared_bytes(int lanes, int cap,
-                                                     int bps) {
+                                                     int bps, bool wide) {
   const size_t chunks = static_cast<size_t>(lanes) * cap;
-  return kWkBytes + kStBytes + kSlots * 8 +
-         static_cast<size_t>(lanes) * (12 + (bps + 31) / 32 * 4) +
-         chunks * 4 + 2 * ((chunks * 2 + 3) / 4 * 4);
+  const size_t fixed = kWkBytes + kStBytes + kSlots * 8 +
+                       static_cast<size_t>(lanes) * (12 + (bps + 31) / 32 * 4);
+  return wide ? fixed + 2 * kClasses * 4
+              : fixed + chunks * 4 + 2 * ((chunks * 2 + 3) / 4 * 4);
 }
 
 struct Chunk {
@@ -68,13 +105,15 @@ struct Chunk {
 };
 
 // Chunk g of the CTA (in lane-major stream order).
+template <bool kWide>
 __device__ __forceinline__ Chunk chunk_at(int g, const uint32_t* chunks,
                                           const int* base) {
+  using L = Layout<kWide>;
   const uint32_t p = chunks[g];
   Chunk c;
-  c.j = static_cast<int>(p >> 16);
-  c.last = static_cast<int>(p & 0xFFFFu);
-  c.start = g > base[c.j] ? static_cast<int>(chunks[g - 1] & 0xFFFFu) + 1
+  c.j = static_cast<int>(p >> L::kShift);
+  c.last = static_cast<int>(p & L::kLast);
+  c.start = g > base[c.j] ? static_cast<int>(chunks[g - 1] & L::kLast) + 1
                           : 0;
   return c;
 }
@@ -82,29 +121,35 @@ __device__ __forceinline__ Chunk chunk_at(int g, const uint32_t* chunks,
 // A slot's position: block t of the chunk c with rank r, while live.
 struct Cursor {
   Chunk c;
-  int r, t;
+  uint32_t r;
+  int t;
   bool live;
 };
 
-struct Lists {               // the CTA's chunk tables in shared memory
+template <bool kWide>
+struct Lists {               // the CTA's chunk tables
+  using Rank = typename Layout<kWide>::Rank;
   const uint32_t* chunks;
   const int* base;
-  const uint16_t* order;     // rank -> chunk
-  const uint16_t* next;      // rank -> next rank of the same slot
+  const Rank* order;         // rank -> chunk
+  const Rank* next;          // rank -> next rank of the same slot
 };
 
-__device__ __forceinline__ Cursor cursor_at(int r, const Lists& l) {
+template <bool kWide>
+__device__ __forceinline__ Cursor cursor_at(uint32_t r,
+                                            const Lists<kWide>& l) {
   Cursor u;
   u.r = r;
-  u.live = r != kNone;
+  u.live = r != Layout<kWide>::kNone;
   if (u.live) {
-    u.c = chunk_at(l.order[r], l.chunks, l.base);
+    u.c = chunk_at<kWide>(l.order[r], l.chunks, l.base);
     u.t = u.c.start;
   }
   return u;
 }
 
-__device__ __forceinline__ Cursor advance(Cursor u, const Lists& l) {
+template <bool kWide>
+__device__ __forceinline__ Cursor advance(Cursor u, const Lists<kWide>& l) {
   if (u.live && ++u.t > u.c.last) u = cursor_at(l.next[u.r], l);
   return u;
 }
@@ -123,27 +168,43 @@ __device__ __forceinline__ void chain_barrier() {
 }
 
 // One CTA per `lanes` consecutive lanes, at most `cap` chunks a lane.
+template <bool kWide>
 __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
     const uint32_t* __restrict__ words_t, const int32_t* __restrict__ cutflag,
-    uint32_t* __restrict__ states, int bps, int S, int lanes, int cap) {
+    uint32_t* __restrict__ states, int bps, int S, int lanes, int cap,
+    uint32_t* __restrict__ scratch) {
+  using L = Layout<kWide>;
+  using Rank = typename L::Rank;
   extern __shared__ __align__(16) unsigned char chain_smem[];
   const int n_words = (bps + 31) / 32;
-  const size_t n_cap = static_cast<size_t>(lanes) * cap;
+  const int s_lo = blockIdx.x * lanes;
+  const int n_lanes = min(lanes, S - s_lo);
   uint4* wk = reinterpret_cast<uint4*>(chain_smem);        // [2][16][32]
   uint4* sb = wk + 2 * 16 * 32;                            // [2][2][32]
-  int* head = reinterpret_cast<int*>(sb + 2 * 2 * 32);     // [kSlots]
-  int* work = head + kSlots;                               // [kSlots]
+  uint32_t* head = reinterpret_cast<uint32_t*>(sb + 2 * 2 * 32);  // [kSlots]
+  int* work = reinterpret_cast<int*>(head + kSlots);       // [kSlots]
   int* cnt = work + kSlots;                                // [lanes]
   int* base = cnt + lanes;                                 // [lanes]
   int* live_end = base + lanes;                            // [lanes]
   uint32_t* flags = reinterpret_cast<uint32_t*>(live_end + lanes);
-  uint32_t* chunks = flags + lanes * n_words;              // [n_cap]
-  uint16_t* order = reinterpret_cast<uint16_t*>(chunks + n_cap);
-  uint16_t* next = order + (n_cap + 1) / 2 * 2;            // [n_cap]
+  uint32_t* chunks;                                        // [n_cap]
+  Rank* order;                                             // [n_cap]
+  Rank* next;                                              // [n_cap]
+  int* cls = nullptr;          // wide: [2][kClasses] counts, then cursors
+  if constexpr (kWide) {
+    const size_t n_cap = static_cast<size_t>(n_lanes) * cap;
+    chunks = scratch + static_cast<size_t>(s_lo) * 3 * cap;
+    order = chunks + n_cap;
+    next = order + n_cap;
+    cls = reinterpret_cast<int*>(flags + lanes * n_words);
+  } else {
+    const size_t n_cap = static_cast<size_t>(lanes) * cap;
+    chunks = flags + lanes * n_words;
+    order = reinterpret_cast<Rank*>(chunks + n_cap);
+    next = order + (n_cap + 1) / 2 * 2;
+  }
   __shared__ int n_chunks;
 
-  const int s_lo = blockIdx.x * lanes;
-  const int n_lanes = min(lanes, S - s_lo);
   const size_t S64 = static_cast<size_t>(S);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
@@ -152,6 +213,8 @@ __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
   // lanes of one row) into per-lane bitmaps
   for (int i = threadIdx.x; i < n_lanes * n_words; i += blockDim.x)
     flags[i] = 0;
+  if constexpr (kWide)
+    for (int i = threadIdx.x; i < 2 * kClasses; i += blockDim.x) cls[i] = 0;
   __syncthreads();
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < n_lanes * bps; idx += blockDim.x) {
@@ -194,28 +257,52 @@ __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
         if (lane >= off) incl += v;
       }
       for (int i = k + incl - c; b; b &= b - 1)
-        chunks[i++] = (static_cast<uint32_t>(j) << 16) |
+        chunks[i++] = (static_cast<uint32_t>(j) << L::kShift) |
                       static_cast<uint32_t>((wi << 5) + __ffs(b) - 1);
       k += __shfl_sync(0xFFFFFFFFu, incl, 31);
     }
+    __syncwarp();
     if (lane == 0)
-      live_end[j] = cnt[j] ? static_cast<int>(chunks[k - 1] & 0xFFFFu) + 1
+      live_end[j] = cnt[j] ? static_cast<int>(chunks[k - 1] & L::kLast) + 1
                            : 0;
   }
   __syncthreads();
 
-  // rank the chunks, longest first (ties by position); zero the dead rows
+  // rank the chunks, longest first (narrow: exactly, ties by position;
+  // wide: by length class, in any order within a class); zero the dead
+  // rows
   const int n = n_chunks;
-  for (int g = threadIdx.x; g < n; g += blockDim.x) {
-    const Chunk cg = chunk_at(g, chunks, base);
-    const int lg = cg.last - cg.start;
-    int r = 0;
-    for (int h = 0; h < n; ++h) {
-      const Chunk ch = chunk_at(h, chunks, base);
-      const int lh = ch.last - ch.start;
-      r += (lh > lg) || (lh == lg && h < g);
+  if constexpr (kWide) {
+    for (int g = threadIdx.x; g < n; g += blockDim.x) {
+      const Chunk cg = chunk_at<kWide>(g, chunks, base);
+      atomicAdd(&cls[31 - __clz(cg.last - cg.start + 1)], 1);
     }
-    order[r] = static_cast<uint16_t>(g);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int b = 0;
+      for (int k = kClasses - 1; k >= 0; --k) {
+        cls[kClasses + k] = b;
+        b += cls[k];
+      }
+    }
+    __syncthreads();
+    for (int g = threadIdx.x; g < n; g += blockDim.x) {
+      const Chunk cg = chunk_at<kWide>(g, chunks, base);
+      const int k = 31 - __clz(cg.last - cg.start + 1);
+      order[atomicAdd(&cls[kClasses + k], 1)] = static_cast<Rank>(g);
+    }
+  } else {
+    for (int g = threadIdx.x; g < n; g += blockDim.x) {
+      const Chunk cg = chunk_at<kWide>(g, chunks, base);
+      const int lg = cg.last - cg.start;
+      int r = 0;
+      for (int h = 0; h < n; ++h) {
+        const Chunk ch = chunk_at<kWide>(h, chunks, base);
+        const int lh = ch.last - ch.start;
+        r += (lh > lg) || (lh == lg && h < g);
+      }
+      order[r] = static_cast<Rank>(g);
+    }
   }
   for (int idx = threadIdx.x; idx < n_lanes * bps; idx += blockDim.x) {
     const int j = idx % n_lanes, t = idx / n_lanes;
@@ -234,22 +321,19 @@ __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
   // since their scattered loads and stores share the SM's memory pipe
   // with the consumer's shared-memory reads.
   if (warp == 0) {
-    int total = 0;
+    int total = 0, longest = 1;
     for (int r = lane; r < n; r += 32) {
-      const Chunk c = chunk_at(order[r], chunks, base);
+      const Chunk c = chunk_at<kWide>(order[r], chunks, base);
       total += c.last - c.start + 1;
+      longest = max(longest, c.last - c.start + 1);
     }
     total = __reduce_add_sync(0xFFFFFFFFu, total);
-    int longest = 1;
-    if (n) {
-      const Chunk c = chunk_at(order[0], chunks, base);
-      longest = c.last - c.start + 1;
-    }
+    longest = __reduce_max_sync(0xFFFFFFFFu, longest);
     const int in_use = min(kSlots, total / longest + 2);
     int load = 0, last = -1;
-    head[lane] = kNone;
+    head[lane] = L::kNone;
     for (int r = 0; r < n; ++r) {
-      const Chunk c = chunk_at(order[r], chunks, base);
+      const Chunk c = chunk_at<kWide>(order[r], chunks, base);
       const unsigned key = lane < in_use
                                ? (static_cast<unsigned>(load) << 5) | lane
                                : 0xFFFFFFFFu;
@@ -257,12 +341,12 @@ __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
         if (last < 0)
           head[lane] = r;
         else
-          next[last] = static_cast<uint16_t>(r);
+          next[last] = static_cast<Rank>(r);
         last = r;
         load += c.last - c.start + 1;
       }
     }
-    if (last >= 0) next[last] = kNone;
+    if (last >= 0) next[last] = static_cast<Rank>(L::kNone);
     work[lane] = load;
   }
   __syncthreads();
@@ -270,7 +354,7 @@ __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
   // the chains: thread i of each warp serves slot i; the three walk the
   // slot's chunks in the same order and meet at the barrier once a block
   const int steps = __reduce_max_sync(0xFFFFFFFFu, work[lane]);
-  const Lists l{chunks, base, order, next};
+  const Lists<kWide> l{chunks, base, order, next};
   Cursor cur = cursor_at(head[lane], l);
   if (warp == 1) {                                   // producer
     uint32_t w[16], nw[16];
@@ -321,40 +405,45 @@ __global__ void __launch_bounds__(kChainThreads) chunk_chains_kernel(
 }
 
 // Lanes per chain CTA: about one CTA per SM, as far as shared memory and
-// the 16-bit ranks let (0: not even one lane fits).
-inline int lanes_per_cta(int S, int cap, int bps, int sms) {
+// the layout's fields let (0: not even one lane fits).
+inline int lanes_per_cta(int S, int cap, int bps, int sms, bool wide) {
   int lanes = (S + sms - 1) / sms;
+  if (wide && lanes > kMaxWideLanes) lanes = kMaxWideLanes;
   while (lanes > 0 &&
-         (chain_shared_bytes(lanes, cap, bps) >
+         (chain_shared_bytes(lanes, cap, bps, wide) +
+                  (wide ? kChainStatic : 0) >
               static_cast<size_t>(kMaxShared) ||
-          static_cast<long long>(lanes) * cap > kMaxChunks))
+          (!wide && static_cast<long long>(lanes) * cap > kMaxChunks)))
     --lanes;
   return lanes;
 }
 
 // Enqueue chunk_chains_kernel over all S lanes (at most cap chunks a lane)
-// on the current device.
+// on the current device. Wide: scratch holds 3 * S * cap words.
 inline cudaError_t launch_chunk_chains(const uint32_t* words_t,
                                        const int32_t* cutflag,
                                        uint32_t* states, int bps, int S,
-                                       int cap, cudaStream_t stream) {
+                                       int cap, bool wide, uint32_t* scratch,
+                                       cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int lanes = lanes_per_cta(S, cap, bps, sms > 0 ? sms : 1);
-  if (lanes < 1 || bps > 65536) return cudaErrorInvalidValue;
-  const size_t shared = chain_shared_bytes(lanes, cap, bps);
+  const int lanes = lanes_per_cta(S, cap, bps, sms > 0 ? sms : 1, wide);
+  if (lanes < 1 || bps > (wide ? kMaxWideBlocks : 65536) || cap < 1 ||
+      (wide && scratch == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t shared = chain_shared_bytes(lanes, cap, bps, wide);
+  auto kernel = wide ? chunk_chains_kernel<true> : chunk_chains_kernel<false>;
   if (shared > static_cast<size_t>(kDefaultShared)) {
-    err = cudaFuncSetAttribute(chunk_chains_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(shared));
     if (err != cudaSuccess) return err;
   }
-  chunk_chains_kernel<<<(S + lanes - 1) / lanes, kChainThreads, shared,
-                        stream>>>(words_t, cutflag, states, bps, S, lanes,
-                                  cap);
+  kernel<<<(S + lanes - 1) / lanes, kChainThreads, shared, stream>>>(
+      words_t, cutflag, states, bps, S, lanes, cap, scratch);
   return cudaGetLastError();
 }
 

@@ -15,7 +15,10 @@
 // chains every chunk in its own consumer thread, a producer warp computing
 // the message schedule beside it. What bounds it: the longest chunk's
 // chain of dependent compressions at the ALU issue rate of one SM
-// scheduler, not bytes or throughput. Any lane count.
+// scheduler, not bytes or throughput. Any lane count; lanes of up to 2^20
+// blocks in the wide layout, whose lists (in a scratch of 3 * s * bps
+// words, a list entry for every row a lane could flag) need no count of
+// the flags before the launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -23,11 +26,13 @@
 #include "strip_chunks.cuh"
 
 extern "C" int dfs_strip_states(const void* words_t, const void* cutflag,
-                                void* states, int bps, int s, void* stream) {
+                                void* states, int bps, int s, int wide,
+                                void* scratch, void* stream) {
   if (bps > 0 && s > 0)
     return static_cast<int>(launch_chunk_chains(
         static_cast<const uint32_t*>(words_t),
         static_cast<const int32_t*>(cutflag), static_cast<uint32_t*>(states),
-        bps, s, bps, static_cast<cudaStream_t>(stream)));
+        bps, s, bps, wide != 0, static_cast<uint32_t*>(scratch),
+        static_cast<cudaStream_t>(stream)));
   return static_cast<int>(cudaGetLastError());
 }

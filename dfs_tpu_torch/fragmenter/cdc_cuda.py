@@ -15,9 +15,11 @@ as the host ``cdc`` strategy, computed on the device.
 
 ``manifest_stream`` is the bounded-memory walk of ``fragmenter/stream.py``
 with the device bitmap for whole tiles and kernel 7 for the digests
-(``hash_fn``: each flush of ``hash_batch`` payloads is one host-to-device
-copy and one launch). ``device`` None means the card (raising without
-one); "cpu" runs the plain versions.
+(``hash_fn``: each flush of ``hash_batch`` payloads is cut, in order, into
+parts of at most ``split_bytes``, under 2^31 so that every start fits
+kernel 7's int32 table; each part is one host-to-device copy and one
+launch). ``device`` None means the card (raising without one); "cpu" runs
+the plain versions.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from dfs_tpu_torch.ops.sha256 import sha256_spans, state_to_hex
 from dfs_tpu_torch.utils.hashing import gear_table, next_pow2
 
 _DEFAULT_TILE = 32 * 1024 * 1024  # 32 MiB per device dispatch
+_SPLIT_BYTES = 2**31 - 1          # bytes of one kernel 7 call of a flush
 
 
 class CudaCdcFragmenter(MaterializingFragmenter):
@@ -44,7 +47,7 @@ class CudaCdcFragmenter(MaterializingFragmenter):
 
     def __init__(self, params: CDCParams | None = None,
                  tile_size: int = _DEFAULT_TILE, hash_batch: int = 512,
-                 device=None) -> None:
+                 device=None, split_bytes: int = _SPLIT_BYTES) -> None:
         self.params = params or CDCParams()
         self.device = resolve_device(device)
         self.table = gear_table(self.params.seed)
@@ -53,6 +56,9 @@ class CudaCdcFragmenter(MaterializingFragmenter):
             raise ValueError("tile_size must be a power of two (keeps the "
                              "resident array a whole number of tiles)")
         self.hash_batch = int(hash_batch)
+        self.split_bytes = int(split_bytes)
+        if not 0 < self.split_bytes < 2**31:
+            raise ValueError("split_bytes must be in [1, 2**31)")
         # device offsets stay below 2**31, as in dfs_tpu: longer streams
         # take the streaming path
         self._max_resident = 2**31 - self.tile_size
@@ -131,18 +137,27 @@ class CudaCdcFragmenter(MaterializingFragmenter):
                                  np.asarray(prev_g, dtype=np.uint32))
 
     def digest_many(self, payloads: list[bytes]) -> list[str]:
-        """Hash host byte strings: joined into one buffer, one
-        host-to-device copy, one kernel 7 launch."""
-        if not payloads:
-            return []
+        """Hash host byte strings, in order: cut into parts of at most
+        ``split_bytes`` (a longer payload is a part of its own), each part
+        joined into one buffer, one host-to-device copy and one kernel 7
+        launch."""
         lens = np.fromiter((len(p) for p in payloads), dtype=np.int64,
                            count=len(payloads))
-        starts = np.zeros_like(lens)
-        np.cumsum(lens[:-1], out=starts[1:])
-        joined = np.concatenate([np.frombuffer(p, dtype=np.uint8)
-                                 for p in payloads])
-        dev = torch.from_numpy(joined).to(self.device)
-        return state_to_hex(sha256_spans(dev, starts, lens))
+        out: list[str] = []
+        i = 0
+        while i < len(payloads):
+            ends = np.cumsum(lens[i:])
+            j = i + max(1, int(np.searchsorted(ends, self.split_bytes,
+                                               side="right")))
+            starts = np.zeros((j - i,), dtype=np.int64)
+            np.cumsum(lens[i:j - 1], out=starts[1:])
+            joined = np.concatenate([np.frombuffer(p, dtype=np.uint8)
+                                     for p in payloads[i:j]])
+            dev = torch.from_numpy(joined).to(self.device)
+            out.extend(state_to_hex(sha256_spans(dev, starts, lens[i:j])))
+            del dev, joined
+            i = j
+        return out
 
     def manifest_stream(self, blocks, name: str, store=None) -> Manifest:
         from dfs_tpu_torch.fragmenter.stream import (manifest_from_stream,

@@ -35,9 +35,9 @@ KERNELS: dict[str, tuple[str, str, list]] = {
     "strip_chunk_states": (
         "strip_chunk_states.cu", "dfs_strip_chunk_states",
         # words_t, real_blocks, cutflag, since, states, bps, s,
-        # seed, mask, min_b, max_b, stream
+        # seed, mask, min_b, max_b, sel_lanes, wide, scratch, stream
         [_P, _P, _P, _P, _P, _I, _I, ctypes.c_uint, ctypes.c_uint, _I, _I,
-         _P]),
+         _I, _I, _P, _P]),
     "repack_lanes": (
         "repack_lanes.cu", "dfs_repack_lanes",
         # words, m_total, w_off, sh8, out, s_pad, lane_words, stream
@@ -53,8 +53,8 @@ KERNELS: dict[str, tuple[str, str, list]] = {
         [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P]),
     "strip_states": (
         "strip_states.cu", "dfs_strip_states",
-        # words_t, cutflag, states, bps, s, stream
-        [_P, _P, _P, _I, _I, _P]),
+        # words_t, cutflag, states, bps, s, wide, scratch, stream
+        [_P, _P, _P, _I, _I, _I, _P, _P]),
     "sha256_blocks": (
         "sha256_blocks.cu", "dfs_sha256_blocks",
         # words, nblocks, out, rows, blocks, stream

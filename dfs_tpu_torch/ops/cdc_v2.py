@@ -256,18 +256,35 @@ def select_cuts(cand: torch.Tensor, real_blocks: torch.Tensor,
     """Lane-parallel greedy selection. cand [bps, S] bool; real_blocks [S]
     int — blocks present per lane (0 = padding lane). Returns (cutflag
     [bps, S] bool, since [bps, S] int32 — the cut chunk's length in blocks
-    at cut positions, 0 elsewhere)."""
+    at cut positions, 0 elsewhere).
+
+    The greedy rule cuts a chunk starting at block p at the first t >= p
+    with t < rb and ((cand[t] and t-p+1 >= min_blocks) or t-p+1 >=
+    max_blocks or t == rb-1). Taken cut to cut, as kernel 1's selection
+    does: from each lane's next candidate at or after every block (a
+    reversed running minimum), every lane jumps to its next cut at once,
+    so the steps are the most chunks a lane has, not ``bps``."""
     bps, s = cand.shape
-    rb = real_blocks.to(torch.int32)
-    since = torch.zeros((s,), dtype=torch.int32, device=cand.device)
-    cuts, lens = [], []
-    for t in range(bps):
-        since1 = since + 1
-        in_range = t < rb
-        is_last = rb == t + 1
-        cut = ((cand[t] & (since1 >= min_blocks))
-               | (since1 >= max_blocks) | is_last) & in_range
-        since = torch.where(cut, 0, torch.where(in_range, since1, since))
-        cuts.append(cut)
-        lens.append(torch.where(cut, since1, 0))
-    return torch.stack(cuts), torch.stack(lens).to(torch.int32)
+    dev = cand.device
+    i64 = torch.int64
+    rb = real_blocks.to(i64)
+    rows = torch.arange(bps, dtype=i64, device=dev)[:, None]
+    first = torch.where(cand, rows, bps).flip(0).cummin(0).values.flip(0)
+    first = torch.cat([first, first.new_full((1, s), bps)])    # [bps+1, S]
+    lane = torch.arange(s, dtype=i64, device=dev)
+    lo_off, hi_off = max(min_blocks, 1) - 1, max(max_blocks, 1) - 1
+    cutflag = torch.zeros((bps, s), dtype=torch.bool, device=dev)
+    since = torch.zeros((bps, s), dtype=torch.int32, device=dev)
+    p = torch.zeros((s,), dtype=i64, device=dev)
+    end = rb.clamp(0, bps)                       # blocks that can cut
+    live = p < end
+    while bool(live.any()):
+        cand_t = first[(p + lo_off).clamp(max=bps), lane]
+        cut = torch.minimum(cand_t, torch.minimum(p + hi_off, rb - 1))
+        live = live & (cut < bps)                # rb > bps: runs on uncut
+        t, j = cut[live], lane[live]
+        cutflag[t, j] = True
+        since[t, j] = (cut - p + 1)[live].to(torch.int32)
+        p = torch.where(live, cut + 1, p)
+        live = live & (p < end)
+    return cutflag, since

@@ -12,6 +12,10 @@ from the host per bucket. :func:`pack_gathered` is that packing alone: with
 ``sha256_blocks_plain`` it is kernel 7's plain version
 (``ops.sha256.sha256_spans_plain``). The port's v1 path hashes its spans
 with kernel 7 itself, one launch for every span.
+
+The bit length is the full 64 bits (:func:`length_words`), as FIPS 180-4,
+hashlib and kernel 7 write it; dfs_tpu's ``digest_gathered`` writes only
+its low 32, so the two differ on a span of 2^29 bytes or more.
 """
 
 from __future__ import annotations
@@ -22,6 +26,13 @@ import torch
 from dfs_tpu_torch.ops.gear import gear_bitmap_tile, table_tensor
 from dfs_tpu_torch.ops.sha256 import sha256_blocks
 from dfs_tpu_torch.utils import u32
+
+
+def length_words(ln):
+    """The FIPS 180-4 length words of ``ln``-byte messages: (word 14, word
+    15) of the last block, the high and low halves of the big-endian bit
+    length ``8 * ln``. ``ln``: an int or an int64 tensor."""
+    return ln >> 29, (ln << 3) & u32.M32
 
 
 def digest_gathered(data: torch.Tensor, starts: torch.Tensor,
@@ -50,9 +61,12 @@ def pack_gathered(data: torch.Tensor, starts: torch.Tensor,
     b = byte.reshape(byte.shape[0], l64 // 4, 4)
     w = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
     nb = torch.div(ln + 8, 64, rounding_mode="floor") + 1         # [B, 1]
-    bitlen = ((ln & u32.M32) * 8) & u32.M32
+    # a -1 padding row keeps dfs_tpu's words (its output is dropped)
+    bits_hi, bits_lo = length_words(ln & u32.M32)
+    bits_hi = torch.where(ln < 0, 0, bits_hi)
     widx = torch.arange(l64 // 4, dtype=i64, device=dev)[None, :]
-    words = torch.where(widx == nb * 16 - 1, bitlen, w)
+    words = torch.where(widx == nb * 16 - 1, bits_lo,
+                        torch.where(widx == nb * 16 - 2, bits_hi, w))
     return (u32.narrow(words).reshape(words.shape[0], l64 // 64, 16)
             .contiguous(), nb[:, 0].to(torch.int32))
 

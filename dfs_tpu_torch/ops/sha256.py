@@ -210,7 +210,8 @@ def _host_i64(x) -> np.ndarray:
 def span_table(starts, lens, m: int) -> np.ndarray:
     """[3, N] i32: the starts, the lengths and the longest-first order
     (stable) of N spans of an ``m``-byte array. Raises on a negative
-    length or a span outside the array."""
+    length, a span outside the array, or a start or length past int32:
+    exactly the spans kernel 7 takes."""
     st, ln = _host_i64(starts), _host_i64(lens)
     if st.shape != ln.shape:
         raise ValueError(f"{NAME_K7}: {st.shape[0]} starts, "
@@ -220,8 +221,9 @@ def span_table(starts, lens, m: int) -> np.ndarray:
     if st.size and (int(st.min()) < 0 or int((st + ln).max()) > m):
         raise ValueError(f"{NAME_K7}: a span lies outside the {m}-byte "
                          "array")
-    if st.size and int((st + ln).max()) >= 2**31:
-        raise ValueError(f"{NAME_K7}: span offsets must fit in int32")
+    if st.size and max(int(st.max()), int(ln.max())) >= 2**31:
+        raise ValueError(f"{NAME_K7}: span starts and lengths must fit in "
+                         "int32")
     order = np.argsort(-ln, kind="stable")
     return np.stack([st, ln, order]).astype(np.int32)
 

@@ -53,8 +53,8 @@ ENTRY = """
 extern "C" int run(const void* w, const void* cf, void* st, int bps, int s,
                    void* stream) {
   return (int)launch_chunk_chains((const uint32_t*)w, (const int32_t*)cf,
-                                  (uint32_t*)st, bps, s, bps,
-                                  (cudaStream_t)stream);
+                                  (uint32_t*)st, bps, s, bps, false,
+                                  nullptr, (cudaStream_t)stream);
 }
 """
 

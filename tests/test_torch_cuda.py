@@ -93,7 +93,10 @@ def test_kernels_match_plain_versions(dev):
     _same(k5, zero_dead_states(strip_states_plain(wt, k1[0]), k1[0]))
     _same(k5, k1[2])
     after = kernels.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    # one launch each of the five chain kernels, none of kernels 6 and 7
+    chain = {"select_walk", "repack_lanes", "bswap_transpose",
+             "strip_chunk_states", "strip_states"}
+    assert all(after[k] == before[k] + (k in chain) for k in after)
 
 
 def test_k4_select_walk_on_adversarial_cases(dev):
@@ -204,6 +207,98 @@ def test_strip_kernels_on_adversarial_lanes(dev, geom):
     assert after["strip_chunk_states"] == before["strip_chunk_states"] + 1
     assert after["strip_states"] == \
         before["strip_states"] + (2 if plain_states else 1)
+
+
+@pytest.mark.parametrize("geom", [(1, 2, 8, 64, 1, 45),
+                                  (2, 4, 16, 64, 3, 300),
+                                  (8, 16, 64, 256, 8, 45),
+                                  (4, 8, 32, 96, 5, 300)])
+def test_strip_kernels_wide_layout_matches_narrow_and_plain(dev, geom):
+    """K1 and K5 with the wide (large-lane) layout forced at a small
+    geometry, selection CTAs of 1 to 8 lanes, chain CTAs of one lane (45
+    lanes) and of several (300 lanes, more than the card's SMs): every
+    output equal to the narrow layout's, and states equal to the plain
+    versions' on live rows (dead rows 0). min_blocks 1 gives a list entry
+    for every block (the length-class ranking at its densest); K5 also on
+    hand-made flags."""
+    from dfs_tpu_torch import kernels
+    from dfs_tpu_torch.ops.sha256_strip import (plan_strip,
+                                                strip_chunk_states,
+                                                strip_chunk_states_plain,
+                                                strip_states,
+                                                strip_states_plain,
+                                                zero_dead_states)
+
+    min_b, avg_b, max_b, bps, sel, s = geom
+    cp = AlignedCdcParams(min_blocks=min_b, avg_blocks=avg_b,
+                          max_blocks=max_b, strip_blocks=bps)
+    rng = np.random.default_rng(bps * 10 + sel)
+    wt = _u32(rng.integers(0, 2**32, size=(bps * 16, s), dtype=np.uint32),
+              dev)
+    rb = rng.integers(0, bps + 1, size=s).astype(np.int32)
+    rb[:3] = [bps, 1, 0]
+    args = (wt, torch.from_numpy(rb).to(dev), cp.seed, cp.mask, min_b, max_b)
+    assert plan_strip("k1", bps, bps, True, "wide", sel).select_lanes == sel
+    before = kernels.launch_counts()
+    narrow = strip_chunk_states(*args, layout="narrow")
+    wide = strip_chunk_states(*args, layout="wide", select_lanes=sel)
+    for a, b in zip(narrow, wide):
+        _same(a, b)
+    plain = strip_chunk_states_plain(*args)
+    _same(wide[0], plain[0])
+    _same(wide[1], plain[1])
+    _same(wide[2], zero_dead_states(plain[2], plain[0]))
+    cf = (rng.random((bps, s)) < 0.2).astype(np.int32)
+    cf[:, 5] = 1
+    cf[:, 6] = 0
+    cf_t = torch.from_numpy(cf).to(dev)
+    k5 = strip_states(wt, cf_t, layout="wide")
+    _same(k5, strip_states(wt, cf_t, layout="narrow"))
+    _same(k5, zero_dead_states(strip_states_plain(wt, cf_t), cf_t))
+    _same(strip_states(wt, wide[0], layout="wide"), wide[2])
+    after = kernels.launch_counts()
+    assert after["strip_chunk_states"] == before["strip_chunk_states"] + 2
+    assert after["strip_states"] == before["strip_states"] + 3
+
+
+def test_strip_states_at_the_wide_layouts_block_limit(dev):
+    """K5 on two lanes of 2^20 blocks (64 MiB each: the wide layout's
+    20-bit block field full), flags every 4,099 blocks and on the last
+    row: the digest finished from each chunk's last state (one more
+    compression of its FIPS padding block) equals hashlib's, for the
+    first, a middle and the last chunk of each lane; rows after a lane's
+    last flag are 0."""
+    from dfs_tpu_torch.ops import sha256
+    from dfs_tpu_torch.ops.sha256_strip import plan_strip, strip_states
+
+    bps, s, every = 2**20, 2, 4099
+    assert plan_strip("k5", bps, bps).wide
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261021)
+    wt = torch.randint(0, 256, (bps * 16 * s * 4,), dtype=torch.uint8,
+                       device=dev, generator=gen).view(torch.int32).view(
+                           bps * 16, s).view(torch.uint32)
+    cf = torch.zeros((bps, s), dtype=torch.int32, device=dev)
+    cf[every - 1::every, :] = 1
+    cf[bps - 1, 0] = 1                 # lane 1 stops at its last flag
+    states = strip_states(wt, cf)
+    torch.cuda.synchronize()
+    flags = [np.flatnonzero(cf[:, j].cpu().numpy()) for j in range(s)]
+    rows = u32.widen(states).reshape(bps, 8, s)
+    for j in range(s):
+        lane = (wt[:, j].contiguous().cpu().view(torch.int32).numpy()
+                .view(np.uint32).astype(">u4").tobytes())
+        ends = flags[j]
+        for k in (0, len(ends) // 2, len(ends) - 1):
+            t0 = ends[k - 1] + 1 if k else 0
+            t1 = int(ends[k])
+            st = rows[t1, :, j][None, :]
+            ln = torch.tensor([(t1 - t0 + 1) * 64], device=dev)
+            dig = torch.stack(sha256.compress(
+                [st[:, i] for i in range(8)], sha256.pad_block(ln)), 1)
+            assert sha256.state_to_hex(u32.narrow(dig))[0] == \
+                hashlib.sha256(lane[t0 * 64:(t1 + 1) * 64]).hexdigest()
+        assert not bool(rows[int(ends[-1]) + 1:, :, j].any())
 
 
 def test_chain_and_walk_match_oracle_on_card(dev):

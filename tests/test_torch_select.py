@@ -29,11 +29,14 @@ from dfs_tpu_torch.ops.select import (NO_ANCHOR, TILE_BYTES, TILE_SHIFT,
 
 # (seg_min, seg_max) of tests/test_cdc_anchored.py's SMALL params, of the
 # default AnchoredCdcParams, and of the params a node derives for a
-# --max-chunk of 512 KiB and of 4 MiB (strips of 8192 and 65536 blocks:
-# seg_max one strip, seg_min three quarters of it)
+# --max-chunk of 512 KiB, 4 MiB, 8 MiB (restic's and Borg's) and 32 MiB
+# (the largest lane dfs_tpu's default 64 MiB region allows): strips of
+# 8192 to 524,288 blocks, seg_max one strip, seg_min three quarters of it
 SEGMENTS = {"small": (2048, 4096), "prod": (96 * 1024, 128 * 1024),
             "512k": (384 * 1024, 512 * 1024),
-            "4m": (3 * 2**20, 4 * 2**20)}
+            "4m": (3 * 2**20, 4 * 2**20),
+            "8m": (6 * 2**20, 8 * 2**20),
+            "32m": (24 * 2**20, 32 * 2**20)}
 RECORD_CHUNK = 4096     # tiles a chunk of the kernel's record ring
 
 
@@ -179,7 +182,7 @@ def large_segment_cases():
     rand = random_two_plane_tiles(np.random.default_rng(16), m_full,
                                   density=16)
     cases = []
-    for kind in ("512k", "4m"):
+    for kind in ("512k", "4m", "8m", "32m"):
         seg_min, seg_max = SEGMENTS[kind]
         edges = tiles_from_positions(edge_positions(
             seg_min, seg_max, 4321, n_full - 77), m_full)

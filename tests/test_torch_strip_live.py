@@ -18,8 +18,8 @@ from dfs_tpu_torch.ops.repack import repack_lanes
 from dfs_tpu_torch.ops.select import select_walk
 from dfs_tpu_torch.ops.sha256_strip import (MAX_SHARED, chain_shared_bytes,
                                             check_geometry, list_capacity,
-                                            live_state_rows,
-                                            select_shared_bytes,
+                                            live_state_rows, narrow_fits,
+                                            plan_strip, select_shared_bytes,
                                             strip_chunk_states,
                                             zero_dead_states)
 
@@ -86,8 +86,10 @@ def test_zero_dead_states_zeroes_exactly_the_dead_rows():
 
 
 def test_shared_memory_geometry_is_checked():
-    """The kernels keep bitmaps, W+K buffers and chunk lists in shared
-    memory; the wrappers raise on a geometry that does not fit."""
+    """The kernels keep bitmaps, W+K buffers and (narrow layout) chunk
+    lists in shared memory: the default geometry takes the narrow layout,
+    a lane or list past it the wide one, and the wrappers raise on a
+    geometry that fits neither."""
     assert list_capacity(2048, 32, 1024) == 65
     assert list_capacity(2048, 1, 1024) == 2049
     assert list_capacity(64, 4, 2) == 33          # max_b < min_b
@@ -97,15 +99,28 @@ def test_shared_memory_geometry_is_checked():
         fixed + 5 * (12 + 64 * 4) + 325 * 4 + 2 * 652
     assert chain_shared_bytes(1, 2048, 2048) == \
         fixed + 12 + 256 + 2048 * 8
-    check_geometry("k1", 2048, list_capacity(2048, 32, 1024),
-                   select_shared_bytes(2048))
+    assert chain_shared_bytes(1, 2048, 2048, wide=True) == \
+        fixed + 12 + 256 + 2 * 32 * 4
+    check_geometry("k1", 2048, list_capacity(2048, 32, 1024), select=True)
     check_geometry("k5", 2048, 2048)
     check_geometry("k5", 24000, 24000)
+    assert narrow_fits(2048, 65, select=True) and narrow_fits(24000, 24000)
+    # past the narrow layout: its shared memory, its 16-bit ranks
     assert chain_shared_bytes(1, 40000, 40000) > MAX_SHARED
+    assert not narrow_fits(40000, 40000)
+    assert not narrow_fits(65536, list_capacity(65536, 2, 1024), True)
+    assert plan_strip("k5", 40000, 40000).wide
+    assert plan_strip("k1", 65536, list_capacity(65536, 2, 1024),
+                      select=True).wide
+    with pytest.raises(ValueError, match="narrow"):
+        plan_strip("k5", 40000, 40000, layout="narrow")
+    # past the wide layout: its 20-bit block field (kernel 5), one lane's
+    # two selection bitmaps (kernel 1)
+    check_geometry("k5", 2**20, 2**20)
+    with pytest.raises(ValueError, match="block fields"):
+        check_geometry("k5", 2**20 + 1, 2**20 + 1)
     with pytest.raises(ValueError, match="shared memory"):
-        check_geometry("k5", 40000, 40000)
-    with pytest.raises(ValueError, match="chunk slots"):
-        check_geometry("k1", 65536, list_capacity(65536, 2, 1024))
+        check_geometry("k1", 2**20, 17, select=True)
 
 
 # the __graft_entry__.entry() geometry: 128 KiB region, 4 KiB lanes,

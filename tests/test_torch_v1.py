@@ -192,8 +192,14 @@ def test_span_table_orders_longest_first_and_rejects_bad_spans():
             S.sha256_spans_plain(data, starts, lens)
     with pytest.raises(ValueError):
         S.span_table([0, 1], [1], 10)
-    with pytest.raises(ValueError, match="int32"):       # offsets are i32
-        S.span_table([2**31 - 2], [5], 2**32)
+    # starts and lengths are i32, and so is all the kernel takes: a span
+    # may end past 2^31, and one may be 2^31 - 1 bytes long
+    for starts, lens in (([2**31], [5]), ([0], [2**31]),
+                         ([1, 2**31 + 7], [1, 1])):
+        with pytest.raises(ValueError, match="int32"):
+            S.span_table(starts, lens, 2**32 + 8)
+    table = S.span_table([2**31 - 2, 0], [5, 2**31 - 1], 2**32)
+    assert table.tolist() == [[2**31 - 2, 0], [5, 2**31 - 1], [1, 0]]
 
 
 def _port() -> CudaCdcFragmenter:
